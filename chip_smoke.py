@@ -1,36 +1,66 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one GPU and hold its kernels
+"""Drive the PyTorch/CUDA port's main paths on one GPU and hold its kernels
 against their plain PyTorch versions.
 
 Run from the repository root, on a machine with an NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-The main path is the paper's device pipeline at full size: a 2^26-cell f32
-field (256 MiB, seeded with numpy) through ``ops.jacobi1d_tiled`` (T = 64,
-W = 512), quantized by ``blockcodec.quantize`` into int32 codes
-[2^18, 256] at 7 bits, packed by ``ops.pack_codes`` at 8 bits, unpacked by
-``ops.unpack_codes`` and dequantized.  Phases, one line each:
+Two paths, each driven with the launch counts set to 0 just before it and
+read just after:
 
-1. build   — compile every ``csrc/*.cu`` with nvcc, all in parallel, and
-             launch each kernel once on a tiny input (set-up);
-2. card    — ``nvidia-smi`` name and power limit, and the rate of a 1 GiB
-             device-to-device copy;
-3. main    — the path above, launch counts zeroed before and read after;
-4. stencil — the jacobi kernel against its plain version (<= 1e-5, the
-             tolerance of tests/test_kernels.py), and the whole path against
-             the independent oracle ``ref.jacobi_chunked_ref`` on a small input;
-5. codec   — pack / unpack bit-identical to their plain versions at the
-             main-path shape and over a bits sweep with int32 wrap;
-6. the ``{"kernels": [...]}`` line, then the card line, then the result line.
+* stencil and codec: a 2^26-cell f32 field (256 MiB, seeded with numpy)
+  through ``ops.jacobi1d_tiled`` (T = 64, W = 512), quantized by
+  ``blockcodec.quantize`` into int32 codes [2^18, 256] at 7 bits, packed by
+  ``ops.pack_codes`` at 8 bits, unpacked by ``ops.unpack_codes`` and
+  dequantized;
+* serving granite-8b at its full published width (36 layers, d_model 4096,
+  bf16, random weights from a seeded ``torch.Generator`` on the card):
+  ``ModelApi.prefill`` on 4 x 2048 tokens (flash attention in every layer)
+  and ``ServeEngine.generate`` with an int8 KV cache on 8 prompts of
+  16-128 tokens, 32 new tokens each (kv_quant and kv_dequant in every
+  layer at every step), then a short int4 generate.
+
+Phases, one JSON line each:
+
+1. build     — compile every ``csrc/*.cu`` with nvcc, all in parallel, and
+               launch each kernel once on a tiny input (set-up);
+2. card      — ``nvidia-smi`` name and power limit, and the rate of a 1 GiB
+               device-to-device copy;
+3. main      — the stencil and codec path above;
+4. stencil   — the jacobi kernel against its plain version (<= 1e-5, the
+               tolerance of tests/test_kernels.py), and the whole path against
+               the independent oracle ``ref.jacobi_chunked_ref`` on a small input;
+5. codec     — pack / unpack bit-identical to their plain versions at the
+               main-path shape and over a bits sweep with int32 wrap;
+6. lm_init   — the granite-8b weights on the card (count, GiB, seconds);
+7. prefill   — the prefill path: 36 flash launches, finite logits (4, 49152),
+               a profile of one more prefill (device ops, idle share);
+8. serve     — the generate path: 2 x 36 x steps launches of each kv kernel,
+               tokens/s, cache bytes, peak memory; an int4 generate; a profile
+               of 8 decode steps (top device ops, idle share);
+9. kvpack    — kv_quant / kv_dequant bit-identical to their plain versions
+               at the serve path's shapes, bits 8 and 4, f32 and bf16, and on
+               an odd row count;
+10. attention — the flash kernel against its plain version at one layer's
+               prefill shape (bf16: o within 3e-2, lse within 1e-3) and on
+               the f32 cases of tests/test_flash_attention.py (2e-5);
+11. lm_parity — the granite-8b smoke config with the same weights on the card
+               (kernels) and on the CPU (plain paths): f32 logits within 1e-4
+               and identical greedy tokens, bf16 logits within 3e-2 of the
+               largest logit, for kv_cache_bits 16, 8 and 4;
+12. the ``{"kernels": [...]}`` line, then the card line, then the result line.
 
 ``bound_ms`` is the larger of the bytes the function must move over the
-H100's published 3.35 TB/s and its operations over the published 67 TFLOP/s
-of fp32 outside the tensor cores (the table has no int32 rate; 32-bit
-integer operations are charged at that rate).  ``copy_bound_ms`` divides the
-same bytes by this run's measured copy rate.  Exits non-zero, printing no
-result, when there is no GPU or any check fails.
+H100's published 3.35 TB/s and its operations over the published peak for
+their type: 989 TFLOP/s for bf16 attention (tensor cores, dense), else
+67 TFLOP/s of fp32 outside the tensor cores (the table has no int32 rate;
+32-bit integer operations are charged at that rate).  ``copy_bound_ms``
+divides the same bytes by this run's measured copy rate.  Exits non-zero,
+printing no result, when there is no GPU or any check fails.
 """
+import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -42,17 +72,31 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.configs import base as configs  # noqa: E402
 from repro_torch.core import blockcodec  # noqa: E402
-from repro_torch.kernels import _build, bitplane, jacobi_mars, ops, ref  # noqa: E402
+from repro_torch.kernels import (_build, bitplane, flash_attention,  # noqa: E402
+                                 jacobi_mars, kvpack, ops, ref)
+from repro_torch.models import model_zoo  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM, bf16 tensor cores, dense (data sheet)
 
 SEED = 0
 N_CELLS, T_STEPS, WIDTH = 1 << 26, 64, 512
 QBITS, BITS, BLOCK = 7, 8, 256
 SWEEP_BITS, SWEEP_ROWS = (1, 4, 7, 8, 13, 16, 31, 32), 4096
 JACOBI_TOL = 1e-5
+STENCIL_KERNELS = ("bitplane.pack", "bitplane.unpack", "jacobi_mars.jacobi_chunked")
+
+ARCH = "granite-8b"
+PREFILL_B, PREFILL_S = 4, 2048
+SERVE_B, SERVE_SEQ, SERVE_NEW = 8, 256, 32
+PROFILE_STEPS = 8
+PARITY_B, PARITY_S, PARITY_STEPS, PARITY_NEW = 4, 64, 24, 8
+F32_TOL, BF16_REL = 1e-4, 3e-2          # bf16: relative to the largest logit
+FLASH_BF16_TOL, FLASH_LSE_TOL, FLASH_F32_TOL = 3e-2, 1e-3, 2e-5
 
 
 class CheckFailed(RuntimeError):
@@ -83,9 +127,10 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: int, nops: int, copy_rate: float) -> dict:
+def bound(nbytes: int, nops: int, copy_rate: float,
+          ops_per_s: float = FP32_OPS_PER_S) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "copy_bound_ms": nbytes / copy_rate * 1e3}
@@ -119,6 +164,9 @@ def phase_build(dev) -> None:
     codes = torch.zeros(8, BLOCK, dtype=torch.int32, device=dev)
     bitplane.unpack(bitplane.pack(codes, BITS), BITS, BLOCK)
     jacobi_mars.jacobi_chunked(torch.zeros(64, device=dev), 4, 16)
+    kvpack.kv_dequant(*kvpack.kv_quant(torch.ones(8, 128, device=dev), 8), 8)
+    qkv = torch.ones(1, 64, 1, 1, 64, device=dev)
+    flash_attention.flash_fwd(qkv, qkv[:, :, :, 0], qkv[:, :, :, 0])
     torch.cuda.synchronize()
     emit({"phase": "build", "seconds": t1 - t0,
           "first_launch_seconds": time.perf_counter() - t1,
@@ -160,7 +208,10 @@ def phase_main(dev) -> dict:
     launches = ops.launch_counts()
 
     for name, count in launches.items():
-        check(count >= 1, f"main path never launched {name}: {launches}")
+        if name in STENCIL_KERNELS:
+            check(count >= 1, f"main path never launched {name}: {launches}")
+        else:
+            check(count == 0, f"the stencil path launched {name}: {launches}")
     check(out.shape == (N_CELLS // BLOCK, BLOCK), f"output shape {out.shape}")
     check(bool(torch.isfinite(out).all()), "non-finite output")
     check(bool(torch.equal(q2, q)), "codes changed in the pack/unpack round trip")
@@ -263,17 +314,391 @@ def phase_codec(dev, main: dict, copy_rate: float) -> list:
     return rows
 
 
+def dev_us(e) -> float:
+    """Self device time of a profiler average, in us (either attribute name)."""
+    return getattr(e, "self_device_time_total", None) or \
+        getattr(e, "self_cuda_time_total", 0)
+
+
+def launch_costs(fn, kernel_key: str, n: int = 200) -> dict:
+    """Host us per call of a wrapper, and its kernel's own device us.
+
+    CUDA events around one call of a tiny kernel time the wrapper's host
+    work as much as the kernel; these two numbers split that time.
+    """
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    host_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel_key in e.key and dev_us(e) > 0]
+    return {"host_us_per_call": host_us,
+            "kernel_device_us": dev_us(hits[0]) / hits[0].count if hits else None}
+
+
+def device_profile(fn, watch: dict, top: int = 5) -> dict:
+    """Run fn under torch.profiler: top device ops by self time, idle share.
+
+    The idle share is 1 - (union of device-op intervals) / (first device-op
+    start to last device-op end): the part of the device's own window in
+    which no kernel, copy or fill ran.  Each top op's share is of the busy
+    time.  ``watch`` maps a label to a substring of kernel names whose
+    device time is summed under that label (the port's own kernels).
+    """
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.time_range.end > e.time_range.start)
+    if not spans:
+        return {"profiled_wall_ms": wall_ms, "top_device_ops": None,
+                "device_idle_share": None,
+                "note": "the profiler recorded no device events: not measured"}
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = s0, e0
+        else:
+            cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    window_us = spans[-1][1] - spans[0][0]
+    # device-side entries only: a CPU op's own entry repeats the device
+    # time of the kernels it launched
+    ops_ = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA),
+                  key=dev_us, reverse=True)
+    return {"profiled_wall_ms": wall_ms, "device_window_ms": window_us / 1e3,
+            "device_busy_ms": busy / 1e3, "device_ops": len(spans),
+            "device_idle_share": 1 - busy / window_us,
+            "watched": {label: {
+                "device_ms": sum(dev_us(e) for e in ops_ if key in e.key) / 1e3,
+                "launches": sum(e.count for e in ops_ if key in e.key),
+                "share_of_busy": sum(dev_us(e) for e in ops_ if key in e.key) / busy}
+                for label, key in watch.items()},
+            "top_device_ops": [{"name": e.key[:120], "device_ms": dev_us(e) / 1e3,
+                                "share_of_busy": dev_us(e) / busy,
+                                "count": e.count}
+                               for e in ops_[:top] if dev_us(e) > 0]}
+
+
+def phase_lm_init(dev) -> dict:
+    cfg = configs.load_arch(ARCH)
+    rc = configs.RunConfig(seq_len=SERVE_SEQ, global_batch=SERVE_B,
+                           kind="decode", kv_cache_bits=8)
+    t0 = time.perf_counter()
+    params = model_zoo.get_api(cfg, rc, dev).init(SEED)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    check(n == cfg.param_count(), f"{n} parameters, config says {cfg.param_count()}")
+    check(all(p.device.type == "cuda" and p.dtype == torch.bfloat16
+              for p in params.parameters()), "a weight is not bf16 on the card")
+    emit({"phase": "lm_init", "arch": ARCH, "n_layers": cfg.n_layers,
+          "d_model": cfg.d_model, "params": n, "GiB": nbytes / 2**30,
+          "seconds": secs, "seed": SEED})
+    return {"cfg": cfg, "rc": rc, "params": params}
+
+
+def phase_prefill(dev, lm: dict) -> dict:
+    cfg, params = lm["cfg"], lm["params"]
+    rc = configs.RunConfig(seq_len=PREFILL_S, global_batch=PREFILL_B,
+                           kind="prefill")
+    api = model_zoo.get_api(cfg, rc, dev)
+    rng = np.random.default_rng(SEED + 3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (PREFILL_B, PREFILL_S))).to(dev)
+    t0 = time.perf_counter()
+    api.prefill(params, {"tokens": toks})        # first use of the GEMM shapes
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    lg = api.prefill(params, {"tokens": toks})
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+
+    check(launches["flash_attention.flash_fwd"] == cfg.n_layers,
+          f"prefill launched flash {launches['flash_attention.flash_fwd']} times")
+    check(all(v == 0 for k, v in launches.items()
+              if k != "flash_attention.flash_fwd"), f"prefill launches {launches}")
+    check(tuple(lg.shape) == (PREFILL_B, cfg.vocab), f"logits {tuple(lg.shape)}")
+    check(bool(torch.isfinite(lg).all()), "non-finite prefill logits")
+    prof = device_profile(lambda: api.prefill(params, {"tokens": toks}),
+                          {"flash": "flash_fwd_kernel"})
+    emit({"phase": "prefill", "batch": PREFILL_B, "seq": PREFILL_S,
+          "q_block": rc.q_block, "kv_block": rc.kv_block,
+          "first_call_ms": warm_ms, "wall_ms": wall_ms,
+          "tokens_per_s": PREFILL_B * PREFILL_S / (wall_ms * 1e-3),
+          "launches": launches,
+          "peak_GiB": torch.cuda.max_memory_allocated(dev) / 2**30,
+          "logits": list(lg.shape), **prof})
+    return {"launches": launches, "wall_ms": wall_ms}
+
+
+def phase_serve(dev, lm: dict) -> dict:
+    cfg, rc, params = lm["cfg"], lm["rc"], lm["params"]
+    rng = np.random.default_rng(SEED + 4)
+    lens = rng.integers(16, 129, SERVE_B)
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist() for n in lens]
+    engine = ServeEngine(cfg, rc, params=params, device=str(dev))
+    engine.generate([p[:4] for p in prompts], max_new=2)   # first use of shapes
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.generate(prompts, max_new=SERVE_NEW)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    launches = ops.launch_counts()
+    steps = int(lens.max()) + SERVE_NEW - 1
+    per_kernel = 2 * cfg.n_layers * steps
+    for name in ("kvpack.kv_quant", "kvpack.kv_dequant"):
+        check(launches[name] == per_kernel,
+              f"generate launched {name} {launches[name]} times, want {per_kernel}")
+    check([len(t) for t in out] == [SERVE_NEW] * SERVE_B, "generated lengths")
+    check(all(0 <= t < cfg.vocab for seq in out for t in seq), "token out of range")
+
+    # the int4 cache on the path too: a short generate
+    rc4 = dataclasses.replace(rc, kv_cache_bits=4)
+    engine4 = ServeEngine(cfg, rc4, params=params, device=str(dev))
+    short = [p[:16] for p in prompts]
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out4 = engine4.generate(short, max_new=4)
+    torch.cuda.synchronize()
+    wall4_ms = (time.perf_counter() - t0) * 1e3
+    launches4 = ops.launch_counts()
+    steps4 = 16 + 4 - 1
+    for name in ("kvpack.kv_quant", "kvpack.kv_dequant"):
+        check(launches4[name] == 2 * cfg.n_layers * steps4,
+              f"int4 generate launched {name} {launches4[name]} times")
+    check([len(t) for t in out4] == [4] * SERVE_B, "int4 generated lengths")
+
+    # 8 decode steps of the int8 engine under the profiler
+    state = engine.api.init_decode_state(SERVE_B)
+    cur = torch.tensor([p[0] for p in prompts], device=dev)
+    _, state = engine.api.decode_step(params, state, cur)
+
+    def steps_fn():
+        nonlocal state
+        for i in range(PROFILE_STEPS):
+            lg, state = engine.api.decode_step(params, state, cur)
+            torch.argmax(lg, dim=-1).cpu()               # as generate syncs
+    prof = device_profile(steps_fn, {"kv_quant": "::quant_kernel",
+                                     "kv_dequant": "dequant_kernel"})
+    n_prompt, n_gen = int(lens.sum()), SERVE_B * SERVE_NEW
+    emit({"phase": "serve", "batch": SERVE_B, "seq_len": SERVE_SEQ,
+          "kv_cache_bits": 8, "prompt_lens": lens.tolist(), "max_new": SERVE_NEW,
+          "decode_steps": steps, "wall_ms": wall_ms,
+          "step_ms": wall_ms / steps,
+          "prompt_tokens_per_s": n_prompt / (wall_ms * 1e-3),
+          "generated_tokens_per_s": n_gen / (wall_ms * 1e-3),
+          "kv_cache_bytes": engine.kv_cache_bytes(SERVE_B),
+          "kv_cache_bytes_int4": engine4.kv_cache_bytes(SERVE_B),
+          "peak_GiB": torch.cuda.max_memory_allocated(dev) / 2**30,
+          "launches": launches,
+          "int4": {"decode_steps": steps4, "wall_ms": wall4_ms,
+                   "launches": launches4},
+          "profile_steps": PROFILE_STEPS, **prof})
+    return {"launches": launches, "wall_ms": wall_ms, "steps": steps}
+
+
+def phase_lm_parity(dev) -> dict:
+    """The smoke config, same weights, kernels on the card vs plain on the CPU."""
+    cfg = configs.load_smoke(ARCH)
+    rng = np.random.default_rng(SEED + 5)
+    toks = rng.integers(0, cfg.vocab, (PARITY_B, PARITY_S))
+    prompts = [toks[i, :n].tolist() for i, n in enumerate((5, 17, 24, 9))]
+    results = []
+    for dtype in ("float32", "bfloat16"):
+        for bits in (16, 8, 4):
+            rc = configs.RunConfig(seq_len=PARITY_S, global_batch=PARITY_B,
+                                   kind="decode", param_dtype=dtype,
+                                   kv_cache_bits=bits, q_block=16, kv_block=32)
+            apis = {d: model_zoo.get_api(cfg, rc, d) for d in ("cpu", "cuda")}
+            params = {"cpu": apis["cpu"].init(SEED)}
+            params["cuda"] = copy.deepcopy(params["cpu"]).to(dev)
+            t = {d: torch.from_numpy(toks).to(d) for d in ("cpu", "cuda")}
+            pre = {d: apis[d].prefill(params[d], {"tokens": t[d]}).float().cpu()
+                   for d in apis}
+            errs = [float((pre["cuda"] - pre["cpu"]).abs().max())]
+            scales = [float(pre["cpu"].abs().max())]
+            states = {d: apis[d].init_decode_state(PARITY_B) for d in apis}
+            for i in range(PARITY_STEPS):
+                lg = {}
+                for d in apis:
+                    out, states[d] = apis[d].decode_step(params[d], states[d],
+                                                         t[d][:, i])
+                    lg[d] = out.float().cpu()
+                errs.append(float((lg["cuda"] - lg["cpu"]).abs().max()))
+                scales.append(float(lg["cpu"].abs().max()))
+            gen = {d: ServeEngine(cfg, rc, params=params[d], device=d).generate(
+                prompts, max_new=PARITY_NEW) for d in apis}
+            if dtype == "float32":
+                ok = max(errs) <= F32_TOL and gen["cuda"] == gen["cpu"]
+            else:
+                ok = all(e <= BF16_REL * s for e, s in zip(errs, scales))
+            row = {"dtype": dtype, "kv_cache_bits": bits,
+                   "prefill_err": errs[0], "decode_max_err": max(errs[1:]),
+                   "max_rel_err": max(e / s for e, s in zip(errs, scales)),
+                   "tokens_equal": gen["cuda"] == gen["cpu"], "ok": ok}
+            results.append(row)
+            check(ok, f"lm_parity {row}")
+    emit({"phase": "lm_parity", "config": cfg.name, "batch": PARITY_B,
+          "seq": PARITY_S, "decode_steps": PARITY_STEPS, "max_new": PARITY_NEW,
+          "f32_tol": F32_TOL, "bf16_rel_tol": BF16_REL, "results": results})
+    return {"results": results}
+
+
+def phase_kvpack(dev, serve: dict, copy_rate: float) -> list:
+    rng = np.random.default_rng(SEED + 6)
+    cases = []
+    for rows in (64, 16384, 37):            # new rows, whole cache, odd count
+        base = rng.standard_normal((rows, 128)).astype(np.float32)
+        base[0] = 0.0                       # an all-zero row takes scale 1
+        for dt in (torch.float32, torch.bfloat16):
+            x = torch.from_numpy(base).to(dev).to(dt)
+            for bits in (8, 4):
+                c, s = kvpack.kv_quant(x, bits)
+                cp, sp = kvpack.kv_quant_plain(x, bits)
+                y, yp = kvpack.kv_dequant(c, s, bits), kvpack.kv_dequant_plain(c, s, bits)
+                same = [bool(torch.equal(c, cp)), bool(torch.equal(s, sp)),
+                        bool(torch.equal(y, yp))]
+                check(all(same), f"kvpack rows={rows} {dt} bits={bits}: "
+                      f"codes/scales/values equal {same}")
+                cases.append({"rows": rows, "dtype": str(dt).split(".")[1],
+                              "bits": bits, "identical": True})
+    # the serve path's own calls: bf16 new rows [64, 128] and the int8 cache
+    # [16384, 128] of one layer's K (or V) at batch 8, seq 256
+    x = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32)).to(dev).to(
+        torch.bfloat16)
+    cache = torch.from_numpy(rng.standard_normal((16384, 128)).astype(np.float32)).to(dev)
+    codes, scales = kvpack.kv_quant(cache, 8)
+    rows_out, costs = [], {}
+    for name, line, fn, plain, io, nops in (
+        ("kvpack.kv_quant", 26, lambda: kvpack.kv_quant(x, 8),
+         lambda: kvpack.kv_quant_plain(x, 8),
+         ops.kv_quant_io_bytes(64, 128, 8, 2), 64 * 128 * 7),
+        ("kvpack.kv_dequant", 40, lambda: kvpack.kv_dequant(codes, scales, 8),
+         lambda: kvpack.kv_dequant_plain(codes, scales, 8),
+         ops.kv_dequant_io_bytes(16384, 128, 8), 16384 * 128 * 2),
+    ):
+        rows_out.append({"name": name, "route": "cuda",
+                         "source": "src/repro_torch/kernels/csrc/kvpack.cu",
+                         "replaces": f"src/repro/kernels/kvpack.py:{line}",
+                         "launches": serve["launches"][name], "max_abs_err": 0.0,
+                         "ms": time_ms(fn, reps=50), "plain_ms": time_ms(plain, reps=20),
+                         **bound(sum(io), nops, copy_rate), "library_ms": None})
+        costs[name] = launch_costs(fn, "quant_kernel")
+    emit({"phase": "kvpack", "cases": cases, "launch_costs": costs,
+          "timed": {"kv_quant": [64, 128, "bfloat16", 8],
+                    "kv_dequant": [16384, 128, "int8"]},
+          "library_ms_null": "no single PyTorch call computes per-row absmax "
+                             "int8/int4 packing or its inverse",
+          "rows": rows_out})
+    return rows_out
+
+
+def phase_attention(dev, prefill: dict, copy_rate: float) -> dict:
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 7)
+
+    def qkv(B, S, KV, G, D, dt):
+        return (torch.randn(B, S, KV, G, D, generator=gen, device=dev).to(dt),
+                torch.randn(B, S, KV, D, generator=gen, device=dev).to(dt),
+                torch.randn(B, S, KV, D, generator=gen, device=dev).to(dt))
+
+    small = []
+    for (B, S, KV, G, D), causal, window in (
+            *[(shape, c, 0) for shape in ((1, 128, 1, 1, 64), (2, 256, 2, 2, 64),
+                                          (1, 256, 4, 1, 128), (1, 512, 2, 4, 64))
+              for c in (True, False)],
+            ((1, 256, 2, 2, 64), True, 32), ((1, 256, 2, 2, 64), True, 64)):
+        q, k, v = qkv(B, S, KV, G, D, torch.float32)
+        o, lse = flash_attention.flash_fwd(q, k, v, causal, window)
+        op, lp = flash_attention.flash_attention_plain(q, k, v, causal, window)
+        e_o, e_l = max_abs_diff(o, op), max_abs_diff(lse, lp)
+        check(e_o < FLASH_F32_TOL and e_l < FLASH_F32_TOL,
+              f"flash f32 {(B, S, KV, G, D)} causal={causal} window={window}: "
+              f"o {e_o}, lse {e_l}")
+        small.append({"shape": [B, S, KV, G, D], "causal": causal,
+                      "window": window, "o_err": e_o, "lse_err": e_l})
+
+    B, S, KV, G, D = PREFILL_B, PREFILL_S, 8, 4, 128   # one granite-8b layer
+    q, k, v = qkv(B, S, KV, G, D, torch.bfloat16)
+    o, lse = flash_attention.flash_fwd(q, k, v, True, 0)
+    op, lp = flash_attention.flash_attention_plain(q, k, v, True, 0)
+    e_o, e_l = max_abs_diff(o.float(), op.float()), max_abs_diff(lse, lp)
+    check(e_o < FLASH_BF16_TOL and e_l < FLASH_LSE_TOL,
+          f"flash bf16 at the prefill shape: o {e_o}, lse {e_l}")
+    del op, lp
+    ms = time_ms(lambda: flash_attention.flash_fwd(q, k, v, True, 0), reps=10)
+    plain_ms = time_ms(lambda: flash_attention.flash_attention_plain(q, k, v, True, 0),
+                       reps=3)
+    qs = q.reshape(B, S, KV * G, D).transpose(1, 2)
+    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True, enable_gqa=True), reps=10)
+    nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) + 4 * lse.numel()
+    flops = 4 * B * KV * G * S * S * D // 2            # useful, causal
+    row = {"name": "flash_attention.flash_fwd", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:50",
+           "launches": prefill["launches"]["flash_attention.flash_fwd"],
+           "max_abs_err": e_o, "ms": ms, "plain_ms": plain_ms,
+           **bound(nbytes, flops, copy_rate, BF16_FLOPS_PER_S),
+           "library_ms": lib_ms}
+    emit({"phase": "attention", "shape": [B, S, KV, G, D], "dtype": "bfloat16",
+          "causal": True, "o_err": e_o, "lse_err": e_l,
+          "tol": {"bf16_o": FLASH_BF16_TOL, "lse": FLASH_LSE_TOL,
+                  "f32": FLASH_F32_TOL},
+          "useful_flops": flops, "tflops_per_s": flops / (ms * 1e-3) / 1e12,
+          "library": "F.scaled_dot_product_attention(is_causal, enable_gqa)",
+          "small_f32": small, **row})
+    return row
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False   # f32 parity: full f32
+    torch.backends.cudnn.allow_tf32 = False
 
     phase_build(dev)
     smi, copy_rate = phase_card(dev)
     main_out = phase_main(dev)
     rows = [phase_stencil(dev, main_out, copy_rate),
             *phase_codec(dev, main_out, copy_rate)]
+    del main_out                                    # the stencil buffers
+    torch.cuda.empty_cache()
+
+    lm = phase_lm_init(dev)
+    prefill = phase_prefill(dev, lm)
+    serve = phase_serve(dev, lm)
+    del lm
+    torch.cuda.empty_cache()
+    rows += phase_kvpack(dev, serve, copy_rate)
+    rows.append(phase_attention(dev, prefill, copy_rate))
+    phase_lm_parity(dev)
     emit({"kernels": [{k: v for k, v in r.items() if k != "copy_bound_ms"}
                       for r in rows]})
     print(smi, flush=True)

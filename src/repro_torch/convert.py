@@ -5,9 +5,13 @@
   view of the same bits, and comes out as a ``torch.uint32`` view;
 * ``to_numpy``: a tensor back to numpy, ``uint32`` included;
 * ``codec_config``: a port ``BlockCodecConfig`` from any object with the
-  reference config's fields (``bits``, ``block``, ``delta``).
+  reference config's fields (``bits``, ``block``, ``delta``);
+* ``params_from_jax``: the port's model parameters from the reference's
+  ``DenseParams`` tree with numpy leaves.
 
-Nothing here imports JAX: the caller hands over numpy arrays.
+``bfloat16`` numpy arrays (as JAX hands them over) travel exactly, as the
+same 16-bit words.  Nothing here imports JAX: the caller hands over numpy
+arrays.
 """
 from __future__ import annotations
 
@@ -21,6 +25,8 @@ def to_torch(a, device: str | torch.device = "cuda") -> torch.Tensor:
     a = np.array(a, order="C")  # a writable copy: JAX buffers are read-only
     if a.dtype == np.uint32:
         return torch.from_numpy(a.view(np.int32)).to(device).view(torch.uint32)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).to(device).view(torch.bfloat16)
     return torch.from_numpy(a).to(device)
 
 
@@ -28,9 +34,49 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu().contiguous()
     if t.dtype == torch.uint32:
         return t.view(torch.int32).numpy().view(np.uint32)
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)  # exact; numpy has no bfloat16 of its own
     return t.numpy()
 
 
 def codec_config(cfg) -> BlockCodecConfig:
     return BlockCodecConfig(bits=int(cfg.bits), block=int(cfg.block),
                             delta=bool(cfg.delta))
+
+
+def params_from_jax(tree, cfg, device: str | torch.device = "cuda"):
+    """The port's ``DenseParams`` from the reference's, leaf for leaf.
+
+    ``tree`` is the reference's ``transformer.DenseParams`` after
+    ``np.asarray`` on every leaf (``jax.tree.map(np.asarray, params)``); it
+    is read by field name.  Its stacked ``[n_layers, ...]`` leaves are split
+    per layer.  Weights keep the ``(in, out)`` orientation, so ``x @ wq``
+    is the same product.  Dense and vlm families only.
+    """
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer
+
+    transformer.check_family(cfg)
+
+    def t(a):
+        return None if a is None else to_torch(a, device)
+
+    def at(a, i):
+        return None if a is None else t(np.asarray(a)[i])
+
+    e, ly = tree.embed, tree.layers
+    a, m = ly.attn, ly.mlp
+    embed = L.EmbedParams(table=t(e.table), unembed=t(e.unembed),
+                          final_norm=t(e.final_norm))
+    layers = []
+    for i in range(cfg.n_layers):
+        layers.append(transformer.LayerParams(
+            ln1=at(ly.ln1, i),
+            attn=L.AttnParams(wq=at(a.wq, i), wk=at(a.wk, i), wv=at(a.wv, i),
+                              wo=at(a.wo, i), bq=at(a.bq, i), bk=at(a.bk, i),
+                              bv=at(a.bv, i)),
+            ln2=at(ly.ln2, i),
+            mlp=L.MlpParams(w_gate=at(m.w_gate, i), w_up=at(m.w_up, i),
+                            w_down=at(m.w_down, i)),
+        ))
+    return transformer.DenseParams(embed, layers)

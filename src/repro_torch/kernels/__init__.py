@@ -3,6 +3,6 @@
 Importing this package needs no GPU: kernels are compiled (``_build``) and
 loaded at their first launch.
 """
-from . import bitplane, jacobi_mars, ops, ref
+from . import bitplane, flash_attention, jacobi_mars, kvpack, ops, ref
 
-__all__ = ["bitplane", "jacobi_mars", "ops", "ref"]
+__all__ = ["bitplane", "flash_attention", "jacobi_mars", "kvpack", "ops", "ref"]

@@ -23,10 +23,11 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: every kernel source of the package, by library name
-SOURCES = ("bitplane", "jacobi_mars")
+SOURCES = ("bitplane", "jacobi_mars", "kvpack", "flash_attention")
 
 #: sm_90a keeps Hopper-only instructions available; no --use_fast_math, so
-#: float division stays IEEE (the jacobi update divides by 3)
+#: float division stays IEEE (the jacobi update divides by 3, the KV
+#: quantizer by qmax and by the row scale)
 NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
               "-gencode", "arch=compute_90a,code=sm_90a", "-Xptxas", "-v")
 

@@ -1,0 +1,309 @@
+// GQA flash attention, forward, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernel
+// src/repro/kernels/flash_attention.py::_fwd_kernel (through _flash_fwd).
+// Same function:
+//
+//   q (B, S, KV, G, D), k / v (B, Sk, KV, D), f32 or bf16, contiguous.
+//   s = (q . k) * scale in f32 (inputs upcast), scale = D^-0.5;
+//   key t of query s is masked to the finite NEG_INF = -1e30 when
+//   (causal and s < t) or (window > 0 and s - t >= window);
+//   online softmax over key tiles with running (m, l, acc) in f32;
+//   o = acc / max(l, 1e-30) in q's dtype, lse = m + log(max(l, 1e-30)) f32
+//   (B, KV, G, S).
+//
+// A finite NEG_INF keeps the reference's arithmetic: a row whose keys so far
+// are all masked carries m = -1e30 and p = exp(0) = 1, and the first real
+// key wipes that state with alpha = exp(-1e30 - m) = 0.  Keys past Sk (the
+// ragged last tile) do not exist in the reference; they are -inf here, so
+// they add exactly nothing.  Key tiles wholly after the causal diagonal, or
+// wholly before the sliding window of every row of the query tile, are
+// skipped: each such tile leaves the state unchanged, or is wiped by the
+// first real key, exactly as above.  (When some row has no real key at all,
+// no tile is skipped before the band.)
+//
+// Design.  One block of 256 threads per (b, kv, g, 64-row query tile); the
+// query tile sits in shared memory, key and value tiles of 64 rows are
+// staged there in turn, both upcast to f32 (D zero-padded to 64 or 128).
+// A 16 x 16 thread grid: thread (ty, tx) owns query rows 4ty..4ty+3, holds
+// their scores for keys tx + 16j (j < 4), their (m, l), and their output
+// columns in float4 groups tx + 16jj.  Row max and row sum are 16-lane
+// __shfl_xor_sync reductions.  P goes to shared memory, over the key tile
+// it replaces, and acc += P V reads it back as float4.  Rows of the shared
+// tiles are padded by 4 floats, so the float4 reads are free of bank
+// conflicts.  Query tiles are issued heaviest (most keys) first.
+//
+// Bound on this card: operations.  4 B H S Sk D flops for full attention
+// (half for causal) against q, k, v, o read or written once; at prefill
+// shapes that is ~1000 flops per byte, above the tensor cores' ~295.  This
+// kernel runs its products on the fp32 CUDA cores (67 TFLOP/s), not the
+// tensor cores, so it cannot reach the bf16 bound: that is a later PR's
+// work (wgmma on bf16 tiles).
+
+#include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kBQ = 64;           // query rows per block
+constexpr int kBK = 64;           // keys per tile
+constexpr int kThreads = 256;     // 16 x 16
+constexpr float kNegInf = -1e30f;
+constexpr unsigned kFull = 0xFFFFFFFFu;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T> __device__ __forceinline__ T from_f32(float x);
+template <> __device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
+    float x) {
+  return __float2bfloat16(x);  // round to nearest even, as torch's cast
+}
+
+__device__ __forceinline__ float max16(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(kFull, x, off));
+  return x;
+}
+
+__device__ __forceinline__ float sum16(float x) {
+#pragma unroll
+  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+template <int DP>
+constexpr int smem_bytes() {
+  return (2 * kBK * (DP + 4) + kBK * DP) * 4;  // Q and K/P padded, V dense
+}
+
+// Stage rows [r0, r0 + 64) of a (rows, D) slice with row stride `stride`
+// into shared memory as f32, row stride `ld`, zero past `rows` and past D.
+template <typename T, int DP>
+__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
+                                      int64_t stride, int r0, int rows,
+                                      int D) {
+  for (int idx = threadIdx.x; idx < 64 * DP; idx += kThreads) {
+    const int r = idx / DP, c = idx % DP;
+    float val = 0.0f;
+    if (r0 + r < rows && c < D) val = to_f32(src[(r0 + r) * stride + c]);
+    dst[r * ld + c] = val;
+  }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                 const T* __restrict__ v, T* __restrict__ o,
+                 float* __restrict__ lse, int S, int Sk, int KV, int G, int D,
+                 int causal, int window, float scale) {
+  constexpr int QS = DP + 4;       // row stride of the Q and K tiles
+  constexpr int PS = kBK + 4;      // row stride of P (fits in the K tile)
+  constexpr int NG = DP / 64;      // float4 output groups per thread
+  extern __shared__ float4 smem4[];
+  float* sQ = reinterpret_cast<float*>(smem4);
+  float* sK = sQ + kBQ * QS;
+  float* sV = sK + kBK * QS;
+  float* sP = sK;
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int bkg = blockIdx.x;               // (b * KV + kv) * G + g
+  const int g = bkg % G, kvh = (bkg / G) % KV, b = bkg / (G * KV);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int64_t q_stride = static_cast<int64_t>(KV) * G * D;
+  const int64_t k_stride = static_cast<int64_t>(KV) * D;
+  const T* qb = q + static_cast<int64_t>(b) * S * q_stride + (kvh * G + g) * D;
+  T* ob = o + static_cast<int64_t>(b) * S * q_stride + (kvh * G + g) * D;
+  const int64_t kv_off = static_cast<int64_t>(b) * Sk * k_stride + kvh * D;
+
+  stage<T, DP>(sQ, QS, qb, q_stride, q0, S, D);
+
+  const int q1 = min(q0 + kBQ, S) - 1;     // last real row of the tile
+  const int n_kt = (Sk + kBK - 1) / kBK;
+  const int kt_end = causal ? min(n_kt, q1 / kBK + 1) : n_kt;
+  int kt_begin = 0;
+  if (window > 0 && q1 - window + 1 <= Sk - 1)
+    kt_begin = max(0, q0 - window + 1) / kBK;
+
+  float m[4], l[4], acc[4][NG][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.0f;
+#pragma unroll
+    for (int jj = 0; jj < NG; ++jj)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[i][jj][u] = 0.0f;
+  }
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * kBK;
+    __syncthreads();  // the previous tile's P and V are no longer read
+    stage<T, DP>(sK, QS, k + kv_off, k_stride, k0, Sk, D);
+    stage<T, DP>(sV, DP, v + kv_off, k_stride, k0, Sk, D);
+    __syncthreads();
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d4 = 0; d4 < DP / 4; ++d4) {
+      float4 qf[4], kf[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        qf[i] = *reinterpret_cast<const float4*>(&sQ[(ty * 4 + i) * QS + d4 * 4]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        kf[j] = *reinterpret_cast<const float4*>(&sK[(tx + 16 * j) * QS + d4 * 4]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qf[i].x, kf[j].x, s[i][j]);
+          s[i][j] = fmaf(qf[i].y, kf[j].y, s[i][j]);
+          s[i][j] = fmaf(qf[i].z, kf[j].z, s[i][j]);
+          s[i][j] = fmaf(qf[i].w, kf[j].w, s[i][j]);
+        }
+    }
+    __syncthreads();  // every thread is done with sK: P may overwrite it
+
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qpos = q0 + ty * 4 + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kpos = k0 + tx + 16 * j;
+        float x = s[i][j] * scale;
+        if (kpos >= Sk)
+          x = -INFINITY;  // no such key
+        else if ((causal && qpos < kpos) ||
+                 (window > 0 && qpos - kpos >= window))
+          x = kNegInf;
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float m_new = fmaxf(m[i], max16(mx));
+      const float alpha = expf(m[i] - m_new);
+      float rs = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float p = expf(s[i][j] - m_new);
+        sP[(ty * 4 + i) * PS + tx + 16 * j] = p;
+        rs += p;
+      }
+      l[i] = l[i] * alpha + sum16(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int jj = 0; jj < NG; ++jj)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[i][jj][u] *= alpha;
+    }
+    __syncthreads();
+
+#pragma unroll 2
+    for (int k4 = 0; k4 < kBK / 4; ++k4) {
+      float4 pf[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pf[i] = *reinterpret_cast<const float4*>(&sP[(ty * 4 + i) * PS + k4 * 4]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int jj = 0; jj < NG; ++jj) {
+          const float4 vf = *reinterpret_cast<const float4*>(
+              &sV[(k4 * 4 + kk) * DP + (tx + 16 * jj) * 4]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = comp(pf[i], kk);
+            acc[i][jj][0] = fmaf(p, vf.x, acc[i][jj][0]);
+            acc[i][jj][1] = fmaf(p, vf.y, acc[i][jj][1]);
+            acc[i][jj][2] = fmaf(p, vf.z, acc[i][jj][2]);
+            acc[i][jj][3] = fmaf(p, vf.w, acc[i][jj][3]);
+          }
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int qpos = q0 + ty * 4 + i;
+    if (qpos >= S) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int jj = 0; jj < NG; ++jj)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = (tx + 16 * jj) * 4 + u;
+        if (c < D) ob[qpos * q_stride + c] = from_f32<T>(acc[i][jj][u] / lc);
+      }
+    if (tx == 0) lse[static_cast<int64_t>(bkg) * S + qpos] = m[i] + logf(lc);
+  }
+}
+
+template <typename T, int DP>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   void* lse, int B, int S, int Sk, int KV, int G, int D,
+                   int causal, int window, float scale, cudaStream_t stream) {
+  auto kernel = flash_fwd_kernel<T, DP>;
+  constexpr int bytes = smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(B * KV * G, (S + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+      S, Sk, KV, G, D, causal, window, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Runs on `stream`, allocates nothing, does not synchronise, and returns
+// cudaGetLastError() after the launch (0 when it was accepted).  The caller
+// checks shapes: contiguous q (B, S, KV, G, D), k and v (B, Sk, KV, D) of
+// one dtype (bf16 when `is_bf16`, else f32), 1 <= D <= 128, S, Sk >= 1,
+// B * KV * G < 2^31, ceil(S / 64) <= 65535; o like q, lse f32 (B, KV, G, S).
+
+int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
+                     void* lse, int is_bf16, int B, int S, int Sk, int KV,
+                     int G, int D, int causal, int window, float scale,
+                     int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16) {
+    err = D <= 64 ? launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, S, Sk, KV, G,
+                                              D, causal, window, scale, s)
+                  : launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, S, Sk, KV,
+                                               G, D, causal, window, scale, s);
+  } else {
+    err = D <= 64 ? launch<float, 64>(q, k, v, o, lse, B, S, Sk, KV, G, D,
+                                      causal, window, scale, s)
+                  : launch<float, 128>(q, k, v, o, lse, B, S, Sk, KV, G, D,
+                                       causal, window, scale, s);
+  }
+  return err;
+}
+
+const char* kernel_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

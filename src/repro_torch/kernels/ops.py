@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.obs import instrument as obs
 
-from . import bitplane, jacobi_mars
+from . import bitplane, flash_attention, jacobi_mars, kvpack
 
 #: analytic HBM transaction beat, bytes (256-bit bus word) — the logical
 #: unit ``kernels/beats`` counts; deterministic, not a measured quantity
@@ -35,6 +35,9 @@ KERNELS = {
     "bitplane.pack": bitplane.pack,
     "bitplane.unpack": bitplane.unpack,
     "jacobi_mars.jacobi_chunked": jacobi_mars.jacobi_chunked,
+    "kvpack.kv_quant": kvpack.kv_quant,
+    "kvpack.kv_dequant": kvpack.kv_dequant,
+    "flash_attention.flash_fwd": flash_attention.flash_fwd,
 }
 
 
@@ -61,6 +64,18 @@ def unpack_io_bytes(n: int, block: int, bits: int):
     """(read, write) bytes for unpack_codes (pack's mirror)."""
     w, r = pack_io_bytes(n, block, bits)
     return r, w
+
+
+def kv_quant_io_bytes(rows: int, d: int, bits: int, itemsize: int = 4):
+    """(read, write) bytes for kv_quant: x -> (packed codes, f32 scales)."""
+    cd = d if bits == 8 else d // 2
+    return rows * d * itemsize, rows * cd + rows * 4
+
+
+def kv_dequant_io_bytes(rows: int, d: int, bits: int):
+    """(read, write) bytes for kv_dequant: (codes, scales) -> f32 values."""
+    r, w = kv_quant_io_bytes(rows, d, bits)
+    return w, rows * d * 4
 
 
 def jacobi_io_bytes(n: int):
@@ -123,6 +138,38 @@ def unpack_codes(planes: torch.Tensor, bits: int, block: int,
             out = bitplane.unpack(planes, bits, block)
     _record("unpack", m, *unpack_io_bytes(planes.shape[0], block, bits),
             bits=bits)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# KV block packing
+# ---------------------------------------------------------------------------
+
+def kv_quant(x: torch.Tensor, bits: int = 8, backend: str = "auto"):
+    """[rows, d] f32/bf16 -> (codes int8 [rows, d or d/2], scales f32 [rows, 1])."""
+    m = _mode(backend, x)
+    with obs.span("kernels/kv_quant", mode=m, bits=bits):
+        if m == "ref":
+            out = kvpack.kv_quant_plain(x, bits)
+        else:
+            out = kvpack.kv_quant(x, bits)
+    rows, d = x.shape
+    _record("kv_quant", m, *kv_quant_io_bytes(rows, d, bits, x.element_size()),
+            bits=bits)
+    return out
+
+
+def kv_dequant(codes: torch.Tensor, scales: torch.Tensor, bits: int = 8,
+               backend: str = "auto") -> torch.Tensor:
+    """(codes int8 [rows, cd], scales f32 [rows, 1]) -> f32 [rows, d]."""
+    m = _mode(backend, codes)
+    with obs.span("kernels/kv_dequant", mode=m, bits=bits):
+        if m == "ref":
+            out = kvpack.kv_dequant_plain(codes, scales, bits)
+        else:
+            out = kvpack.kv_dequant(codes, scales, bits)
+    _record("kv_dequant", m,
+            *kv_dequant_io_bytes(codes.shape[0], out.shape[-1], bits), bits=bits)
     return out
 
 

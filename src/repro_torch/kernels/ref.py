@@ -2,8 +2,7 @@
 
 Each function is the bit-exact (or tolerance-specified) reference the
 kernels are held against: by the CPU tests against the JAX package, and by
-``chip_smoke.py`` against the CUDA kernels on the card.  The KV-cache
-oracles come with the KV kernels.
+``chip_smoke.py`` against the CUDA kernels on the card.
 """
 from __future__ import annotations
 
@@ -35,6 +34,49 @@ def unpack_ref(planes: torch.Tensor, bits: int, block: int) -> torch.Tensor:
     g = planes.reshape(n, block // bc.GROUP, bits)
     d = bc.bitplane_unpack(g, bits).reshape(n, block)
     return bc.delta_decode(d)
+
+
+# ---------------------------------------------------------------------------
+# KV-cache block quantization (packed int8 / int4 + per-row scale markers)
+# ---------------------------------------------------------------------------
+
+def kv_quant_ref(x: torch.Tensor, bits: int = 8):
+    """[rows, d] float -> (codes int8 [rows, d or d/2], scale f32 [rows, 1]).
+
+    Symmetric per-row quantization, rounding half to even; int4 packs two
+    codes per byte (lo nibble = even column) by pairing neighbouring
+    columns.  Both divisions are by tensors on x's device, so on a GPU they
+    are IEEE quotients (a host-scalar divisor would become a multiply by its
+    reciprocal there; see ``jacobi_valid_steps``).
+    """
+    if bits not in (8, 4):
+        raise ValueError(bits)
+    x = x.to(torch.float32)
+    qmax = torch.tensor(float(2 ** (bits - 1) - 1), dtype=torch.float32,
+                        device=x.device)
+    amax = x.abs().amax(dim=-1, keepdim=True)
+    scale = torch.where(amax > 0, amax / qmax, torch.ones_like(amax))
+    q = torch.clamp(torch.round(x / scale), -qmax, qmax).to(torch.int32)
+    if bits == 8:
+        return q.to(torch.int8), scale
+    pairs = (q & 0xF).reshape(*q.shape[:-1], -1, 2)
+    return (pairs[..., 0] | (pairs[..., 1] << 4)).to(torch.int8), scale
+
+
+def kv_dequant_ref(codes: torch.Tensor, scale: torch.Tensor,
+                   bits: int = 8) -> torch.Tensor:
+    """Inverse of ``kv_quant_ref``: f32 ``codes * scale`` [rows, d]."""
+    c = codes.to(torch.int32)
+    if bits == 8:
+        q = c
+    elif bits == 4:
+        def sext4(v):
+            return ((v & 0xF) ^ 0x8) - 0x8
+        q = torch.stack([sext4(c), sext4(c >> 4)], dim=-1).reshape(
+            *c.shape[:-1], -1)
+    else:
+        raise ValueError(bits)
+    return q.to(torch.float32) * scale
 
 
 # ---------------------------------------------------------------------------

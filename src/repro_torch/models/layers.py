@@ -1,0 +1,403 @@
+"""Shared transformer layers: norms, RoPE, GQA attention, KV cache, MLPs.
+
+Port of ``repro.models.layers`` for the serving path.  Parameters live in
+small ``nn.Module``s under the reference's field names; the layer functions
+are plain functions on tensors, as in the reference.  Weights keep the
+reference's ``(in, out)`` orientation, so ``x @ wq`` is the same product.
+
+* attention on a CUDA tensor runs the flash kernel
+  (``kernels.flash_attention``); on a CPU tensor it runs the blockwise
+  online-softmax path below (the reference's non-TPU path);
+* the packed KV cache quantizes new rows and dequantizes the cache through
+  ``kernels.ops.kv_quant`` / ``kv_dequant`` (the kvpack kernels on a GPU);
+* RoPE uses the interleaved (GPT-J) pairing; GQA is computed in grouped form
+  (B, S, KV, G, D) with no repeated kv heads.
+
+The reference's sharding hooks (``shd.act``, ``checkpoint_name``, the
+``tp_scatter`` out-projection) have no counterpart yet; ``cross_attention``,
+``cross_entropy`` and ``fused_ce_loss`` come with the training slice.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+
+def _param(t: torch.Tensor) -> nn.Parameter:
+    """A weight of the forward-only port: no gradient is tracked."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
+    """N(0, 1) in f32 on the generator's device, times std, cast to dtype."""
+    return (torch.randn(shape, generator=gen, device=gen.device,
+                        dtype=F32) * std).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.to(F32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
+
+
+def init_rmsnorm(d: int, dtype, device) -> torch.Tensor:
+    return torch.ones((d,), dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (interleaved pairing)
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, ..., D) with pairs (2i, 2i+1); pos: (B, S) int."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(half, dtype=F32, device=x.device) / half)
+    ang = pos.to(F32)[..., None] * freqs                   # (B, S, half)
+    extra = x.dim() - 3
+    ang = ang.reshape(ang.shape[0], ang.shape[1], *([1] * extra), half)
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    xf = x.to(F32).reshape(*x.shape[:-1], half, 2)
+    x0, x1 = xf[..., 0], xf[..., 1]
+    r0 = x0 * cos - x1 * sin
+    r1 = x0 * sin + x1 * cos
+    return torch.stack([r0, r1], dim=-1).reshape(x.shape).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention parameters
+# ---------------------------------------------------------------------------
+
+class AttnParams(nn.Module):
+    """wq (d, H*hd), wk / wv (d, KV*hd), wo (H*hd, d); biases or None."""
+
+    def __init__(self, wq, wk, wv, wo, bq=None, bk=None, bv=None):
+        super().__init__()
+        self.wq, self.wk, self.wv, self.wo = map(_param, (wq, wk, wv, wo))
+        for name, b in (("bq", bq), ("bk", bk), ("bv", bv)):
+            self.register_parameter(name, None if b is None else _param(b))
+
+
+def init_attn(gen: torch.Generator, cfg: ModelConfig, dtype) -> AttnParams:
+    d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    s = d ** -0.5
+    bias = (lambda n: torch.zeros((n,), dtype=dtype, device=gen.device)) \
+        if cfg.qkv_bias else (lambda n: None)
+    return AttnParams(
+        wq=_normal(gen, (d, H * hd), s, dtype),
+        wk=_normal(gen, (d, KV * hd), s, dtype),
+        wv=_normal(gen, (d, KV * hd), s, dtype),
+        wo=_normal(gen, (H * hd, d), (H * hd) ** -0.5, dtype),
+        bq=bias(H * hd), bk=bias(KV * hd), bv=bias(KV * hd),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Blockwise attention (prefill)
+# ---------------------------------------------------------------------------
+
+def _qkv(x: torch.Tensor, p: AttnParams, cfg: ModelConfig, pos: torch.Tensor):
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if p.bq is not None:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    q = q.reshape(B, S, H, hd)
+    k = k.reshape(B, S, KV, hd)
+    v = v.reshape(B, S, KV, hd)
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    return q, k, v
+
+
+def _grouped(q: torch.Tensor, KV: int) -> torch.Tensor:
+    """(B, S, H, D) -> (B, S, KV, G, D)."""
+    B, S, H, D = q.shape
+    return q.reshape(B, S, KV, H // KV, D)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool, window: int,
+                        q_block: int, kv_block: int) -> torch.Tensor:
+    """Flash-style attention.  q: (B,S,H,D); k,v: (B,S,KV,D) -> (B,S,H,D).
+
+    The reference's non-TPU path, loop for loop: full-causal mode scans
+    every kv block per q block with masking; sliding-window mode takes a
+    (window + q_block)-wide band of kv blocks per q block.
+    """
+    B, S, H, D = q.shape
+    Sk = k.shape[1]
+    KV = k.shape[2]
+    G = H // KV
+    scale = D ** -0.5
+    if S % q_block or Sk % kv_block:
+        raise ValueError(f"S={S}, Sk={Sk} must be multiples of the blocks "
+                         f"q_block={q_block}, kv_block={kv_block}")
+    nq = S // q_block
+    qg = _grouped(q, KV)                                   # (B,S,KV,G,D)
+    kf, vf = k.to(F32), v.to(F32)
+    outs = []
+    for qi in range(nq):
+        qs = qg[:, qi * q_block:(qi + 1) * q_block].to(F32)
+        q_pos = qi * q_block + torch.arange(q_block, device=q.device)
+        if window > 0:
+            band = min(window + q_block, Sk)
+            nkb = -(-band // kv_block)
+            k_start = max(qi * q_block + q_block - band, 0)
+            k_start = max(min(k_start, Sk - nkb * kv_block), 0)
+        else:
+            nkb = Sk // kv_block
+            k_start = 0
+        m = torch.full((B, KV, G, q_block), NEG_INF, dtype=F32, device=q.device)
+        l = torch.zeros((B, KV, G, q_block), dtype=F32, device=q.device)
+        acc = torch.zeros((B, KV, G, q_block, D), dtype=F32, device=q.device)
+        for kb in range(nkb):
+            start = k_start + kb * kv_block
+            ks = kf[:, start:start + kv_block]
+            vs = vf[:, start:start + kv_block]
+            s = torch.einsum("bqkgd,bskd->bkgqs", qs, ks) * scale
+            k_pos = start + torch.arange(kv_block, device=q.device)
+            mask = torch.ones((q_block, kv_block), dtype=torch.bool,
+                              device=q.device)
+            if causal:
+                mask &= q_pos[:, None] >= k_pos[None, :]
+            if window > 0:
+                mask &= (q_pos[:, None] - k_pos[None, :]) < window
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum("bkgqs,bskd->bkgqd", p, vs)
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]   # (B,KV,G,Bq,D)
+        outs.append(out.permute(0, 3, 1, 2, 4))            # (B,Bq,KV,G,D)
+    return torch.cat(outs, dim=1).reshape(B, S, H, D).to(q.dtype)
+
+
+def attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
+              pos: torch.Tensor, q_block: int, kv_block: int,
+              window_override: Optional[int] = None,
+              causal: bool = True) -> torch.Tensor:
+    """Full prefill self-attention with output projection.
+
+    On a CUDA tensor the inner loops run as the flash kernel; on a CPU
+    tensor the blockwise path runs (same math, held equal in the tests), as
+    the reference dispatches on TPU / not TPU.
+    """
+    B, S, _ = x.shape
+    q, k, v = _qkv(x, p, cfg, pos)
+    window = cfg.sliding_window if window_override is None else window_override
+    if window >= S:
+        window = 0  # band covers everything: plain causal
+    qb = min(q_block, S)
+    kb = min(kv_block, S)
+    if S % qb:
+        qb = S   # odd lengths (e.g. vlm prefix + text): single block
+    if S % kb:
+        kb = S
+    if x.device.type == "cuda":
+        og = fa.flash_attention(_grouped(q, cfg.n_kv_heads), k, v, causal,
+                                window, qb, kb)
+        o = og.reshape(B, S, -1, cfg.hd)
+    else:
+        o = blockwise_attention(q, k, v, causal=causal, window=window,
+                                q_block=qb, kv_block=kb)
+    return o.reshape(B, S, -1) @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# Decode-step attention with KV cache
+# ---------------------------------------------------------------------------
+
+class KVCache(NamedTuple):
+    k: torch.Tensor        # (B, S_cache, KV, D), or int8 codes (.., D or D/2)
+    v: torch.Tensor
+    # scales are present only for packed (int8/int4) caches
+    k_scale: Optional[torch.Tensor]  # (B, S_cache, KV, 1) f32
+    v_scale: Optional[torch.Tensor]
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_cache: int, bits: int,
+               dtype=torch.bfloat16, device="cuda") -> KVCache:
+    KV, hd = cfg.n_kv_heads, cfg.hd
+    if bits == 16:
+        shape = (batch, s_cache, KV, hd)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device), None, None)
+    cd = hd if bits == 8 else hd // 2
+    codes = (batch, s_cache, KV, cd)
+    scale = (batch, s_cache, KV, 1)
+    return KVCache(torch.zeros(codes, dtype=torch.int8, device=device),
+                   torch.zeros(codes, dtype=torch.int8, device=device),
+                   torch.ones(scale, dtype=F32, device=device),
+                   torch.ones(scale, dtype=F32, device=device))
+
+
+def _quant_rows(x: torch.Tensor, bits: int):
+    """Symmetric per-(pos, head) quantization of (..., D) to int8/int4."""
+    codes, scale = ops.kv_quant(x.reshape(-1, x.shape[-1]), bits)
+    return (codes.reshape(*x.shape[:-1], codes.shape[-1]),
+            scale.reshape(*x.shape[:-1], 1))
+
+
+def _dequant_rows(codes: torch.Tensor, scale: torch.Tensor,
+                  bits: int) -> torch.Tensor:
+    out = ops.kv_dequant(codes.reshape(-1, codes.shape[-1]),
+                         scale.reshape(-1, 1), bits)
+    return out.reshape(*codes.shape[:-1], out.shape[-1])
+
+
+def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                 pos: torch.Tensor, bits: int) -> KVCache:
+    """Insert (B, 1, KV, D) new kv at per-batch position ``pos`` (B,).
+
+    Writes into the cache's tensors in place (the reference returns a new
+    cache; the port saves the copy) and returns the same cache.  Like the
+    reference's dynamic update slice, a position past the end is clamped to
+    the last slot.
+    """
+    S = cache.k.shape[1]
+    b = torch.arange(pos.shape[0], device=pos.device)
+    slot = torch.clamp(pos, 0, S - 1)
+    if bits == 16:
+        cache.k[b, slot] = k_new[:, 0].to(cache.k.dtype)
+        cache.v[b, slot] = v_new[:, 0].to(cache.v.dtype)
+        return cache
+    kq, ks = _quant_rows(k_new, bits)
+    vq, vs = _quant_rows(v_new, bits)
+    cache.k[b, slot] = kq[:, 0]
+    cache.v[b, slot] = vq[:, 0]
+    cache.k_scale[b, slot] = ks[:, 0]
+    cache.v_scale[b, slot] = vs[:, 0]
+    return cache
+
+
+def decode_attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
+                     cache: KVCache, pos: torch.Tensor, bits: int,
+                     window: int = 0) -> Tuple[torch.Tensor, KVCache]:
+    """One-token attention against the cache.  x: (B, 1, d); pos: (B,).
+
+    When the cache is shorter than the sequence (sliding-window models) it is
+    a ring buffer: slot j holds the key written at global position
+    ``pos - ((pos - j) mod S_cache)``.
+    """
+    B = x.shape[0]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    S = cache.k.shape[1]
+    ring = window > 0 and S <= window
+    slot = pos % S if ring else pos
+    q, k_new, v_new = _qkv(x, p, cfg, pos[:, None])
+    cache = update_cache(cache, k_new, v_new, slot, bits)
+
+    cdt = x.dtype
+    if bits == 16:
+        k, v = cache.k, cache.v
+    else:
+        k = _dequant_rows(cache.k, cache.k_scale, bits).to(cdt)
+        v = _dequant_rows(cache.v, cache.v_scale, bits).to(cdt)
+
+    j = torch.arange(S, device=x.device)[None, :]          # (1, S)
+    if ring:
+        k_pos = pos[:, None] - torch.remainder(pos[:, None] - j, S)
+        valid = k_pos >= 0
+    else:
+        k_pos = j
+        valid = k_pos <= pos[:, None]
+        if window > 0:
+            valid &= (pos[:, None] - k_pos) < window
+    # the reference multiplies in the cache dtype with f32 accumulation; the
+    # product of two bf16 values is exact in f32, so f32 operands are the
+    # same product
+    qg = _grouped(q, KV).to(k.dtype)                      # (B,1,KV,G,D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(F32), k.to(F32)) * (hd ** -0.5)
+    s = torch.where(valid[:, None, None, None, :], s, torch.full_like(s, NEG_INF))
+    p_attn = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p_attn.to(k.dtype).to(F32),
+                     v.to(F32))                            # (B,KV,G,1,D)
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, H * hd)
+    return o.to(x.dtype) @ p.wo, cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+class MlpParams(nn.Module):
+    """w_gate (d, ff) or None (gelu), w_up (d, ff), w_down (ff, d)."""
+
+    def __init__(self, w_gate, w_up, w_down):
+        super().__init__()
+        self.register_parameter("w_gate",
+                                None if w_gate is None else _param(w_gate))
+        self.w_up, self.w_down = _param(w_up), _param(w_down)
+
+
+def init_mlp(gen: torch.Generator, d: int, ff: int, act: str,
+             dtype) -> MlpParams:
+    s = d ** -0.5
+    return MlpParams(
+        w_gate=_normal(gen, (d, ff), s, dtype) if act == "swiglu" else None,
+        w_up=_normal(gen, (d, ff), s, dtype),
+        w_down=_normal(gen, (ff, d), ff ** -0.5, dtype),
+    )
+
+
+def mlp(x: torch.Tensor, p: MlpParams, act: str) -> torch.Tensor:
+    if act == "swiglu":
+        g = x @ p.w_gate
+        h = g * torch.sigmoid(g) * (x @ p.w_up)  # jax.nn.silu: x * sigmoid(x)
+    else:
+        h = F.gelu(x @ p.w_up, approximate="tanh")  # jax.nn.gelu's default
+    return h @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+class EmbedParams(nn.Module):
+    """table (V, d), unembed (d, V) or None when tied, final_norm (d,)."""
+
+    def __init__(self, table, unembed, final_norm):
+        super().__init__()
+        self.table = _param(table)
+        self.register_parameter("unembed",
+                                None if unembed is None else _param(unembed))
+        self.final_norm = _param(final_norm)
+
+
+def init_embed(gen: torch.Generator, cfg: ModelConfig, dtype) -> EmbedParams:
+    return EmbedParams(
+        table=_normal(gen, (cfg.vocab, cfg.d_model), 0.02, dtype),
+        unembed=None if cfg.tie_embeddings else
+        _normal(gen, (cfg.d_model, cfg.vocab), cfg.d_model ** -0.5, dtype),
+        final_norm=init_rmsnorm(cfg.d_model, dtype, gen.device),
+    )
+
+
+def embed(tokens: torch.Tensor, p: EmbedParams) -> torch.Tensor:
+    return p.table[tokens]
+
+
+def logits(x: torch.Tensor, p: EmbedParams, cfg: ModelConfig) -> torch.Tensor:
+    x = rmsnorm(x, p.final_norm, cfg.norm_eps)
+    w = p.table.T if cfg.tie_embeddings else p.unembed
+    return x @ w
+
