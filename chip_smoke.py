@@ -6,7 +6,7 @@ Run from the repository root, on a machine with an NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-Two paths, each driven with the launch counts set to 0 just before it and
+Three paths, each driven with the launch counts set to 0 just before it and
 read just after:
 
 * stencil and codec: a 2^26-cell f32 field (256 MiB, seeded with numpy)
@@ -19,7 +19,13 @@ read just after:
   ``ModelApi.prefill`` on 4 x 2048 tokens (flash attention in every layer)
   and ``ServeEngine.generate`` with an int8 KV cache on 8 prompts of
   16-128 tokens, 32 new tokens each (kv_quant and kv_dequant in every
-  layer at every step), then a short int4 generate.
+  layer at every step), then a short int4 generate;
+* training tinyllama-1.1b at its full published width and depth (22 layers,
+  d_model 2048, bf16 weights, f32 AdamW moments, remat): 3 timed steps of
+  ``train.step.make_train_step`` (the step ``train.loop.train`` runs) on
+  8 x 4096 tokens each, the batch cut from the 256 of ``SHAPES["train_4k"]``
+  to keep the run short (flash forward twice per layer, forward and remat
+  recompute, and both flash backward kernels once per layer).
 
 Phases, one JSON line each:
 
@@ -49,7 +55,28 @@ Phases, one JSON line each:
                (kernels) and on the CPU (plain paths): f32 logits within 1e-4
                and identical greedy tokens, bf16 logits within 3e-2 of the
                largest logit, for kv_cache_bits 16, 8 and 4;
-12. the ``{"kernels": [...]}`` line, then the card line, then the result line.
+12. train    — the training path above: step ms (median), tokens/s, MFU,
+               peak memory, loss and grad norm per step (finite), launches
+               per step checked exactly, a profile of one more step;
+13. train_loop — ``train.loop.train`` itself on the card at the smoke
+               config of tests/test_train_loop.py, checkpoints in a temp
+               dir: no restart without injection and the loss drops; with an
+               injected failure one restart, and the resumed losses equal
+               the uninterrupted run's (atol 1e-5);
+14. attention_bwd — the dK/dV and dQ kernels against ``flash_bwd_plain``:
+               f32 on the shapes of tests/test_flash_attention.py's gradient
+               test, windows 32 and 64, ragged S and D = 128 (relative error
+               2e-4); bf16 at the train shape (8, 4096, 4, 8, 64), causal,
+               each kernel launched once on the batch and each sequence
+               held against the plain forward (o within 3e-2, lse within
+               1e-3) and backward (each gradient within 1e-2 of its largest
+               magnitude) run on it alone; the kernels timed at that shape,
+               the plain backward's times summed over the sequences;
+15. train_parity — the tinyllama smoke config with the same weights on the
+               card (kernels) and on the CPU (plain paths), 3 train steps:
+               f32 losses within 1e-4 and grad norms within 1e-4 relative,
+               bf16 losses within 2e-2 and grad norms within 5e-3 relative;
+16. the ``{"kernels": [...]}`` line, then the card line, then the result line.
 
 ``bound_ms`` is the larger of the bytes the function must move over the
 H100's published 3.35 TB/s and its operations over the published peak for
@@ -64,6 +91,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -76,8 +104,11 @@ from repro_torch.configs import base as configs  # noqa: E402
 from repro_torch.core import blockcodec  # noqa: E402
 from repro_torch.kernels import (_build, bitplane, flash_attention,  # noqa: E402
                                  jacobi_mars, kvpack, ops, ref)
+from repro_torch.data.pipeline import SyntheticPipeline, device_batch  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.train import step as train_step  # noqa: E402
+from repro_torch.train.loop import LoopConfig, train  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
@@ -97,6 +128,15 @@ PROFILE_STEPS = 8
 PARITY_B, PARITY_S, PARITY_STEPS, PARITY_NEW = 4, 64, 24, 8
 F32_TOL, BF16_REL = 1e-4, 3e-2          # bf16: relative to the largest logit
 FLASH_BF16_TOL, FLASH_LSE_TOL, FLASH_F32_TOL = 3e-2, 1e-3, 2e-5
+
+TRAIN_ARCH = "tinyllama-1.1b"
+TRAIN_B = 8                               # cut from train_4k's 256 by time
+TRAIN_STEPS = 3                           # timed, after one warm-up step
+BWD_REL_TOL, BWD_BF16_TOL = 2e-4, 1e-2    # relative to each gradient's max
+TRAIN_F32_TOL, TRAIN_BF16_REL = 1e-4, 2e-2
+TRAIN_BF16_GN_REL = 5e-3                  # ~10x the 5.9e-4 read on an H100
+FLASH_KERNELS = ("flash_attention.flash_fwd", "flash_attention.flash_bwd_dkv",
+                 "flash_attention.flash_bwd_dq")
 
 
 class CheckFailed(RuntimeError):
@@ -166,7 +206,8 @@ def phase_build(dev) -> None:
     jacobi_mars.jacobi_chunked(torch.zeros(64, device=dev), 4, 16)
     kvpack.kv_dequant(*kvpack.kv_quant(torch.ones(8, 128, device=dev), 8), 8)
     qkv = torch.ones(1, 64, 1, 1, 64, device=dev)
-    flash_attention.flash_fwd(qkv, qkv[:, :, :, 0], qkv[:, :, :, 0])
+    o, lse = flash_attention.flash_fwd(qkv, qkv[:, :, :, 0], qkv[:, :, :, 0])
+    flash_attention.flash_bwd(qkv, qkv[:, :, :, 0], qkv[:, :, :, 0], o, lse, o)
     torch.cuda.synchronize()
     emit({"phase": "build", "seconds": t1 - t0,
           "first_launch_seconds": time.perf_counter() - t1,
@@ -675,6 +716,288 @@ def phase_attention(dev, prefill: dict, copy_rate: float) -> dict:
     return row
 
 
+def phase_train(dev) -> dict:
+    """tinyllama-1.1b at full width: warm-up, TRAIN_STEPS timed steps, a profile."""
+    cfg = configs.load_arch(TRAIN_ARCH)
+    rc = configs.run_config_for("train_4k", cfg, global_batch=TRAIN_B)
+    check(rc.remat and rc.opt_dtype == "float32" and rc.param_dtype == "bfloat16",
+          f"train config {rc}")
+    api = model_zoo.get_api(cfg, rc, dev)
+    t0 = time.perf_counter()
+    state = train_step.init_state(api, rc, SEED)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = sum(p.numel() for p in state.params.parameters())
+    check(n == cfg.param_count(), f"{n} parameters, config says {cfg.param_count()}")
+    step_fn = train_step.make_train_step(api, cfg, rc)
+    pipe = SyntheticPipeline(cfg, rc, seed=SEED)
+    batches = [device_batch(pipe.next(), cfg, rc, dev) for _ in range(TRAIN_STEPS + 2)]
+
+    t0 = time.perf_counter()
+    state, m = step_fn(state, batches[0])
+    warm_loss = float(m["loss"])
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    ops.reset_launch_counts()
+    times, losses, gnorms = [], [], []
+    for b in batches[1:TRAIN_STEPS + 1]:
+        t0 = time.perf_counter()
+        state, m = step_fn(state, b)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    L = cfg.n_layers
+    want = {"flash_attention.flash_fwd": 2 * L * TRAIN_STEPS,     # forward + recompute
+            "flash_attention.flash_bwd_dkv": L * TRAIN_STEPS,
+            "flash_attention.flash_bwd_dq": L * TRAIN_STEPS}
+    for name, count in launches.items():
+        check(count == want.get(name, 0),
+              f"train launched {name} {count} times, want {want.get(name, 0)}")
+    check(all(np.isfinite(losses + gnorms)) and np.isfinite(warm_loss),
+          f"non-finite loss or grad norm: {losses}, {gnorms}")
+    check(int(state.step) == TRAIN_STEPS + 1, f"step counter {int(state.step)}")
+
+    def one_step():
+        nonlocal state
+        state, m = step_fn(state, batches[-1])
+        float(m["loss"])
+    prof = device_profile(one_step, {"flash_fwd": "flash_fwd_kernel",
+                                     "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+                                     "flash_bwd_dq": "flash_bwd_dq_kernel"}, top=8)
+    step_ms = float(np.median(times))
+    tokens = TRAIN_B * rc.seq_len
+    n_params = cfg.param_count()
+    # causal attention: half of PaLM's 12 L H D S flops per token (forward
+    # 2 products, backward 4); the remat recompute is not counted
+    attn_flops = 6 * L * cfg.n_heads * cfg.hd * rc.seq_len * tokens
+    model_flops = 6 * n_params * tokens + attn_flops
+    emit({"phase": "train", "arch": TRAIN_ARCH, "n_layers": L,
+          "d_model": cfg.d_model, "params": n_params, "batch": TRAIN_B,
+          "seq": rc.seq_len, "tokens_per_step": tokens,
+          "reduced": {"global_batch": [256, TRAIN_B]},
+          "remat": rc.remat, "param_dtype": rc.param_dtype,
+          "opt_dtype": rc.opt_dtype, "init_s": init_s,
+          "warmup_step_ms": warm_ms, "step_ms": times, "step_ms_median": step_ms,
+          "tokens_per_s": tokens / (step_ms * 1e-3),
+          "mfu": model_flops / (step_ms * 1e-3) / BF16_FLOPS_PER_S,
+          "mfu_formula": "(6*N*tokens + 6*L*H*D*S*tokens) / step_s / 989e12",
+          "model_flops_per_step": model_flops, "attention_flops_per_step": attn_flops,
+          "loss": [warm_loss] + losses, "grad_norm": gnorms, "peak_GiB": peak,
+          "launches": launches,
+          "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+          **prof})
+    return {"launches": launches, "step_ms": step_ms}
+
+
+def phase_train_loop(dev) -> None:
+    """``train()`` on the card at the smoke config of tests/test_train_loop.py."""
+    cfg = configs.load_smoke(TRAIN_ARCH)
+    rc = configs.RunConfig(seq_len=64, global_batch=8, kind="train", remat=False,
+                           q_block=32, kv_block=32, lr=1e-3)
+    steps = 25
+    fired = []
+
+    def hook(step):
+        if step == 13 and not fired:
+            fired.append(1)
+            raise RuntimeError("injected node failure")
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as d:
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        ref = train(cfg, rc, LoopConfig(total_steps=steps, ckpt_every=5,
+                                         ckpt_dir=f"{d}/a"),
+                    device=str(dev), log_every=0)
+        ref_s = time.perf_counter() - t0
+        launches = ops.launch_counts()
+        got = train(cfg, rc, LoopConfig(total_steps=steps, ckpt_every=5,
+                                         ckpt_dir=f"{d}/b"),
+                    device=str(dev), failure_hook=hook, log_every=0)
+        published = sorted(p.name for p in Path(d, "a").iterdir())
+    L = cfg.n_layers
+    check(ref["restarts"] == 0, f"restarts without injection: {ref['restarts']}")
+    check(launches["flash_attention.flash_fwd"] == L * steps and
+          launches["flash_attention.flash_bwd_dkv"] == L * steps and
+          launches["flash_attention.flash_bwd_dq"] == L * steps,
+          f"train() launches {launches}")
+    check(ref["loss"][-1] < ref["loss"][0] - 0.3, f"loss did not drop: {ref['loss']}")
+    check(got["restarts"] == 1, f"restarts with one injected failure: {got['restarts']}")
+    resumed_err = float(np.abs(np.array(ref["loss"][-5:]) - np.array(got["loss"][-5:])).max())
+    check(resumed_err <= 1e-5, f"resumed losses differ by {resumed_err}")
+    check(published[-1] == f"step_{steps:08d}", f"checkpoints {published}")
+    emit({"phase": "train_loop", "config": cfg.name, "steps": steps,
+          "batch": rc.global_batch, "seq": rc.seq_len, "seconds": ref_s,
+          "loss_first_last": [ref["loss"][0], ref["loss"][-1]],
+          "restarts": [ref["restarts"], got["restarts"]],
+          "resumed_max_abs_err": resumed_err, "checkpoints": published,
+          "launches": launches})
+
+
+def phase_attention_bwd(dev, trained: dict, copy_rate: float) -> list:
+    F = torch.nn.functional
+    fa = flash_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 8)
+
+    def inputs(B, S, KV, G, D, dt, Sk=None):
+        Sk = Sk or S
+        return [torch.randn(shape, generator=gen, device=dev).to(dt) for shape in
+                ((B, S, KV, G, D), (B, Sk, KV, D), (B, Sk, KV, D), (B, S, KV, G, D))]
+
+    def abs_errs(got, want):
+        return [float((a.float() - b.float()).abs().max()) for a, b in zip(got, want)]
+
+    def rel_errs(got, want):
+        scales = [float(b.float().abs().max()) for b in want]
+        check(min(scales) > 0, f"a plain gradient is all zero: {scales}")
+        return [e / m for e, m in zip(abs_errs(got, want), scales)]
+
+    small = []
+    for (B, S, Sk, KV, G, D), causal, window in (
+            ((1, 128, 128, 1, 1, 64), True, 0), ((1, 128, 128, 2, 2, 64), True, 0),
+            ((1, 256, 256, 2, 2, 64), True, 32), ((1, 256, 256, 2, 2, 64), True, 64),
+            ((2, 256, 256, 2, 4, 64), False, 0), ((1, 256, 256, 4, 1, 128), False, 0),
+            ((1, 100, 100, 2, 2, 64), True, 0), ((1, 50, 20, 2, 2, 64), True, 8)):
+        q, k, v, do = inputs(B, S, KV, G, D, torch.float32, Sk)
+        o, lse = fa.flash_fwd(q, k, v, causal, window)
+        errs = rel_errs(fa.flash_bwd(q, k, v, o, lse, do, causal, window),
+                        fa.flash_bwd_plain(q, k, v, o, lse, do, causal, window))
+        check(max(errs) < BWD_REL_TOL, f"flash bwd f32 {(B, S, Sk, KV, G, D)} "
+              f"causal={causal} window={window}: rel dq, dk, dv {errs}")
+        small.append({"shape": [B, S, Sk, KV, G, D], "causal": causal,
+                      "window": window, "rel_err_dq_dk_dv": errs})
+
+    # bf16 at the train shape: each kernel launched once on the whole batch,
+    # each sequence held against the plain versions run on it alone (the
+    # plain backward at B = 8 would need ~17 GB for each S x S f32 tensor)
+    cfg = configs.load_arch(TRAIN_ARCH)
+    B, S, KV, D = TRAIN_B, configs.SHAPES["train_4k"][0], cfg.n_kv_heads, cfg.hd
+    G = cfg.n_heads // KV
+    q, k, v, do = inputs(B, S, KV, G, D, torch.bfloat16)
+    o, lse = fa.flash_fwd(q, k, v, True, 0)
+    got = fa.flash_bwd(q, k, v, o, lse, do, True, 0)
+    fa.flash_bwd_plain(q[:1], k[:1], v[:1], o[:1], lse[:1], do[:1], True, 0)  # warm-up
+    fwd_errs, bf16_errs, bf16_abs, plain_ms = [0.0, 0.0], [0.0] * 3, [0.0] * 3, 0.0
+    for b in range(B):
+        qb, kb, vb, ob, lb, dob = (t[b:b + 1] for t in (q, k, v, o, lse, do))
+        op, lp = fa.flash_attention_plain(qb, kb, vb, True, 0)
+        fwd_errs = [max(fwd_errs[0], max_abs_diff(ob.float(), op.float())),
+                    max(fwd_errs[1], max_abs_diff(lb, lp))]
+        del op, lp
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = fa.flash_bwd_plain(qb, kb, vb, ob, lb, dob, True, 0)
+        end.record()
+        end.synchronize()
+        plain_ms += start.elapsed_time(end)
+        mine = [g[b:b + 1] for g in got]
+        bf16_errs = list(map(max, bf16_errs, rel_errs(mine, want)))
+        bf16_abs = list(map(max, bf16_abs, abs_errs(mine, want)))
+        del want, mine
+    check(fwd_errs[0] < FLASH_BF16_TOL and fwd_errs[1] < FLASH_LSE_TOL,
+          f"flash fwd bf16 at the train shape: o, lse {fwd_errs}")
+    check(max(bf16_errs) < BWD_BF16_TOL,
+          f"flash bwd bf16 at the train shape: rel dq, dk, dv {bf16_errs}")
+    del got
+    torch.cuda.empty_cache()
+
+    delta = fa.bwd_delta(o, do)
+    ms_dkv = time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, 0), reps=5)
+    ms_dq = time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True, 0), reps=5)
+
+    # the library yardstick: SDPA's backward computes dq, dk and dv together
+    qs = q.reshape(B, S, KV * G, D).transpose(1, 2).detach().requires_grad_()
+    ks = k.transpose(1, 2).detach().requires_grad_()
+    vs = v.transpose(1, 2).detach().requires_grad_()
+    dos = do.reshape(B, S, KV * G, D).transpose(1, 2)
+    try:
+        os_ = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+        lib_ms = time_ms(lambda: torch.autograd.grad(os_, (qs, ks, vs), dos,
+                                                     retain_graph=True), reps=5)
+        lib_note = "F.scaled_dot_product_attention(is_causal, enable_gqa) backward: dq, dk, dv together"
+    except RuntimeError as e:                       # the yardstick only
+        lib_ms, lib_note = None, f"SDPA backward failed: {e}"[:300]
+    del qs, ks, vs, dos
+
+    H = KV * G
+    io = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * (lse.numel() + delta.numel())
+    rows = []
+    for name, line, ms, nbytes, nflops in (
+            ("flash_attention.flash_bwd_dkv", 131, ms_dkv, io + 2 * 2 * k.numel(),
+             8 * B * H * S * S * D // 2),
+            ("flash_attention.flash_bwd_dq", 168, ms_dq, io + 2 * q.numel(),
+             6 * B * H * S * S * D // 2)):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+                     "launches": trained["launches"][name],
+                     # at the bf16 train shape: dq, or the larger of dk and dv
+                     "max_abs_err": bf16_abs[0] if line == 168 else max(bf16_abs[1:]),
+                     "ms": ms, "plain_ms": plain_ms,
+                     **bound(nbytes, nflops, copy_rate, BF16_FLOPS_PER_S),
+                     "library_ms": lib_ms,
+                     "tflops_per_s": nflops / (ms * 1e-3) / 1e12})
+    emit({"phase": "attention_bwd", "shape": [B, S, KV, G, D], "dtype": "bfloat16",
+          "causal": True, "tol": {"f32_rel": BWD_REL_TOL, "bf16_rel": BWD_BF16_TOL},
+          "small_f32": small, "bf16_fwd_o_lse_err": fwd_errs,
+          "bf16_rel_err_dq_dk_dv": bf16_errs, "bf16_abs_err_dq_dk_dv": bf16_abs,
+          "plain_ms_shape": [B, S, KV, G, D],
+          "plain_note": f"flash_bwd_plain (dq, dk, dv together) on each of the {B} "
+                        f"sequences alone, one call each, times summed",
+          "library": lib_note, "rows": rows})
+    for r in rows:
+        r.pop("tflops_per_s")
+    return rows
+
+
+def phase_train_parity(dev) -> None:
+    """The smoke config, same weights, kernels on the card vs plain on the CPU."""
+    cfg = configs.load_smoke(TRAIN_ARCH)
+    results = []
+    for dtype in ("float32", "bfloat16"):
+        rc = configs.RunConfig(seq_len=64, global_batch=4, kind="train",
+                               param_dtype=dtype, q_block=16, kv_block=32, lr=1e-3)
+        apis = {d: model_zoo.get_api(cfg, rc, d) for d in ("cpu", "cuda")}
+        states = {d: train_step.init_state(apis[d], rc, SEED) for d in apis}
+        with torch.no_grad():
+            for pc, pg in zip(states["cpu"].params.parameters(),
+                              states["cuda"].params.parameters()):
+                pg.copy_(pc)
+        steps = {d: train_step.make_train_step(apis[d], cfg, rc) for d in apis}
+        pipe = SyntheticPipeline(cfg, rc, seed=SEED)
+        ops.reset_launch_counts()
+        losses, gnorms = {"cpu": [], "cuda": []}, {"cpu": [], "cuda": []}
+        for _ in range(3):
+            batch = pipe.next()
+            for d in apis:
+                states[d], m = steps[d](states[d], device_batch(batch, cfg, rc, d))
+                losses[d].append(float(m["loss"]))
+                gnorms[d].append(float(m["grad_norm"]))
+        launches = ops.launch_counts()
+        loss_err = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+        gn_rel = max(abs(a - b) / abs(b) for a, b in zip(gnorms["cuda"], gnorms["cpu"]))
+        ok = (loss_err <= TRAIN_F32_TOL and gn_rel <= TRAIN_F32_TOL
+              if dtype == "float32" else
+              loss_rel <= TRAIN_BF16_REL and gn_rel <= TRAIN_BF16_GN_REL)
+        ok = ok and all(launches[n] > 0 for n in FLASH_KERNELS)
+        row = {"dtype": dtype, "loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"],
+               "loss_max_abs_err": loss_err, "loss_max_rel_err": loss_rel,
+               "grad_norm_max_rel_err": gn_rel, "launches": launches, "ok": ok}
+        results.append(row)
+        check(ok, f"train_parity {row}")
+    emit({"phase": "train_parity", "config": cfg.name, "steps": 3,
+          "f32_tol": TRAIN_F32_TOL, "bf16_rel_tol": TRAIN_BF16_REL,
+          "bf16_grad_norm_rel_tol": TRAIN_BF16_GN_REL,
+          "results": results})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -699,6 +1022,13 @@ def main() -> int:
     rows += phase_kvpack(dev, serve, copy_rate)
     rows.append(phase_attention(dev, prefill, copy_rate))
     phase_lm_parity(dev)
+    torch.cuda.empty_cache()
+
+    trained = phase_train(dev)
+    torch.cuda.empty_cache()
+    phase_train_loop(dev)
+    rows += phase_attention_bwd(dev, trained, copy_rate)
+    phase_train_parity(dev)
     emit({"kernels": [{k: v for k, v in r.items() if k != "copy_bound_ms"}
                       for r in rows]})
     print(smi, flush=True)

@@ -10,6 +10,11 @@ Laid out module for module like ``repro``.  Ported so far:
   ``models`` (``model_zoo.get_api(...).prefill`` runs flash attention) and
   ``serve.ServeEngine.generate`` (its packed KV cache runs ``kv_quant`` /
   ``kv_dequant``);
+* their training path: ``train.step.make_train_step`` (loss, backward
+  through the flash forward and both flash backward kernels, AdamW from
+  ``optim``) and the fault-tolerant ``train.loop.train`` with ``data``'s
+  synthetic pipeline and ``checkpoint``'s manager (the reference's on-disk
+  layout);
 
 with hand-written CUDA kernels for Hopper (sm_90a) in ``kernels/csrc``.
 
@@ -17,6 +22,8 @@ The package imports ``torch`` and numpy, never ``jax`` or ``repro``.  It
 imports without a GPU; kernels are built with ``nvcc`` at first launch.
 ``python3 chip_smoke.py`` at the repository root drives it on a card.
 """
-from . import configs, convert, core, kernels, models, obs, serve
+from . import (checkpoint, configs, convert, core, data, kernels, models, obs,
+               optim, serve, train)
 
-__all__ = ["configs", "convert", "core", "kernels", "models", "obs", "serve"]
+__all__ = ["checkpoint", "configs", "convert", "core", "data", "kernels",
+           "models", "obs", "optim", "serve", "train"]

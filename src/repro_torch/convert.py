@@ -7,7 +7,9 @@
 * ``codec_config``: a port ``BlockCodecConfig`` from any object with the
   reference config's fields (``bits``, ``block``, ``delta``);
 * ``params_from_jax``: the port's model parameters from the reference's
-  ``DenseParams`` tree with numpy leaves.
+  ``DenseParams`` tree with numpy leaves;
+* ``state_from_jax``: the port's ``TrainState`` from the reference's
+  (params, AdamW moments and count, step) with numpy leaves.
 
 ``bfloat16`` numpy arrays (as JAX hands them over) travel exactly, as the
 same 16-bit words.  Nothing here imports JAX: the caller hands over numpy
@@ -80,3 +82,28 @@ def params_from_jax(tree, cfg, device: str | torch.device = "cuda"):
                             w_down=at(m.w_down, i)),
         ))
     return transformer.DenseParams(embed, layers)
+
+
+def state_from_jax(tree, cfg, device: str | torch.device = "cuda"):
+    """The port's ``train.step.TrainState`` from the reference's, leaf for leaf.
+
+    ``tree`` is the reference's ``TrainState`` after ``np.asarray`` on every
+    leaf.  The moments keep their dtype and are keyed by the port's
+    parameter names; ``count`` and ``step`` stay int32 scalars.  The
+    reference's error-feedback residuals (several pods) are not ported.
+    """
+    from repro_torch.optim.adamw import AdamState
+    from repro_torch.train.step import TrainState
+
+    if tree.resid is not None:
+        raise NotImplementedError("error-feedback residuals come with the "
+                                  "distributed slice (ROADMAP Queue 1 item 9)")
+
+    def moments(t):
+        return {n: p.detach() for n, p in
+                params_from_jax(t, cfg, device).named_parameters()}
+
+    opt = AdamState(mu=moments(tree.opt.mu), nu=moments(tree.opt.nu),
+                    count=to_torch(tree.opt.count, device))
+    return TrainState(params=params_from_jax(tree.params, cfg, device), opt=opt,
+                      resid=None, step=to_torch(tree.step, device))

@@ -1,18 +1,25 @@
-"""GQA flash attention, forward: the CUDA kernel and its plain version.
+"""GQA flash attention, forward and backward: the CUDA kernels and their plain versions.
 
-``flash_fwd`` launches the hand-written kernel of ``csrc/flash_attention.cu``
-(which replaces the Pallas kernel
-``repro/kernels/flash_attention.py::_fwd_kernel``) on CUDA tensors and runs
-the plain PyTorch version ``flash_attention_plain`` on CPU tensors.  A CUDA
-tensor never takes the plain version: the kernel runs or the call raises.
-Launches are counted in ``flash_fwd.launches``.
+Three kernels of ``csrc/flash_attention.cu``, each replacing a Pallas kernel
+of ``repro/kernels/flash_attention.py``:
+
+* ``flash_fwd`` (``_fwd_kernel``) -> (o, lse);
+* ``flash_bwd_dkv`` (``_bwd_dkv_kernel``) -> (dk, dv);
+* ``flash_bwd_dq`` (``_bwd_dq_kernel``) -> dq.
+
+Each wrapper launches its kernel on CUDA tensors and runs the plain PyTorch
+version (``flash_attention_plain``, ``flash_bwd_plain``) on CPU tensors.  A
+CUDA tensor never takes the plain version: the kernel runs or the call
+raises.  Launches are counted in ``<wrapper>.launches``.  The wrappers are
+not differentiable themselves: ``FlashAttentionFn`` (the port of the
+reference's ``jax.custom_vjp``) runs ``flash_fwd`` forward and
+``flash_bwd`` (both backward kernels) backward, and ``flash_attention``
+routes an input that requires grad through it.
 
 Layout as in the reference: q ``(B, S, KV, G, D)`` (grouped GQA, no repeated
 kv heads), k / v ``(B, Sk, KV, D)``; o in q's dtype, lse f32
 ``(B, KV, G, S)``.  Masks: causal and sliding window, positions counted from
-0 on both sides.  Forward only: the backward kernels and the
-``torch.autograd.Function`` that wraps all three come with the training
-slice, so an input that requires grad is refused.
+0 on both sides.
 """
 from __future__ import annotations
 
@@ -34,6 +41,10 @@ def _lib() -> ctypes.CDLL:
     lib.flash_fwd_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                      _I, _I, _I, _I, _F, _I, _P]
     lib.flash_fwd_launch.restype = _I
+    lib.flash_bwd_dkv_launch.argtypes = [_P] * 8 + [_I] * 9 + [_F, _I, _P]
+    lib.flash_bwd_dkv_launch.restype = _I
+    lib.flash_bwd_dq_launch.argtypes = [_P] * 7 + [_I] * 9 + [_F, _I, _P]
+    lib.flash_bwd_dq_launch.restype = _I
     return lib
 
 
@@ -56,9 +67,16 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if min(S, k.shape[1], B, KV, G, D) < 1:
         raise ValueError(f"empty attention problem: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
-    if any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError("flash attention is forward only in this port: its "
-                           "backward kernels come with the training slice")
+
+
+def _check_kernel(q: torch.Tensor, k: torch.Tensor) -> None:
+    """The limits of the CUDA kernels' grids and tiles."""
+    B, S, KV, G, D = q.shape
+    if D > 128 or max(-(-S // 64), -(-k.shape[1] // 64)) > 65535 or \
+            B * KV * G >= 2 ** 31:
+        raise ValueError(f"flash kernels take D <= 128, S, Sk <= 65535 * 64 "
+                         f"and B*KV*G < 2^31; got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
 
 
 def _mask(S: int, Sk: int, causal: bool, window: int,
@@ -93,6 +111,72 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.permute(0, 3, 1, 2, 4).to(q.dtype), m + torch.log(l)
 
 
+def _bwd_plain(q, k, v, do, lse, delta, causal: bool, window: int):
+    """The backward by formula, in f32, from ``delta`` (B, KV, G, S)."""
+    D = q.shape[-1]
+    scale = D ** -0.5
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf) * scale
+    allowed = _mask(q.shape[1], k.shape[1], causal, window, q.device)
+    p = torch.where(allowed, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, dof)
+    dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vf)
+    ds = p * (dp - delta[..., None]) * scale
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, kf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def bwd_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """sum(o * do) over D, f32 (B, KV, G, S), as the reference computes it
+    outside its kernels (flash_attention.py:205-206)."""
+    if o.shape != do.shape or o.dim() != 5:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"both be (B, S, KV, G, D)")
+    return (o.float() * do.float()).sum(-1).permute(0, 2, 3, 1).contiguous()
+
+
+def _bwd_args(q, k, v, do, lse, delta):
+    """Checked, contiguous backward operands; do in q's dtype (the kernels
+    read one element type)."""
+    _check(q, k, v)
+    B, S, KV, G, _ = q.shape
+    if do.shape != q.shape or tuple(lse.shape) != (B, KV, G, S) or \
+            tuple(delta.shape) != (B, KV, G, S):
+        raise ValueError(f"do {tuple(do.shape)}, lse {tuple(lse.shape)}, delta "
+                         f"{tuple(delta.shape)} do not match q {tuple(q.shape)}")
+    if lse.dtype != torch.float32 or delta.dtype != torch.float32:
+        raise ValueError(f"lse and delta must be f32, got {lse.dtype}, "
+                         f"{delta.dtype}")
+    if not (do.device == lse.device == delta.device == q.device):
+        raise ValueError(f"q, do, lse, delta on {q.device}, {do.device}, "
+                         f"{lse.device}, {delta.device}")
+    return (q.contiguous(), k.contiguous(), v.contiguous(),
+            do.to(q.dtype).contiguous(), lse.contiguous(), delta.contiguous())
+
+
+def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                    causal: bool = True, window: int = 0):
+    """Plain version of the backward: (dq, dk, dv) written out by formula.
+
+    p is recomputed from the forward's lse and is 0 where the mask is
+    False, so a query row with no allowed key gets a zero gradient, as in
+    the reference's ``where(mask, ..., 0)``.  All arithmetic in f32; each
+    gradient comes back in its input's dtype.
+    """
+    with torch.no_grad():
+        return _bwd_plain(*_bwd_args(q, k, v, do, lse, bwd_delta(o, do)),
+                          causal, window)
+
+
+def _launch(what: str, *args) -> None:
+    """Call the launcher ``<what>_launch``; raise on a CUDA error."""
+    lib = _lib()
+    _build.check(lib, getattr(lib, f"{what}_launch")(*args),
+                 f"flash_attention.{what}")
+
+
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = True, window: int = 0, bq: int = 128,
               bk: int = 128):
@@ -100,27 +184,25 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``bq`` and ``bk`` are the reference's block sizes; they are checked and
     otherwise not used: the kernel tiles by 64 queries and 64 keys and masks
-    a ragged last tile itself.
+    a ragged last tile itself.  The outputs carry no autograd graph
+    (``FlashAttentionFn`` differentiates).
     """
     _check(q, k, v)
     if bq < 1 or bk < 1:
         raise ValueError(f"block sizes must be positive, got bq={bq}, bk={bk}")
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, window)
+        with torch.no_grad():
+            return flash_attention_plain(q, k, v, causal, window)
+    _check_kernel(q, k)
     B, S, KV, G, D = q.shape
-    if D > 128 or -(-S // 64) > 65535 or B * KV * G >= 2 ** 31:
-        raise ValueError(f"flash kernel takes D <= 128, S <= 65535 * 64 and "
-                         f"B*KV*G < 2^31; got q {tuple(q.shape)}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
     lse = torch.empty((B, KV, G, S), dtype=torch.float32, device=q.device)
-    lib = _lib()
-    err = lib.flash_fwd_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        int(q.dtype == torch.bfloat16), B, S, k.shape[1], KV, G, D,
-        int(bool(causal)), int(window), D ** -0.5, q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(lib, err, "flash_attention.flash_fwd")
+    _launch("flash_fwd",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), int(q.dtype == torch.bfloat16), B, S, k.shape[1],
+            KV, G, D, int(bool(causal)), int(window), D ** -0.5,
+            q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     flash_fwd.launches += 1
     return o, lse
 
@@ -128,8 +210,106 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_fwd.launches = 0
 
 
+def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                  causal: bool = True, window: int = 0):
+    """-> (dk, dv) like k: one kernel launch on CUDA tensors.
+
+    ``lse`` is the forward's, ``delta`` = sum(o * do) over D, both f32
+    (B, KV, G, S).
+    """
+    q, k, v, do, lse, delta = _bwd_args(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        with torch.no_grad():
+            return _bwd_plain(q, k, v, do, lse, delta, causal, window)[1:]
+    _check_kernel(q, k)
+    B, S, KV, G, D = q.shape
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch("flash_bwd_dkv",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, S, k.shape[1], KV, G, D,
+            int(bool(causal)), int(window), D ** -0.5, q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                 causal: bool = True, window: int = 0) -> torch.Tensor:
+    """-> dq like q: one kernel launch on CUDA tensors (arguments as
+    ``flash_bwd_dkv``)."""
+    q, k, v, do, lse, delta = _bwd_args(q, k, v, do, lse, delta)
+    if q.device.type == "cpu":
+        with torch.no_grad():
+            return _bwd_plain(q, k, v, do, lse, delta, causal, window)[0]
+    _check_kernel(q, k)
+    B, S, KV, G, D = q.shape
+    dq = torch.empty_like(q)
+    _launch("flash_bwd_dq",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, S, k.shape[1], KV, G, D,
+            int(bool(causal)), int(window), D ** -0.5, q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+              causal: bool = True, window: int = 0):
+    """The backward of ``flash_fwd``: (dq, dk, dv), each like its input.
+
+    ``delta`` = sum(o * do) is computed here with plain torch ops, as the
+    reference computes it outside Pallas; then the dK/dV kernel and the dQ
+    kernel run (their plain versions on CPU tensors).
+    """
+    delta = bwd_delta(o, do)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, causal, window)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, causal, window)
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """o = attention(q, k, v): ``flash_fwd`` forward, ``flash_bwd`` backward.
+
+    The port of the reference's ``jax.custom_vjp`` (flash_attention.py:265-286):
+    the forward saves (q, k, v, o, lse), the backward recomputes p from lse.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        o, lse = flash_fwd(q, k, v, causal, window)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_bwd(q, k, v, o, lse, do, ctx.causal, ctx.window)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0, bq: int = 128,
                     bk: int = 128) -> torch.Tensor:
-    """q (B,S,KV,G,D); k, v (B,Sk,KV,D) -> o (B,S,KV,G,D)."""
-    return flash_fwd(q, k, v, causal, window, bq, bk)[0]
+    """q (B,S,KV,G,D); k, v (B,Sk,KV,D) -> o (B,S,KV,G,D).
+
+    Differentiable: with grad enabled and an input that requires grad, the
+    call goes through ``FlashAttentionFn`` (the backward kernels run in
+    ``backward``); otherwise it is ``flash_fwd``'s o.
+    """
+    if bq < 1 or bk < 1:
+        raise ValueError(f"block sizes must be positive, got bq={bq}, bk={bk}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return FlashAttentionFn.apply(q, k, v, bool(causal), int(window))
+    return flash_fwd(q, k, v, causal, window)[0]

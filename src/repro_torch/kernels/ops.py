@@ -38,6 +38,8 @@ KERNELS = {
     "kvpack.kv_quant": kvpack.kv_quant,
     "kvpack.kv_dequant": kvpack.kv_dequant,
     "flash_attention.flash_fwd": flash_attention.flash_fwd,
+    "flash_attention.flash_bwd_dkv": flash_attention.flash_bwd_dkv,
+    "flash_attention.flash_bwd_dq": flash_attention.flash_bwd_dq,
 }
 
 

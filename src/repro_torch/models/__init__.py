@@ -1,4 +1,4 @@
-"""Model layers, the decoder-only frame and the model API (serving path).
+"""Model layers, the decoder-only frame and the model API (serving and training).
 
 Ported so far: the dense and vlm families (``transformer``), their layers
 (``layers``) and ``model_zoo.get_api``.

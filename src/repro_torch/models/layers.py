@@ -1,21 +1,25 @@
-"""Shared transformer layers: norms, RoPE, GQA attention, KV cache, MLPs.
+"""Shared transformer layers: norms, RoPE, GQA attention, KV cache, MLPs, losses.
 
-Port of ``repro.models.layers`` for the serving path.  Parameters live in
-small ``nn.Module``s under the reference's field names; the layer functions
-are plain functions on tensors, as in the reference.  Weights keep the
-reference's ``(in, out)`` orientation, so ``x @ wq`` is the same product.
+Port of ``repro.models.layers`` for the serving and training paths.
+Parameters live in small ``nn.Module``s under the reference's field names
+and are trainable; the layer functions are plain functions on tensors, as
+in the reference.  Weights keep the reference's ``(in, out)`` orientation,
+so ``x @ wq`` is the same product.
 
-* attention on a CUDA tensor runs the flash kernel
-  (``kernels.flash_attention``); on a CPU tensor it runs the blockwise
-  online-softmax path below (the reference's non-TPU path);
+* attention on a CUDA tensor runs the flash kernels
+  (``kernels.flash_attention``: the forward, and under autograd both
+  backward kernels); on a CPU tensor it runs the blockwise online-softmax
+  path below (the reference's non-TPU path), differentiated by autograd;
 * the packed KV cache quantizes new rows and dequantizes the cache through
   ``kernels.ops.kv_quant`` / ``kv_dequant`` (the kvpack kernels on a GPU);
 * RoPE uses the interleaved (GPT-J) pairing; GQA is computed in grouped form
-  (B, S, KV, G, D) with no repeated kv heads.
+  (B, S, KV, G, D) with no repeated kv heads;
+* ``fused_ce_loss`` checkpoints each sequence chunk
+  (``torch.utils.checkpoint``), as the reference's ``@jax.checkpoint``.
 
 The reference's sharding hooks (``shd.act``, ``checkpoint_name``, the
-``tp_scatter`` out-projection) have no counterpart yet; ``cross_attention``,
-``cross_entropy`` and ``fused_ce_loss`` come with the training slice.
+``tp_scatter`` out-projection) have no counterpart yet; ``cross_attention``
+comes with the encoder-decoder family (ROADMAP Queue 1 item 6).
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
@@ -34,8 +39,8 @@ NEG_INF = -1e30
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    """A weight of the forward-only port: no gradient is tracked."""
-    return nn.Parameter(t, requires_grad=False)
+    """A trainable weight (serving runs under ``torch.no_grad``)."""
+    return nn.Parameter(t)
 
 
 def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
@@ -393,7 +398,9 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, dtype) -> EmbedParams:
 
 
 def embed(tokens: torch.Tensor, p: EmbedParams) -> torch.Tensor:
-    return p.table[tokens]
+    # the row gather; its backward is the embedding backward, which PyTorch
+    # does not list among its nondeterministic CUDA operations
+    return F.embedding(tokens, p.table)
 
 
 def logits(x: torch.Tensor, p: EmbedParams, cfg: ModelConfig) -> torch.Tensor:
@@ -401,3 +408,53 @@ def logits(x: torch.Tensor, p: EmbedParams, cfg: ModelConfig) -> torch.Tensor:
     w = p.table.T if cfg.tie_embeddings else p.unembed
     return x @ w
 
+
+def _nll(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token negative log-likelihood of f32 logits, stable in f32."""
+    m = lg.amax(dim=-1, keepdim=True)
+    lse = m[..., 0] + torch.log(torch.sum(torch.exp(lg - m), dim=-1))
+    gold = torch.gather(lg, -1, labels.long()[..., None])[..., 0]
+    return lse - gold
+
+
+def cross_entropy(lg: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy; stable in f32."""
+    nll = _nll(lg.to(F32), labels)
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
+
+
+def _ce_chunk(xc: torch.Tensor, w: torch.Tensor, lc: torch.Tensor,
+              mc: torch.Tensor):
+    nll = _nll((xc @ w).to(F32), lc) * mc
+    return torch.sum(nll), torch.sum(mc)
+
+
+def fused_ce_loss(x: torch.Tensor, p: EmbedParams, cfg: ModelConfig,
+                  labels: torch.Tensor, mask: Optional[torch.Tensor] = None,
+                  chunk: int = 512) -> torch.Tensor:
+    """Unembed + cross-entropy fused over sequence chunks.
+
+    Never holds the (B, S, V) logits: each chunk computes its (B, C, V)
+    logits, reduces them to per-token NLL and, under autograd, is
+    checkpointed, so backward recomputes the chunk instead of keeping it.
+    """
+    B, S, _ = x.shape
+    x = rmsnorm(x, p.final_norm, cfg.norm_eps)
+    w = p.table.T if cfg.tie_embeddings else p.unembed
+    chunk = min(chunk, S)
+    total = torch.zeros((), dtype=F32, device=x.device)
+    count = torch.zeros((), dtype=F32, device=x.device)
+    for lo in range(0, S, chunk):
+        hi = min(lo + chunk, S)
+        mc = (mask[:, lo:hi].to(F32) if mask is not None
+              else torch.ones((B, hi - lo), dtype=F32, device=x.device))
+        args = (x[:, lo:hi], w, labels[:, lo:hi], mc)
+        if torch.is_grad_enabled():
+            t, c = checkpoint(_ce_chunk, *args, use_reentrant=False)
+        else:
+            t, c = _ce_chunk(*args)
+        total, count = total + t, count + c
+    return total / torch.clamp(count, min=1.0)

@@ -1,10 +1,12 @@
-"""Decoder-only LM frame for the dense and vlm families: init, forward, serving.
+"""Decoder-only LM frame for the dense and vlm families: init, forward, loss, serving.
 
-Port of ``repro.models.transformer`` for the serving path.  The reference
-scans one stacked layer body over ``n_layers``; here the layers are an
-``nn.ModuleList`` and a Python loop walks them.  The moe, ssm and hybrid
-families (ROADMAP Queue 1 item 6) and the training loss (item 8) are not
-ported yet and raise ``NotImplementedError``.
+Port of ``repro.models.transformer`` for the serving and training paths.
+The reference scans one stacked layer body over ``n_layers``; here the
+layers are an ``nn.ModuleList`` and a Python loop walks them.  With
+``rc.remat`` each layer runs under ``torch.utils.checkpoint`` while autograd
+records (the reference's ``"full"`` policy: nothing saved, all recomputed).
+The moe, ssm and hybrid families (ROADMAP Queue 1 item 6) are not ported
+yet and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from . import layers as L
@@ -29,6 +32,10 @@ def check_family(cfg: ModelConfig) -> None:
 
 class LayerParams(nn.Module):
     """One decoder layer of the dense / vlm families."""
+
+    #: the reference's field order; ``named_parameters`` lists a module's own
+    #: parameters (ln1, ln2) before its submodules' (attn, mlp)
+    FIELDS = ("ln1", "attn", "ln2", "mlp")
 
     def __init__(self, ln1, attn: L.AttnParams, ln2, mlp: L.MlpParams):
         super().__init__()
@@ -95,8 +102,17 @@ def backbone(params: DenseParams, tokens: torch.Tensor, cfg: ModelConfig,
         x = torch.cat([vis_embeds.to(x.dtype), x], dim=1)
     B, Sq, _ = x.shape
     pos = torch.arange(Sq, device=x.device)[None, :].expand(B, Sq)
+    remat = rc.remat and torch.is_grad_enabled()
+    if remat and rc.remat_policy == "save_collectives":
+        raise NotImplementedError(
+            "remat_policy='save_collectives' saves the outputs of sharding "
+            "collectives, which the port does not have yet (ROADMAP Queue 1 "
+            "item 9); use 'full'")
     for lp in params.layers:
-        x = _layer_fwd(cfg, rc, x, pos, lp)
+        if remat:
+            x = checkpoint(_layer_fwd, cfg, rc, x, pos, lp, use_reentrant=False)
+        else:
+            x = _layer_fwd(cfg, rc, x, pos, lp)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -106,6 +122,20 @@ def forward(params: DenseParams, tokens: torch.Tensor, cfg: ModelConfig,
     """Full logits (tests / tiny shapes)."""
     x, aux = backbone(params, tokens, cfg, rc, vis_embeds)
     return L.logits(x, params.embed, cfg), aux
+
+
+def loss_fn(params: DenseParams, batch, cfg: ModelConfig,
+            rc: RunConfig) -> torch.Tensor:
+    """batch: dict(tokens (B,S), labels (B,S) [, vis_embeds, mask]) -> f32 loss.
+
+    For the vlm family the loss covers the text positions only.
+    """
+    vis = batch.get("vis_embeds")
+    x, _ = backbone(params, batch["tokens"], cfg, rc, vis_embeds=vis)
+    if vis is not None:
+        x = x[:, vis.shape[1]:]
+    return L.fused_ce_loss(x, params.embed, cfg, batch["labels"],
+                           batch.get("mask"))
 
 
 # ---------------------------------------------------------------------------

@@ -4,13 +4,18 @@
 tensor takes through ``flash_fwd``) and the port's ``blockwise_attention``
 against the JAX Pallas flash kernel in interpret mode and the JAX
 ``blockwise_attention``, on the cases and tolerances of
-tests/test_flash_attention.py, lse included.  The CUDA kernel is held
-against the plain version by ``chip_smoke.py``.
+tests/test_flash_attention.py, lse included.  The backward: ``flash_bwd``
+(the plain versions of the dK/dV and dQ kernels on CPU tensors),
+``flash_bwd_plain`` and ``FlashAttentionFn`` against ``jax.grad`` of the
+reference's blockwise attention, at the relative error 2e-4 of
+``test_gradients_match_reference``.  The CUDA kernels are held against the
+plain versions by ``chip_smoke.py``.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from repro.kernels import flash_attention as jfa
@@ -115,9 +120,14 @@ def test_plain_on_ragged_shapes_matches_jax_blockwise(S, Sk, causal, window):
 
 
 def test_forward_only_refuses_grad():
+    """``flash_fwd`` is the forward alone: its outputs carry no graph, while
+    ``flash_attention`` differentiates through ``FlashAttentionFn``."""
     (_, _, _), (q, k, v) = _inputs(1, 64, 1, 1, 32)
-    with pytest.raises(RuntimeError, match="training slice"):
-        fa.flash_fwd(q.requires_grad_(), k, v)
+    o, lse = fa.flash_fwd(q.requires_grad_(), k, v)
+    assert not o.requires_grad and not lse.requires_grad
+    o2 = fa.flash_attention(q, k, v)
+    assert o2.requires_grad and type(o2.grad_fn).__name__ == "FlashAttentionFnBackward"
+    assert torch.equal(o2.detach(), o)
 
 
 @pytest.mark.parametrize("qshape,kshape", [
@@ -133,3 +143,106 @@ def test_cpu_path_launches_no_kernel():
     (_, _, _), (q, k, v) = _inputs(1, 64, 1, 2, 32)
     fa.flash_attention(q, k, v)
     assert ops.launch_counts()["flash_attention.flash_fwd"] == 0
+
+
+# -- backward -------------------------------------------------------------------
+
+def _loss_grads_jax(qj, kj, vj, causal, window, bq, bk):
+    """jax.grad of sum(o cos o) through the reference's blockwise attention
+    (the oracle of tests/test_flash_attention.py::test_gradients_match_reference)."""
+    B, S, KV, G, D = qj.shape
+
+    def loss(q, k, v):
+        o = jlayers.blockwise_attention(q.reshape(B, S, KV * G, D), k, v,
+                                        causal=causal, window=window,
+                                        q_block=bq, kv_block=bk)
+        return jnp.sum(o * jnp.cos(o))
+
+    return jax.grad(loss, argnums=(0, 1, 2))(qj, kj, vj)
+
+
+def _rel(a, b):
+    b = _f32(b)
+    return np.abs(_f32(a) - b).max() / (np.abs(b).max() + 1e-9)
+
+
+@pytest.mark.parametrize("B,S,KV,G,D,causal,window", [
+    (1, 128, 1, 1, 64, True, 0), (1, 128, 2, 2, 64, True, 0),
+    (2, 128, 2, 4, 32, False, 0), (1, 256, 2, 2, 32, True, 32),
+    (1, 256, 2, 2, 32, True, 64), (1, 128, 4, 1, 64, False, 48)])
+def test_backward_matches_jax_grad(B, S, KV, G, D, causal, window):
+    (qj, kj, vj), (q, k, v) = _inputs(B, S, KV, G, D, seed=2)
+    gj = _loss_grads_jax(qj, kj, vj, causal, window, 64, 64)
+    # through the autograd Function (forward and both backward kernels'
+    # plain versions on CPU tensors)
+    qt, kt, vt = (t.clone().requires_grad_() for t in (q, k, v))
+    o = fa.flash_attention(qt, kt, vt, causal, window, 64, 64)
+    (o * torch.cos(o)).sum().backward()
+    for got, want, name in zip((qt.grad, kt.grad, vt.grad), gj, "qkv"):
+        assert _rel(got, want) < 2e-4, name
+    # the plain backward by formula, with do = d(sum o cos o)/do
+    o, lse = fa.flash_fwd(q, k, v, causal, window)
+    do = torch.cos(o) - o * torch.sin(o)
+    for got, want, name in zip(fa.flash_bwd_plain(q, k, v, o, lse, do, causal,
+                                                  window), gj, "qkv"):
+        assert got.dtype == torch.float32 and _rel(got, want) < 2e-4, name
+
+
+@pytest.mark.parametrize("S,Sk,causal,window", [
+    (128, 64, True, 8), (128, 128, False, 16), (64, 128, True, 0)])
+def test_backward_matches_pallas_backward(S, Sk, causal, window):
+    """Against the Pallas backward kernels in interpret mode, also where
+    rows have no allowed key ((128, 64, causal, 8): queries 71 and up): a
+    masked p is 0 there, so such rows add no gradient, unlike the
+    blockwise path's uniform average."""
+    (qj, kj, vj), (q, k, v) = _inputs(1, S, 2, 2, 32, seed=5, Sk=Sk)
+
+    def loss(q, k, v):
+        o = jfa.flash_attention(q, k, v, causal, window, 32, 32, True)
+        return jnp.sum(o * jnp.cos(o))
+
+    gj = jax.grad(loss, argnums=(0, 1, 2))(qj, kj, vj)
+    o, lse = fa.flash_fwd(q, k, v, causal, window)
+    do = torch.cos(o) - o * torch.sin(o)
+    got = fa.flash_bwd(q, k, v, o, lse, do, causal, window)
+    for g, want, name in zip(got, gj, "qkv"):
+        assert _rel(g, want) < 2e-4, name
+
+
+def test_no_key_rows_get_zero_gradient():
+    (_, _, _), (q, k, v) = _inputs(1, 50, 2, 2, 32, seed=7, Sk=20)
+    o, lse = fa.flash_fwd(q, k, v, True, 8)
+    do = torch.ones_like(o)
+    dq, dk, dv = fa.flash_bwd(q, k, v, o, lse, do, True, 8)
+    assert torch.all(dq[:, 27:] == 0)         # query s sees keys (s-8, s] < 20
+    assert torch.isfinite(dq).all() and torch.isfinite(dk).all()
+    assert torch.isfinite(dv).all() and dv.abs().sum() > 0
+
+
+def test_backward_wrappers_on_cpu_run_the_plain_version():
+    ops.reset_launch_counts()
+    (_, _, _), (q, k, v) = _inputs(1, 64, 2, 2, 32, seed=8)
+    o, lse = fa.flash_fwd(q, k, v, True, 0)
+    do = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        tuple(q.shape)).astype(np.float32))
+    dq, dk, dv = fa.flash_bwd_plain(q, k, v, o, lse, do, True, 0)
+    delta = (o * do).sum(-1).permute(0, 2, 3, 1)
+    dk2, dv2 = fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, 0)
+    dq2 = fa.flash_bwd_dq(q, k, v, do, lse, delta, True, 0)
+    assert torch.equal(dq, dq2) and torch.equal(dk, dk2) and torch.equal(dv, dv2)
+    counts = ops.launch_counts()
+    assert counts["flash_attention.flash_bwd_dkv"] == 0
+    assert counts["flash_attention.flash_bwd_dq"] == 0
+
+
+@pytest.mark.parametrize("bad", ["o", "lse", "delta"])
+def test_backward_shape_mismatch_raises(bad):
+    (_, _, _), (q, k, v) = _inputs(1, 64, 2, 2, 32)
+    o, lse = fa.flash_fwd(q, k, v)
+    with pytest.raises(ValueError):
+        if bad == "o":
+            fa.flash_bwd(q, k, v, o[:, :32], lse, o, True, 0)
+        elif bad == "lse":
+            fa.flash_bwd(q, k, v, o, lse[..., :32], o, True, 0)
+        else:
+            fa.flash_bwd_dq(q, k, v, o, lse, lse[..., :32], True, 0)
