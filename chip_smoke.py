@@ -29,8 +29,12 @@ read just after:
 
 Phases, one JSON line each:
 
-1. build     — compile every ``csrc/*.cu`` with nvcc, all in parallel, and
-               launch each kernel once on a tiny input (set-up);
+1. build     — compile every ``csrc/*.cu`` with nvcc, all in parallel; check
+               that the SASS of both tensor-core kernels
+               (``flash_attention_sm90.cu``) holds HGMMA (wgmma) instructions
+               and report their count, registers and spills; launch each
+               kernel once on a tiny input, the flash ones in f32 and bf16
+               (set-up);
 2. card      — ``nvidia-smi`` name and power limit, and the rate of a 1 GiB
                device-to-device copy;
 3. main      — the stencil and codec path above;
@@ -48,9 +52,14 @@ Phases, one JSON line each:
 9. kvpack    — kv_quant / kv_dequant bit-identical to their plain versions
                at the serve path's shapes, bits 8 and 4, f32 and bf16, and on
                an odd row count;
-10. attention — the flash kernel against its plain version at one layer's
-               prefill shape (bf16: o within 3e-2, lse within 1e-3) and on
-               the f32 cases of tests/test_flash_attention.py (2e-5);
+10. attention — the flash forward against its plain version at one layer's
+               prefill shape (bf16: o within 3e-2, lse within 1e-3, and o's
+               relative error on every 64-row query tile of each head within
+               FLASH_BF16_REL), on bf16 cases for the tensor-core kernel's
+               mask and padding paths (window 64, ragged S = Sk = 100, D = 32,
+               non-causal, ragged D = 128, Sk < S) and on the f32 cases
+               of tests/test_flash_attention.py (2e-5); the bf16 forward and
+               SDPA's forward timed at the prefill and the train shapes;
 11. lm_parity — the granite-8b smoke config with the same weights on the card
                (kernels) and on the CPU (plain paths): f32 logits within 1e-4
                and identical greedy tokens, bf16 logits within 3e-2 of the
@@ -66,17 +75,22 @@ Phases, one JSON line each:
 14. attention_bwd — the dK/dV and dQ kernels against ``flash_bwd_plain``:
                f32 on the shapes of tests/test_flash_attention.py's gradient
                test, windows 32 and 64, ragged S and D = 128 (relative error
-               2e-4); bf16 at the train shape (8, 4096, 4, 8, 64), causal,
+               2e-4); bf16 on the forward's mask and padding cases
+               (1e-2 of each gradient's largest magnitude); bf16 at the train
+               shape (8, 4096, 4, 8, 64), causal,
                each kernel launched once on the batch and each sequence
-               held against the plain forward (o within 3e-2, lse within
-               1e-3) and backward (each gradient within 1e-2 of its largest
-               magnitude) run on it alone; the kernels timed at that shape,
+               held against the plain forward (o within 3e-2 and its tiles
+               within FLASH_BF16_REL, lse within 1e-3) and backward (each
+               gradient within 1e-2 of its largest magnitude) run on it
+               alone; the kernels timed at that shape,
                the plain backward's times summed over the sequences;
 15. train_parity — the tinyllama smoke config with the same weights on the
                card (kernels) and on the CPU (plain paths), 3 train steps:
                f32 losses within 1e-4 and grad norms within 1e-4 relative,
                bf16 losses within 2e-2 and grad norms within 5e-3 relative;
 16. the ``{"kernels": [...]}`` line, then the card line, then the result line.
+
+The two tensor-core rows (flash forward, dK/dV) also carry ``design``.
 
 ``bound_ms`` is the larger of the bytes the function must move over the
 H100's published 3.35 TB/s and its operations over the published peak for
@@ -89,6 +103,7 @@ printing no result, when there is no GPU or any check fails.
 import copy
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -128,6 +143,9 @@ PROFILE_STEPS = 8
 PARITY_B, PARITY_S, PARITY_STEPS, PARITY_NEW = 4, 64, 24, 8
 F32_TOL, BF16_REL = 1e-4, 3e-2          # bf16: relative to the largest logit
 FLASH_BF16_TOL, FLASH_LSE_TOL, FLASH_F32_TOL = 3e-2, 1e-3, 2e-5
+#: bf16 o: the largest relative Frobenius error over the 64-row query tiles
+#: of each head (see ``tile_rel_err``); ~3x the 2.73e-3 read on an H100
+FLASH_BF16_REL = 8e-3
 
 TRAIN_ARCH = "tinyllama-1.1b"
 TRAIN_B = 8                               # cut from train_4k's 256 by time
@@ -135,8 +153,22 @@ TRAIN_STEPS = 3                           # timed, after one warm-up step
 BWD_REL_TOL, BWD_BF16_TOL = 2e-4, 1e-2    # relative to each gradient's max
 TRAIN_F32_TOL, TRAIN_BF16_REL = 1e-4, 2e-2
 TRAIN_BF16_GN_REL = 5e-3                  # ~10x the 5.9e-4 read on an H100
+#: bf16 cases for the tensor-core kernels' mask and padding paths, as
+#: (B, S, Sk, KV, G, D), causal, window: a sliding window, ragged S = Sk,
+#: D = 32 (the smoke configs' head size, zero-padded to 64 by TMA),
+#: no mask, ragged S = Sk at D = 128, and Sk < S (rows past Sk + 7 have no
+#: key in the window)
+BF16_CASES = (((1, 256, 256, 2, 2, 64), True, 64),
+              ((1, 100, 100, 2, 2, 64), True, 0),
+              ((2, 128, 128, 2, 2, 32), True, 0),
+              ((1, 256, 256, 2, 2, 64), False, 0),
+              ((1, 300, 300, 1, 2, 128), False, 0),
+              ((1, 50, 20, 2, 2, 64), True, 8))
 FLASH_KERNELS = ("flash_attention.flash_fwd", "flash_attention.flash_bwd_dkv",
                  "flash_attention.flash_bwd_dq")
+#: the bf16 kernels on the tensor cores, by the names in their SASS
+TENSOR_CORE_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
+SM90_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
 
 
 class CheckFailed(RuntimeError):
@@ -184,6 +216,20 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).abs().max())
 
 
+def tile_rel_err(got: torch.Tensor, want: torch.Tensor, rows: int = 64) -> float:
+    """Largest ||got - want|| / ||want|| (Frobenius) over the ``rows``-row
+    query tiles of each head of two (B, S, KV, G, D) tensors: a fault in a
+    few tiles shows here even where |o| is small, as in a causal row's late
+    tiles, which an absolute max-diff and a whole-tensor norm both dilute."""
+    def tiles(t):
+        t = t.float().permute(0, 2, 3, 1, 4)                    # B, KV, G, S, D
+        t = torch.nn.functional.pad(t, (0, 0, 0, -t.shape[3] % rows))
+        return t.reshape(*t.shape[:3], -1, rows * t.shape[4])
+    w = tiles(want)
+    num = (tiles(got) - w).norm(dim=-1)
+    return float((num / w.norm(dim=-1).clamp_min(1e-30)).max())
+
+
 def wrapped_codes(rng, rows: int, bits: int) -> np.ndarray:
     """int32 codes whose deltas (first word included) fit `bits`; their
     running sum wraps int32 where `bits` is wide enough."""
@@ -193,25 +239,72 @@ def wrapped_codes(rng, rows: int, bits: int) -> np.ndarray:
     return (((q + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).astype(np.int32)
 
 
+def ptxas_by_kernel(log: str) -> dict:
+    """ptxas -v's registers, stack and spill bytes for each entry function."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name and "spill stores" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            out[name].update(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                             spill_load_bytes=nums[2])
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    return out
+
+
+def tensor_core_sass(name: str) -> dict:
+    """HGMMA (wgmma) instructions in the SASS of each kernel of a library."""
+    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.lib_path(name))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HGMMA" in ln:
+            counts[fn] += 1
+    return counts
+
+
 def phase_build(dev) -> None:
     t0 = time.perf_counter()
     logs = _build.build()
     regs = {name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
             for name, log in logs.items()}
-    # first launch of each library (dlopen, CUDA runtime start-up) on tiny
-    # inputs, so the main path's wall time is not charged this set-up
+    # the tensor-core kernels: each instantiation's SASS must hold HGMMA
+    hgmma = tensor_core_sass("flash_attention_sm90")
+    ptxas = ptxas_by_kernel(logs["flash_attention_sm90"])
+    tc = {}
+    for kernel in TENSOR_CORE_KERNELS:
+        found = {fn: n for fn, n in hgmma.items() if kernel in fn}
+        check(found and all(n > 0 for n in found.values()),
+              f"{kernel}: no HGMMA in its SASS: {found}")
+        tc[kernel] = [{"hgmma": n, **ptxas.get(fn, {}),
+                       "instance": "D<=64" if "ILi64E" in fn else "D<=128"}
+                      for fn, n in sorted(found.items())]
+    # first launch of each library (dlopen, CUDA runtime start-up, the
+    # lookup of the tensor-map encoder) on tiny inputs, so the main path's
+    # wall time is not charged this set-up
     t1 = time.perf_counter()
     codes = torch.zeros(8, BLOCK, dtype=torch.int32, device=dev)
     bitplane.unpack(bitplane.pack(codes, BITS), BITS, BLOCK)
     jacobi_mars.jacobi_chunked(torch.zeros(64, device=dev), 4, 16)
     kvpack.kv_dequant(*kvpack.kv_quant(torch.ones(8, 128, device=dev), 8), 8)
-    qkv = torch.ones(1, 64, 1, 1, 64, device=dev)
-    o, lse = flash_attention.flash_fwd(qkv, qkv[:, :, :, 0], qkv[:, :, :, 0])
-    flash_attention.flash_bwd(qkv, qkv[:, :, :, 0], qkv[:, :, :, 0], o, lse, o)
+    for dt in (torch.float32, torch.bfloat16):
+        qkv = torch.ones(1, 64, 1, 1, 64, device=dev, dtype=dt)
+        o, lse = flash_attention.flash_fwd(qkv, qkv[:, :, :, 0], qkv[:, :, :, 0])
+        flash_attention.flash_bwd(qkv, qkv[:, :, :, 0], qkv[:, :, :, 0], o, lse, o)
     torch.cuda.synchronize()
     emit({"phase": "build", "seconds": t1 - t0,
           "first_launch_seconds": time.perf_counter() - t1,
-          "sources": list(_build.SOURCES), "ptxas": regs})
+          "sources": list(_build.SOURCES), "ptxas": regs,
+          "tensor_core_kernels": tc})
 
 
 def phase_card(dev) -> tuple:
@@ -480,7 +573,7 @@ def phase_prefill(dev, lm: dict) -> dict:
     check(tuple(lg.shape) == (PREFILL_B, cfg.vocab), f"logits {tuple(lg.shape)}")
     check(bool(torch.isfinite(lg).all()), "non-finite prefill logits")
     prof = device_profile(lambda: api.prefill(params, {"tokens": toks}),
-                          {"flash": "flash_fwd_kernel"})
+                          {"flash": "flash_fwd_sm90_kernel"})
     emit({"phase": "prefill", "batch": PREFILL_B, "seq": PREFILL_S,
           "q_block": rc.q_block, "kv_block": rc.kv_block,
           "first_call_ms": warm_ms, "wall_ms": wall_ms,
@@ -661,10 +754,11 @@ def phase_attention(dev, prefill: dict, copy_rate: float) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 7)
 
-    def qkv(B, S, KV, G, D, dt):
+    def qkv(B, S, KV, G, D, dt, Sk=None):
+        Sk = Sk or S
         return (torch.randn(B, S, KV, G, D, generator=gen, device=dev).to(dt),
-                torch.randn(B, S, KV, D, generator=gen, device=dev).to(dt),
-                torch.randn(B, S, KV, D, generator=gen, device=dev).to(dt))
+                torch.randn(B, Sk, KV, D, generator=gen, device=dev).to(dt),
+                torch.randn(B, Sk, KV, D, generator=gen, device=dev).to(dt))
 
     small = []
     for (B, S, KV, G, D), causal, window in (
@@ -682,37 +776,71 @@ def phase_attention(dev, prefill: dict, copy_rate: float) -> dict:
         small.append({"shape": [B, S, KV, G, D], "causal": causal,
                       "window": window, "o_err": e_o, "lse_err": e_l})
 
-    B, S, KV, G, D = PREFILL_B, PREFILL_S, 8, 4, 128   # one granite-8b layer
-    q, k, v = qkv(B, S, KV, G, D, torch.bfloat16)
-    o, lse = flash_attention.flash_fwd(q, k, v, True, 0)
-    op, lp = flash_attention.flash_attention_plain(q, k, v, True, 0)
-    e_o, e_l = max_abs_diff(o.float(), op.float()), max_abs_diff(lse, lp)
-    check(e_o < FLASH_BF16_TOL and e_l < FLASH_LSE_TOL,
-          f"flash bf16 at the prefill shape: o {e_o}, lse {e_l}")
-    del op, lp
-    ms = time_ms(lambda: flash_attention.flash_fwd(q, k, v, True, 0), reps=10)
-    plain_ms = time_ms(lambda: flash_attention.flash_attention_plain(q, k, v, True, 0),
-                       reps=3)
-    qs = q.reshape(B, S, KV * G, D).transpose(1, 2)
-    ks, vs = k.transpose(1, 2), v.transpose(1, 2)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qs, ks, vs, is_causal=True, enable_gqa=True), reps=10)
-    nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel()) + 4 * lse.numel()
-    flops = 4 * B * KV * G * S * S * D // 2            # useful, causal
+    # bf16 on the tensor-core kernel: its mask and padding paths
+    small_bf16 = []
+    for (B, S, Sk, KV, G, D), causal, window in BF16_CASES:
+        q, k, v = qkv(B, S, KV, G, D, torch.bfloat16, Sk)
+        o, lse = flash_attention.flash_fwd(q, k, v, causal, window)
+        op, lp = flash_attention.flash_attention_plain(q, k, v, causal, window)
+        e_o, e_l = max_abs_diff(o.float(), op.float()), max_abs_diff(lse, lp)
+        e_r = tile_rel_err(o, op)
+        check(e_o < FLASH_BF16_TOL and e_l < FLASH_LSE_TOL and e_r < FLASH_BF16_REL,
+              f"flash bf16 {(B, S, Sk, KV, G, D)} causal={causal} window={window}: "
+              f"o {e_o}, lse {e_l}, o tile rel {e_r}")
+        small_bf16.append({"shape": [B, S, Sk, KV, G, D], "causal": causal,
+                           "window": window, "o_err": e_o, "lse_err": e_l,
+                           "o_tile_rel_err": e_r})
+
+    # bf16 at the prefill shape (one granite-8b layer), then the train shape
+    # (one tinyllama-1.1b layer: its sequences are held against the plain
+    # version in attention_bwd)
+    tcfg = configs.load_arch(TRAIN_ARCH)
+    shapes = {"prefill": (PREFILL_B, PREFILL_S, 8, 4, 128),
+              "train": (TRAIN_B, configs.SHAPES["train_4k"][0], tcfg.n_kv_heads,
+                        tcfg.n_heads // tcfg.n_kv_heads, tcfg.hd)}
+    timed = {}
+    for label, (B, S, KV, G, D) in shapes.items():
+        q, k, v = qkv(B, S, KV, G, D, torch.bfloat16)
+        if label == "prefill":
+            o, lse = flash_attention.flash_fwd(q, k, v, True, 0)
+            op, lp = flash_attention.flash_attention_plain(q, k, v, True, 0)
+            e_o, e_l = max_abs_diff(o.float(), op.float()), max_abs_diff(lse, lp)
+            e_r = tile_rel_err(o, op)
+            check(e_o < FLASH_BF16_TOL and e_l < FLASH_LSE_TOL and e_r < FLASH_BF16_REL,
+                  f"flash bf16 at the prefill shape: o {e_o}, lse {e_l}, "
+                  f"o tile rel {e_r}")
+            del op, lp
+            plain_ms = time_ms(
+                lambda: flash_attention.flash_attention_plain(q, k, v, True, 0), reps=3)
+        ms = time_ms(lambda: flash_attention.flash_fwd(q, k, v, True, 0), reps=10)
+        qs = q.reshape(B, S, KV * G, D).transpose(1, 2)
+        ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True, enable_gqa=True), reps=10)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * KV * G * S
+        flops = 4 * B * KV * G * S * S * D // 2            # useful, causal
+        timed[label] = {"shape": [B, S, KV, G, D], "ms": ms, "library_ms": lib_ms,
+                        **bound(nbytes, flops, copy_rate, BF16_FLOPS_PER_S),
+                        "tflops_per_s": flops / (ms * 1e-3) / 1e12}
+        timed[label]["share_of_bound"] = timed[label]["bound_ms"] / ms
+        del q, k, v, qs, ks, vs
+        torch.cuda.empty_cache()
+    pre = timed["prefill"]
     row = {"name": "flash_attention.flash_fwd", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "source": SM90_SOURCE, "design": "wgmma+tma",
            "replaces": "src/repro/kernels/flash_attention.py:50",
            "launches": prefill["launches"]["flash_attention.flash_fwd"],
-           "max_abs_err": e_o, "ms": ms, "plain_ms": plain_ms,
-           **bound(nbytes, flops, copy_rate, BF16_FLOPS_PER_S),
-           "library_ms": lib_ms}
-    emit({"phase": "attention", "shape": [B, S, KV, G, D], "dtype": "bfloat16",
-          "causal": True, "o_err": e_o, "lse_err": e_l,
+           "max_abs_err": e_o, "ms": pre["ms"], "plain_ms": plain_ms,
+           "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+           "copy_bound_ms": pre["copy_bound_ms"], "library_ms": pre["library_ms"],
+           "at_train_shape": {k: timed["train"][k] for k in
+                              ("shape", "ms", "library_ms", "bound_ms")}}
+    emit({"phase": "attention", "shape": pre["shape"], "dtype": "bfloat16",
+          "causal": True, "o_err": e_o, "lse_err": e_l, "o_tile_rel_err": e_r,
           "tol": {"bf16_o": FLASH_BF16_TOL, "lse": FLASH_LSE_TOL,
-                  "f32": FLASH_F32_TOL},
-          "useful_flops": flops, "tflops_per_s": flops / (ms * 1e-3) / 1e12,
+                  "bf16_o_tile_rel": FLASH_BF16_REL, "f32": FLASH_F32_TOL},
           "library": "F.scaled_dot_product_attention(is_causal, enable_gqa)",
-          "small_f32": small, **row})
+          "timed": timed, "small_f32": small, "small_bf16": small_bf16, **row})
     return row
 
 
@@ -766,8 +894,8 @@ def phase_train(dev) -> dict:
         nonlocal state
         state, m = step_fn(state, batches[-1])
         float(m["loss"])
-    prof = device_profile(one_step, {"flash_fwd": "flash_fwd_kernel",
-                                     "flash_bwd_dkv": "flash_bwd_dkv_kernel",
+    prof = device_profile(one_step, {"flash_fwd": "flash_fwd_sm90_kernel",
+                                     "flash_bwd_dkv": "flash_bwd_dkv_sm90_kernel",
                                      "flash_bwd_dq": "flash_bwd_dq_kernel"}, top=8)
     step_ms = float(np.median(times))
     tokens = TRAIN_B * rc.seq_len
@@ -872,6 +1000,17 @@ def phase_attention_bwd(dev, trained: dict, copy_rate: float) -> list:
         small.append({"shape": [B, S, Sk, KV, G, D], "causal": causal,
                       "window": window, "rel_err_dq_dk_dv": errs})
 
+    small_bf16 = []
+    for (B, S, Sk, KV, G, D), causal, window in BF16_CASES:
+        q, k, v, do = inputs(B, S, KV, G, D, torch.bfloat16, Sk)
+        o, lse = fa.flash_fwd(q, k, v, causal, window)
+        errs = rel_errs(fa.flash_bwd(q, k, v, o, lse, do, causal, window),
+                        fa.flash_bwd_plain(q, k, v, o, lse, do, causal, window))
+        check(max(errs) < BWD_BF16_TOL, f"flash bwd bf16 {(B, S, Sk, KV, G, D)} "
+              f"causal={causal} window={window}: rel dq, dk, dv {errs}")
+        small_bf16.append({"shape": [B, S, Sk, KV, G, D], "causal": causal,
+                           "window": window, "rel_err_dq_dk_dv": errs})
+
     # bf16 at the train shape: each kernel launched once on the whole batch,
     # each sequence held against the plain versions run on it alone (the
     # plain backward at B = 8 would need ~17 GB for each S x S f32 tensor)
@@ -882,12 +1021,12 @@ def phase_attention_bwd(dev, trained: dict, copy_rate: float) -> list:
     o, lse = fa.flash_fwd(q, k, v, True, 0)
     got = fa.flash_bwd(q, k, v, o, lse, do, True, 0)
     fa.flash_bwd_plain(q[:1], k[:1], v[:1], o[:1], lse[:1], do[:1], True, 0)  # warm-up
-    fwd_errs, bf16_errs, bf16_abs, plain_ms = [0.0, 0.0], [0.0] * 3, [0.0] * 3, 0.0
+    fwd_errs, bf16_errs, bf16_abs, plain_ms = [0.0] * 3, [0.0] * 3, [0.0] * 3, 0.0
     for b in range(B):
         qb, kb, vb, ob, lb, dob = (t[b:b + 1] for t in (q, k, v, o, lse, do))
         op, lp = fa.flash_attention_plain(qb, kb, vb, True, 0)
-        fwd_errs = [max(fwd_errs[0], max_abs_diff(ob.float(), op.float())),
-                    max(fwd_errs[1], max_abs_diff(lb, lp))]
+        fwd_errs = list(map(max, fwd_errs, (max_abs_diff(ob.float(), op.float()),
+                                            max_abs_diff(lb, lp), tile_rel_err(ob, op))))
         del op, lp
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -900,8 +1039,9 @@ def phase_attention_bwd(dev, trained: dict, copy_rate: float) -> list:
         bf16_errs = list(map(max, bf16_errs, rel_errs(mine, want)))
         bf16_abs = list(map(max, bf16_abs, abs_errs(mine, want)))
         del want, mine
-    check(fwd_errs[0] < FLASH_BF16_TOL and fwd_errs[1] < FLASH_LSE_TOL,
-          f"flash fwd bf16 at the train shape: o, lse {fwd_errs}")
+    check(fwd_errs[0] < FLASH_BF16_TOL and fwd_errs[1] < FLASH_LSE_TOL
+          and fwd_errs[2] < FLASH_BF16_REL,
+          f"flash fwd bf16 at the train shape: o, lse, o tile rel {fwd_errs}")
     check(max(bf16_errs) < BWD_BF16_TOL,
           f"flash bwd bf16 at the train shape: rel dq, dk, dv {bf16_errs}")
     del got
@@ -933,8 +1073,11 @@ def phase_attention_bwd(dev, trained: dict, copy_rate: float) -> list:
              8 * B * H * S * S * D // 2),
             ("flash_attention.flash_bwd_dq", 168, ms_dq, io + 2 * q.numel(),
              6 * B * H * S * S * D // 2)):
+        dkv = line == 131
         rows.append({"name": name, "route": "cuda",
-                     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     "source": SM90_SOURCE if dkv else
+                     "src/repro_torch/kernels/csrc/flash_attention.cu",
+                     **({"design": "wgmma+tma"} if dkv else {}),
                      "replaces": f"src/repro/kernels/flash_attention.py:{line}",
                      "launches": trained["launches"][name],
                      # at the bf16 train shape: dq, or the larger of dk and dv
@@ -945,7 +1088,8 @@ def phase_attention_bwd(dev, trained: dict, copy_rate: float) -> list:
                      "tflops_per_s": nflops / (ms * 1e-3) / 1e12})
     emit({"phase": "attention_bwd", "shape": [B, S, KV, G, D], "dtype": "bfloat16",
           "causal": True, "tol": {"f32_rel": BWD_REL_TOL, "bf16_rel": BWD_BF16_TOL},
-          "small_f32": small, "bf16_fwd_o_lse_err": fwd_errs,
+          "small_f32": small, "small_bf16": small_bf16,
+          "bf16_fwd_o_lse_tile_rel_err": fwd_errs,
           "bf16_rel_err_dq_dk_dv": bf16_errs, "bf16_abs_err_dq_dk_dv": bf16_abs,
           "plain_ms_shape": [B, S, KV, G, D],
           "plain_note": f"flash_bwd_plain (dq, dk, dv together) on each of the {B} "

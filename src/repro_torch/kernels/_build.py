@@ -23,7 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: every kernel source of the package, by library name
-SOURCES = ("bitplane", "jacobi_mars", "kvpack", "flash_attention")
+SOURCES = ("bitplane", "jacobi_mars", "kvpack", "flash_attention",
+           "flash_attention_sm90")
 
 #: sm_90a keeps Hopper-only instructions available; no --use_fast_math, so
 #: float division stays IEEE (the jacobi update divides by 3, the KV

@@ -40,9 +40,9 @@
 // Bound on this card: operations.  4 B H S Sk D flops for full attention
 // (half for causal) against q, k, v, o read or written once; at prefill
 // shapes that is ~1000 flops per byte, above the tensor cores' ~295.  This
-// kernel runs its products on the fp32 CUDA cores (67 TFLOP/s), not the
-// tensor cores, so it cannot reach the bf16 bound: that is a later PR's
-// work (wgmma on bf16 tiles).
+// kernel runs its products on the fp32 CUDA cores (67 TFLOP/s), so it now
+// serves the f32 route only: bf16 inputs, the main paths' dtype, run in
+// flash_attention_sm90.cu on the tensor cores (wgmma, TMA).
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -296,8 +296,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // causal, against q, k, v, do, lse, delta read and the gradients written
 // once; at training shapes that is ~1000 flops per byte, above the tensor
 // cores' ~295.  Like the forward, these kernels run their products on the
-// fp32 CUDA cores (67 TFLOP/s), not the tensor cores, so they cannot reach
-// the bf16 bound; wgmma on bf16 tiles is a later PR's work.
+// fp32 CUDA cores (67 TFLOP/s).  dK/dV here serves the f32 route only (bf16
+// runs in flash_attention_sm90.cu); dQ serves both dtypes, its bf16 route
+// still on the CUDA cores.
 // ---------------------------------------------------------------------------
 
 template <int DP>
@@ -657,28 +658,22 @@ extern "C" {
 // Runs on `stream`, allocates nothing, does not synchronise, and returns
 // cudaGetLastError() after the launch (0 when it was accepted).  The caller
 // checks shapes: contiguous q (B, S, KV, G, D), k and v (B, Sk, KV, D) of
-// one dtype (bf16 when `is_bf16`, else f32), 1 <= D <= 128, S, Sk >= 1,
-// B * KV * G < 2^31, ceil(S / 64) <= 65535; o like q, lse f32 (B, KV, G, S).
+// one dtype, 1 <= D <= 128, S, Sk >= 1, B * KV * G < 2^31,
+// ceil(S / 64) <= 65535; o like q, lse f32 (B, KV, G, S).  The forward and
+// dK/dV launchers take f32 only (bf16 runs in flash_attention_sm90.cu); dQ
+// takes f32, or bf16 when `is_bf16`.
 
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
-                     void* lse, int is_bf16, int B, int S, int Sk, int KV,
-                     int G, int D, int causal, int window, float scale,
-                     int device, void* stream) {
+                     void* lse, int B, int S, int Sk, int KV, int G, int D,
+                     int causal, int window, float scale, int device,
+                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    err = D <= 64 ? launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, S, Sk, KV, G,
-                                              D, causal, window, scale, s)
-                  : launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, S, Sk, KV,
-                                               G, D, causal, window, scale, s);
-  } else {
-    err = D <= 64 ? launch<float, 64>(q, k, v, o, lse, B, S, Sk, KV, G, D,
-                                      causal, window, scale, s)
-                  : launch<float, 128>(q, k, v, o, lse, B, S, Sk, KV, G, D,
-                                       causal, window, scale, s);
-  }
-  return err;
+  return D <= 64 ? launch<float, 64>(q, k, v, o, lse, B, S, Sk, KV, G, D,
+                                     causal, window, scale, s)
+                 : launch<float, 128>(q, k, v, o, lse, B, S, Sk, KV, G, D,
+                                      causal, window, scale, s);
 }
 
 // The backward launchers take the forward's shapes and rules, plus dout
@@ -687,28 +682,18 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
 
 int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
                          const void* dout, const void* lse, const void* delta,
-                         void* dk, void* dv, int is_bf16, int B, int S, int Sk,
-                         int KV, int G, int D, int causal, int window,
-                         float scale, int device, void* stream) {
+                         void* dk, void* dv, int B, int S, int Sk, int KV,
+                         int G, int D, int causal, int window, float scale,
+                         int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    err = D <= 64 ? launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dk,
-                                                  dv, B, S, Sk, KV, G, D,
-                                                  causal, window, scale, s)
-                  : launch_dkv<__nv_bfloat16, 128>(q, k, v, dout, lse, delta,
-                                                   dk, dv, B, S, Sk, KV, G, D,
-                                                   causal, window, scale, s);
-  } else {
-    err = D <= 64 ? launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B,
-                                          S, Sk, KV, G, D, causal, window,
-                                          scale, s)
-                  : launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv,
-                                           B, S, Sk, KV, G, D, causal, window,
-                                           scale, s);
-  }
-  return err;
+  return D <= 64 ? launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B,
+                                         S, Sk, KV, G, D, causal, window,
+                                         scale, s)
+                 : launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv,
+                                          B, S, Sk, KV, G, D, causal, window,
+                                          scale, s);
 }
 
 int flash_bwd_dq_launch(const void* q, const void* k, const void* v,

@@ -1,20 +1,23 @@
 """GQA flash attention, forward and backward: the CUDA kernels and their plain versions.
 
-Three kernels of ``csrc/flash_attention.cu``, each replacing a Pallas kernel
-of ``repro/kernels/flash_attention.py``:
+Three wrappers, each replacing a Pallas kernel of
+``repro/kernels/flash_attention.py``:
 
 * ``flash_fwd`` (``_fwd_kernel``) -> (o, lse);
 * ``flash_bwd_dkv`` (``_bwd_dkv_kernel``) -> (dk, dv);
 * ``flash_bwd_dq`` (``_bwd_dq_kernel``) -> dq.
 
-Each wrapper launches its kernel on CUDA tensors and runs the plain PyTorch
-version (``flash_attention_plain``, ``flash_bwd_plain``) on CPU tensors.  A
-CUDA tensor never takes the plain version: the kernel runs or the call
-raises.  Launches are counted in ``<wrapper>.launches``.  The wrappers are
-not differentiable themselves: ``FlashAttentionFn`` (the port of the
-reference's ``jax.custom_vjp``) runs ``flash_fwd`` forward and
-``flash_bwd`` (both backward kernels) backward, and ``flash_attention``
-routes an input that requires grad through it.
+On CUDA tensors each launches a kernel chosen by dtype: bf16 ``flash_fwd``
+and ``flash_bwd_dkv`` run on the tensor cores (``csrc/flash_attention_sm90.cu``:
+wgmma fed by a TMA ring); f32, and dQ on either dtype, run on the CUDA
+cores (``csrc/flash_attention.cu``).  This is a dispatch, not a fallback: a
+failed build or launch raises.  On CPU tensors each runs the plain PyTorch
+version (``flash_attention_plain``, ``flash_bwd_plain``), and a CUDA tensor
+never takes it.  Launches are counted in ``<wrapper>.launches``, whatever
+kernel ran.  The wrappers are not differentiable themselves:
+``FlashAttentionFn`` (the port of the reference's ``jax.custom_vjp``) runs
+``flash_fwd`` forward and ``flash_bwd`` (both backward kernels) backward,
+and ``flash_attention`` routes an input that requires grad through it.
 
 Layout as in the reference: q ``(B, S, KV, G, D)`` (grouped GQA, no repeated
 kv heads), k / v ``(B, Sk, KV, D)``; o in q's dtype, lse f32
@@ -36,14 +39,20 @@ NEG_INF = -1e30
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 
 
-def _lib() -> ctypes.CDLL:
+def _lib(bf16: bool = False) -> ctypes.CDLL:
+    """The f32 library (``flash_attention``), or with ``bf16`` the tensor-core
+    one (``flash_attention_sm90``); each launcher's argument types set."""
+    if bf16:
+        lib = _build.load("flash_attention_sm90")
+        lib.flash_fwd_sm90_launch.argtypes = [_P] * 5 + [_I] * 8 + [_F, _I, _P]
+        lib.flash_bwd_dkv_sm90_launch.argtypes = [_P] * 8 + [_I] * 8 + [_F, _I, _P]
+        lib.flash_fwd_sm90_launch.restype = lib.flash_bwd_dkv_sm90_launch.restype = _I
+        return lib
     lib = _build.load("flash_attention")
-    lib.flash_fwd_launch.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _I, _I, _I, _I, _F, _I, _P]
-    lib.flash_fwd_launch.restype = _I
-    lib.flash_bwd_dkv_launch.argtypes = [_P] * 8 + [_I] * 9 + [_F, _I, _P]
-    lib.flash_bwd_dkv_launch.restype = _I
+    lib.flash_fwd_launch.argtypes = [_P] * 5 + [_I] * 8 + [_F, _I, _P]
+    lib.flash_bwd_dkv_launch.argtypes = [_P] * 8 + [_I] * 8 + [_F, _I, _P]
     lib.flash_bwd_dq_launch.argtypes = [_P] * 7 + [_I] * 9 + [_F, _I, _P]
+    lib.flash_fwd_launch.restype = lib.flash_bwd_dkv_launch.restype = _I
     lib.flash_bwd_dq_launch.restype = _I
     return lib
 
@@ -70,13 +79,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _check_kernel(q: torch.Tensor, k: torch.Tensor) -> None:
-    """The limits of the CUDA kernels' grids and tiles."""
+    """The limits of the CUDA kernels' grids and tiles; bf16 rows are read by
+    TMA, whose row strides must be multiples of 16 bytes (D % 8 == 0)."""
     B, S, KV, G, D = q.shape
     if D > 128 or max(-(-S // 64), -(-k.shape[1] // 64)) > 65535 or \
             B * KV * G >= 2 ** 31:
         raise ValueError(f"flash kernels take D <= 128, S, Sk <= 65535 * 64 "
                          f"and B*KV*G < 2^31; got q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
+    if q.dtype == torch.bfloat16 and D % 8:
+        raise ValueError(f"bf16 flash kernels take D % 8 == 0, got D = {D}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address (TMA's rule): a view at
+    an odd offset is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _mask(S: int, Sk: int, causal: bool, window: int,
@@ -170,11 +189,13 @@ def flash_bwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal, window)
 
 
-def _launch(what: str, *args) -> None:
-    """Call the launcher ``<what>_launch``; raise on a CUDA error."""
-    lib = _lib()
-    _build.check(lib, getattr(lib, f"{what}_launch")(*args),
-                 f"flash_attention.{what}")
+def _launch(what: str, bf16: bool, *args) -> None:
+    """Call ``<what>_launch`` of the f32 library, or ``<what>_sm90_launch``
+    of the tensor-core one when ``bf16``; raise on a CUDA error."""
+    lib = _lib(bf16)
+    name = f"{what}_sm90" if bf16 else what
+    _build.check(lib, getattr(lib, f"{name}_launch")(*args),
+                 f"flash_attention.{name}")
 
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -183,9 +204,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B,S,KV,G,D), k/v (B,Sk,KV,D) -> (o like q, lse f32 (B,KV,G,S)).
 
     ``bq`` and ``bk`` are the reference's block sizes; they are checked and
-    otherwise not used: the kernel tiles by 64 queries and 64 keys and masks
-    a ragged last tile itself.  The outputs carry no autograd graph
-    (``FlashAttentionFn`` differentiates).
+    otherwise not used: the kernels tile by their own sizes (f32: 64 queries
+    by 64 keys; bf16: 128 by 128) and mask a ragged last tile themselves.
+    The outputs carry no autograd graph (``FlashAttentionFn`` differentiates).
     """
     _check(q, k, v)
     if bq < 1 or bk < 1:
@@ -195,14 +216,14 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return flash_attention_plain(q, k, v, causal, window)
     _check_kernel(q, k)
     B, S, KV, G, D = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = torch.empty_like(q)
     lse = torch.empty((B, KV, G, S), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd",
+    _launch("flash_fwd", q.dtype == torch.bfloat16,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), int(q.dtype == torch.bfloat16), B, S, k.shape[1],
-            KV, G, D, int(bool(causal)), int(window), D ** -0.5,
-            q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
+            lse.data_ptr(), B, S, k.shape[1], KV, G, D, int(bool(causal)),
+            int(window), D ** -0.5, q.device.index,
+            torch.cuda.current_stream(q.device).cuda_stream)
     flash_fwd.launches += 1
     return o, lse
 
@@ -224,12 +245,13 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return _bwd_plain(q, k, v, do, lse, delta, causal, window)[1:]
     _check_kernel(q, k)
     B, S, KV, G, D = q.shape
+    q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv",
+    _launch("flash_bwd_dkv", q.dtype == torch.bfloat16,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, S, k.shape[1], KV, G, D,
-            int(bool(causal)), int(window), D ** -0.5, q.device.index,
+            B, S, k.shape[1], KV, G, D, int(bool(causal)), int(window),
+            D ** -0.5, q.device.index,
             torch.cuda.current_stream(q.device).cuda_stream)
     flash_bwd_dkv.launches += 1
     return dk, dv
@@ -250,7 +272,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_kernel(q, k)
     B, S, KV, G, D = q.shape
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq",
+    _launch("flash_bwd_dq", False,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             int(q.dtype == torch.bfloat16), B, S, k.shape[1], KV, G, D,

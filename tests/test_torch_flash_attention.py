@@ -246,3 +246,116 @@ def test_backward_shape_mismatch_raises(bad):
             fa.flash_bwd(q, k, v, o, lse[..., :32], o, True, 0)
         else:
             fa.flash_bwd_dq(q, k, v, o, lse, lse[..., :32], True, 0)
+
+
+# -- the bf16 tensor-core kernels' rounding, emulated ---------------------------
+
+#: chip_smoke.py's bf16 tolerances: forward o and lse absolute, backward
+#: relative to each gradient's largest magnitude
+_BF16_O_TOL, _BF16_LSE_TOL, _BF16_BWD_TOL = 3e-2, 1e-3, 1e-2
+
+
+def _bf16(x):
+    return x.to(torch.bfloat16).float()
+
+
+def _emulate_fwd(q, k, v, causal, window, bk):
+    """The bf16 forward kernel's arithmetic: key tiles of ``bk``, scores and
+    the online softmax in f32 from bf16 inputs, P rounded to bf16 before
+    P V, f32 accumulation -> (o in bf16, lse f32)."""
+    D, Sk = q.shape[-1], k.shape[1]
+    s_all = torch.einsum("bqkgd,bskd->bkgqs", q.float(), k.float()) * D ** -0.5
+    allowed = fa._mask(q.shape[1], Sk, causal, window, q.device)
+    s_all = torch.where(allowed, s_all, torch.full_like(s_all, fa.NEG_INF))
+    m = torch.full(s_all.shape[:-1], fa.NEG_INF)
+    l = torch.zeros(s_all.shape[:-1])
+    acc = torch.zeros(*s_all.shape[:-1], D)
+    for k0 in range(0, Sk, bk):
+        s = s_all[..., k0:k0 + bk]
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bkgqs,bskd->bkgqd", _bf16(p), v[:, k0:k0 + bk].float())
+        m = m_new
+    lc = torch.clamp(l, min=1e-30)
+    o = (acc / lc[..., None]).permute(0, 3, 1, 2, 4)
+    return o.to(torch.bfloat16), m + torch.log(lc)
+
+
+def _emulate_dkv(q, k, v, do, lse, delta, causal, window, bq=64):
+    """The bf16 dK/dV kernel's arithmetic: query tiles of ``bq``, S^T and
+    dP^T in f32 from bf16 inputs, P^T and dS^T rounded to bf16 before their
+    products, f32 accumulation -> (dk, dv) in bf16."""
+    D, S = q.shape[-1], q.shape[1]
+    scale = D ** -0.5
+    allowed = fa._mask(S, k.shape[1], causal, window, q.device)
+    dk = torch.zeros(k.shape)
+    dv = torch.zeros(v.shape)
+    for q0 in range(0, S, bq):
+        qt, dot = q[:, q0:q0 + bq].float(), do[:, q0:q0 + bq].float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qt, k.float()) * scale
+        p = torch.where(allowed[q0:q0 + bq],
+                        torch.exp(s - lse[..., q0:q0 + bq, None]),
+                        torch.zeros_like(s))
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dot, v.float())
+        ds = p * (dp - delta[..., q0:q0 + bq, None]) * scale
+        dv += torch.einsum("bkgqs,bqkgd->bskd", _bf16(p), dot)
+        dk += torch.einsum("bkgqs,bqkgd->bskd", _bf16(ds), qt)
+    return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("B,S,KV,G,D,causal,window,blk", [
+    (1, 128, 2, 2, 64, True, 0, 64), (1, 128, 2, 2, 64, True, 32, 64),
+    (1, 80, 2, 2, 64, True, 0, 16), (1, 128, 2, 2, 32, True, 0, 64),
+    (2, 128, 1, 3, 32, False, 0, 32)])
+def test_bf16_tensor_core_rounding_matches_jax(B, S, KV, G, D, causal, window,
+                                               blk):
+    """The tensor-core kernels round p (forward), p^T and ds^T (dK/dV) to
+    bf16 before their products; emulated here on the CPU, on bf16 inputs,
+    against the Pallas kernels in interpret mode (forward; ``jax.grad``
+    through them for the backward) at chip_smoke.py's bf16 tolerances.
+    The forward walks the kernel's 128-key tiles and 64-key ones; S = 80 is
+    ragged against both (the reference blocks by ``blk``, which divides S).
+
+    No kernel code runs here, so nothing in this test ties the emulation to
+    the kernels: chip_smoke.py's attention and attention_bwd phases, which
+    hold the kernels against the plain versions on the card, do. The
+    emulation's tiles follow the kernels' (128-key forward tiles, 64-row
+    dK/dV query tiles); when those change, change ``bk`` and ``bq`` here."""
+    (qj, kj, vj), (q, k, v) = _inputs(B, S, KV, G, D, seed=11, dtype="bfloat16")
+    oj, lj = jfa._flash_fwd(qj, kj, vj, causal=causal, window=window, bq=blk,
+                            bk=blk, interpret=True)
+    for bk in (128, 64):
+        o, lse = _emulate_fwd(q, k, v, causal, window, bk)
+        assert np.abs(_f32(o) - _f32(oj)).max() < _BF16_O_TOL, bk
+        assert np.abs(_f32(lse) - _f32(lj)).max() < _BF16_LSE_TOL, bk
+
+    def loss(q, k, v):
+        o = jfa.flash_attention(q, k, v, causal, window, blk, blk, True)
+        return jnp.sum(o.astype(jnp.float32) * jnp.cos(o.astype(jnp.float32)))
+
+    _, dkj, dvj = jax.grad(loss, argnums=(0, 1, 2))(qj, kj, vj)
+    of = o.float()
+    do = (torch.cos(of) - of * torch.sin(of)).to(torch.bfloat16)
+    dk, dv = _emulate_dkv(q, k, v, do, lse, fa.bwd_delta(o, do), causal, window)
+    assert _rel(dk, dkj) < _BF16_BWD_TOL
+    assert _rel(dv, dvj) < _BF16_BWD_TOL
+
+
+def test_bf16_kernel_limits():
+    """The bf16 route reads rows by TMA: it takes D % 8 == 0 only (checked
+    before any launch; f32 takes any D <= 128), and a view at an address
+    that is not 16-byte aligned is copied before its pointer is passed."""
+    q = torch.zeros(1, 64, 1, 1, 12, dtype=torch.bfloat16)
+    k = torch.zeros(1, 64, 1, 12, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fa._check_kernel(q, k)
+    fa._check_kernel(q.float(), k.float())
+    base = torch.arange(1 + 64 * 32, dtype=torch.float32).to(torch.bfloat16)
+    view = base[1:].view(1, 64, 1, 32)
+    assert view.data_ptr() % 16 != 0
+    moved = fa._aligned(view)
+    assert moved.data_ptr() % 16 == 0 and torch.equal(moved, view)
+    assert fa._aligned(moved).data_ptr() == moved.data_ptr()
