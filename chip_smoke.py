@@ -30,17 +30,24 @@ read just after:
 Phases, one JSON line each:
 
 1. build     — compile every ``csrc/*.cu`` with nvcc, all in parallel; check
-               that the SASS of both tensor-core kernels
-               (``flash_attention_sm90.cu``) holds HGMMA (wgmma) instructions
-               and report their count, registers and spills; launch each
-               kernel once on a tiny input, the flash ones in f32 and bf16
-               (set-up);
+               that the SASS of the three tensor-core kernels
+               (``flash_attention_sm90.cu``: forward, dK/dV, dQ) holds HGMMA
+               (wgmma) instructions and report their count, registers and
+               spills; launch each kernel once on a tiny input, the flash
+               ones in f32 and bf16 (set-up);
 2. card      — ``nvidia-smi`` name and power limit, and the rate of a 1 GiB
                device-to-device copy;
-3. main      — the stencil and codec path above;
-4. stencil   — the jacobi kernel against its plain version (<= 1e-5, the
-               tolerance of tests/test_kernels.py), and the whole path against
-               the independent oracle ``ref.jacobi_chunked_ref`` on a small input;
+3. main      — the stencil and codec path above, then a profile of one
+               more run (device ops, idle share);
+4. stencil   — the jacobi wavefront kernel bit-identical (``torch.equal``) to
+               its plain version: the whole path, the kernel at the main
+               shape, two back-to-back launches, and a sweep of (n, T, W)
+               with T = 0, T = W - 3, n below and ragged against the
+               kernel's 4096-cell tile, and a ghost x[0] that the update
+               changes; its division by 3 against IEEE division on all
+               2^32 f32 inputs (no mismatch); the whole path against the
+               independent oracle ``ref.jacobi_chunked_ref`` on a small
+               input (<= 1e-5, the tolerance of tests/test_kernels.py);
 5. codec     — pack / unpack bit-identical to their plain versions at the
                main-path shape and over a bits sweep with int32 wrap;
 6. lm_init   — the granite-8b weights on the card (count, GiB, seconds);
@@ -72,7 +79,8 @@ Phases, one JSON line each:
                dir: no restart without injection and the loss drops; with an
                injected failure one restart, and the resumed losses equal
                the uninterrupted run's (atol 1e-5);
-14. attention_bwd — the dK/dV and dQ kernels against ``flash_bwd_plain``:
+14. attention_bwd — the dK/dV and dQ kernels (bf16: both on the tensor
+               cores; f32: on the CUDA cores) against ``flash_bwd_plain``:
                f32 on the shapes of tests/test_flash_attention.py's gradient
                test, windows 32 and 64, ragged S and D = 128 (relative error
                2e-4); bf16 on the forward's mask and padding cases
@@ -90,7 +98,8 @@ Phases, one JSON line each:
                bf16 losses within 2e-2 and grad norms within 5e-3 relative;
 16. the ``{"kernels": [...]}`` line, then the card line, then the result line.
 
-The two tensor-core rows (flash forward, dK/dV) also carry ``design``.
+The three tensor-core rows (flash forward, dK/dV, dQ) and the jacobi row
+also carry ``design``.
 
 ``bound_ms`` is the larger of the bytes the function must move over the
 H100's published 3.35 TB/s and its operations over the published peak for
@@ -133,7 +142,13 @@ SEED = 0
 N_CELLS, T_STEPS, WIDTH = 1 << 26, 64, 512
 QBITS, BITS, BLOCK = 7, 8, 256
 SWEEP_BITS, SWEEP_ROWS = (1, 4, 7, 8, 13, 16, 31, 32), 4096
-JACOBI_TOL = 1e-5
+JACOBI_TOL = 1e-5                         # the small input against the oracle
+#: (n, T, W) for the jacobi kernel against its plain version: the build's
+#: and the oracle's shapes, T = 0, T = W - 3, n below and ragged against
+#: the kernel's 4096-cell tile, and many tiles at a deep T
+JACOBI_SWEEP = ((64, 4, 16), (4096, 16, 256), (1024, 0, 64), (4096, 61, 64),
+                (1536, 125, 128), (96, 5, 32), (2144, 29, 32),
+                (10752, 64, 512), (1 << 20, 200, 256))
 STENCIL_KERNELS = ("bitplane.pack", "bitplane.unpack", "jacobi_mars.jacobi_chunked")
 
 ARCH = "granite-8b"
@@ -167,7 +182,8 @@ BF16_CASES = (((1, 256, 256, 2, 2, 64), True, 64),
 FLASH_KERNELS = ("flash_attention.flash_fwd", "flash_attention.flash_bwd_dkv",
                  "flash_attention.flash_bwd_dq")
 #: the bf16 kernels on the tensor cores, by the names in their SASS
-TENSOR_CORE_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel")
+TENSOR_CORE_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel",
+                       "flash_bwd_dq_sm90_kernel")
 SM90_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
 
 
@@ -330,13 +346,16 @@ def phase_main(dev) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
+    def path():
+        y = ops.jacobi1d_tiled(x, T_STEPS, width=WIDTH)
+        q, scale = blockcodec.quantize(y, QBITS, BLOCK)
+        planes = ops.pack_codes(q, BITS)
+        q2 = ops.unpack_codes(planes, BITS, BLOCK)
+        return y, q, scale, planes, q2, blockcodec.dequantize(q2, scale)
+
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    y = ops.jacobi1d_tiled(x, T_STEPS, width=WIDTH)
-    q, scale = blockcodec.quantize(y, QBITS, BLOCK)
-    planes = ops.pack_codes(q, BITS)
-    q2 = ops.unpack_codes(planes, BITS, BLOCK)
-    out = blockcodec.dequantize(q2, scale)
+    y, q, scale, planes, q2, out = path()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = ops.launch_counts()
@@ -352,28 +371,58 @@ def phase_main(dev) -> dict:
     err = (out.reshape(-1) - y).abs().reshape(-1, BLOCK)
     check(bool((err <= scale[:, None] / 2 * (1 + 1e-5) + 1e-7).all()),
           "round trip lost more than half a quantization step")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    # one more run under the profiler: how much of the wall time is device
+    prof = device_profile(path, {"jacobi": "jacobi_wavefront_kernel",
+                                 "pack": "::pack_kernel", "unpack": "unpack_kernel"})
     emit({"phase": "main", "n_cells": N_CELLS, "t_steps": T_STEPS,
           "width": WIDTH, "codes": list(q.shape), "qbits": QBITS, "bits": BITS,
-          "wall_ms": wall_ms, "launches": launches,
-          "peak_GiB": torch.cuda.max_memory_allocated(dev) / 2**30,
-          "max_roundtrip_err": float(err.max())})
+          "wall_ms": wall_ms, "launches": launches, "peak_GiB": peak,
+          "max_roundtrip_err": float(err.max()), **prof})
     return {"x": x, "y": y, "q": q, "planes": planes, "launches": launches}
+
+
+def evolving_ghost(rng) -> np.float32:
+    """A value a that the update changes, ((a + a) + a) / 3 != a: as x[0] it
+    makes the ghost left of cell 0 differ from level to level."""
+    while True:
+        a = np.float32(rng.standard_normal())
+        if ((a + a) + a) / np.float32(3) != a:
+            return a
 
 
 def phase_stencil(dev, main: dict, copy_rate: float) -> dict:
     x = main["x"]
     y_plain = ops.jacobi1d_tiled(x, T_STEPS, width=WIDTH, backend="ref")
-    err_path = max_abs_diff(main["y"], y_plain)
-    check(err_path <= JACOBI_TOL, f"jacobi1d_tiled vs plain: {err_path}")
+    check(bool(torch.equal(main["y"], y_plain)), "jacobi1d_tiled differs from plain: "
+          f"{max_abs_diff(main['y'], y_plain)}")
 
+    # the kernel at the main shape, twice back to back (the workspace is
+    # zeroed anew each call), bit-identical to the plain version
     xp = ops.pad_chunked(x, T_STEPS, WIDTH)
     yk = jacobi_mars.jacobi_chunked(xp, T_STEPS, WIDTH)
+    yk2 = jacobi_mars.jacobi_chunked(xp, T_STEPS, WIDTH)
     yp = jacobi_mars.jacobi_chunked_plain(xp, T_STEPS, WIDTH)
     err = max_abs_diff(yk, yp)
-    check(err <= JACOBI_TOL, f"jacobi_chunked vs plain: {err}")
-    ms = time_ms(lambda: jacobi_mars.jacobi_chunked(xp, T_STEPS, WIDTH), reps=3)
+    check(bool(torch.equal(yk, yp)), f"jacobi_chunked vs plain: {err}")
+    check(bool(torch.equal(yk2, yk)), "two back-to-back launches differ")
+    del yk2, yp
+    div3_bad = jacobi_mars.div3_mismatches(dev)
+    check(div3_bad == 0, f"the kernel's division by 3 differs from IEEE on "
+          f"{div3_bad} f32 inputs")
+    ms = time_ms(lambda: jacobi_mars.jacobi_chunked(xp, T_STEPS, WIDTH), reps=20)
     plain_ms = time_ms(lambda: jacobi_mars.jacobi_chunked_plain(xp, T_STEPS, WIDTH),
                        reps=3)
+
+    rng = np.random.default_rng(SEED + 9)
+    sweep = []
+    for n, t, w in JACOBI_SWEEP:
+        xs = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+        xs[0] = float(evolving_ghost(rng))
+        same = bool(torch.equal(jacobi_mars.jacobi_chunked(xs, t, w),
+                                jacobi_mars.jacobi_chunked_plain(xs, t, w)))
+        check(same, f"jacobi_chunked vs plain at n={n}, T={t}, W={w}")
+        sweep.append([n, t, w])
 
     # the whole path on a small input against the independent oracle
     xs = torch.from_numpy(
@@ -386,13 +435,18 @@ def phase_stencil(dev, main: dict, copy_rate: float) -> dict:
     nops = 3 * T_STEPS * xp.numel()             # 2 adds + 1 divide per cell and level
     row = {"name": "jacobi_mars.jacobi_chunked", "route": "cuda",
            "source": "src/repro_torch/kernels/csrc/jacobi_mars.cu",
+           "design": "wavefront",
            "replaces": "src/repro/kernels/jacobi_mars.py:36",
            "launches": main["launches"]["jacobi_mars.jacobi_chunked"],
            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
            **bound(nbytes, nops, copy_rate),
            "library_ms": None}
+    tile = jacobi_mars._lib().jacobi_chunked_tile()
     emit({"phase": "stencil", "n_padded": xp.numel(), "t_steps": T_STEPS,
-          "width": WIDTH, "path_vs_plain_err": err_path,
+          "width": WIDTH, "kernel_tile": tile, "blocks": -(-xp.numel() // tile),
+          "bit_identical": {"path": True, "main": True, "back_to_back": True,
+                            "sweep_n_t_w": sweep},
+          "div3_mismatches_of_2^32": div3_bad,
           "small_vs_oracle_err": err_small, "tol": JACOBI_TOL, **row})
     return row
 
@@ -896,7 +950,7 @@ def phase_train(dev) -> dict:
         float(m["loss"])
     prof = device_profile(one_step, {"flash_fwd": "flash_fwd_sm90_kernel",
                                      "flash_bwd_dkv": "flash_bwd_dkv_sm90_kernel",
-                                     "flash_bwd_dq": "flash_bwd_dq_kernel"}, top=8)
+                                     "flash_bwd_dq": "flash_bwd_dq_sm90_kernel"}, top=8)
     step_ms = float(np.median(times))
     tokens = TRAIN_B * rc.seq_len
     n_params = cfg.param_count()
@@ -1073,11 +1127,8 @@ def phase_attention_bwd(dev, trained: dict, copy_rate: float) -> list:
              8 * B * H * S * S * D // 2),
             ("flash_attention.flash_bwd_dq", 168, ms_dq, io + 2 * q.numel(),
              6 * B * H * S * S * D // 2)):
-        dkv = line == 131
-        rows.append({"name": name, "route": "cuda",
-                     "source": SM90_SOURCE if dkv else
-                     "src/repro_torch/kernels/csrc/flash_attention.cu",
-                     **({"design": "wgmma+tma"} if dkv else {}),
+        rows.append({"name": name, "route": "cuda", "source": SM90_SOURCE,
+                     "design": "wgmma+tma",
                      "replaces": f"src/repro/kernels/flash_attention.py:{line}",
                      "launches": trained["launches"][name],
                      # at the bf16 train shape: dq, or the larger of dk and dv

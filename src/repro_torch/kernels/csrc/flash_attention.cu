@@ -1,15 +1,17 @@
-// GQA flash attention, forward and backward, for Hopper (sm_90a).
+// GQA flash attention, forward and backward, on f32 for Hopper (sm_90a).
 //
-// Three kernels, each with its own note below: the forward
-// (flash_fwd_kernel), and the flash-2 backward split as in the reference,
-// dK/dV (flash_bwd_dkv_kernel) then dQ (flash_bwd_dq_kernel).
+// Three kernels on the CUDA cores, each with its own note below: the
+// forward (flash_fwd_kernel), and the flash-2 backward split as in the
+// reference, dK/dV (flash_bwd_dkv_kernel) then dQ (flash_bwd_dq_kernel).
+// They serve the f32 route; bf16 inputs, the main paths' dtype, run all
+// three on the tensor cores in flash_attention_sm90.cu.
 //
 // The forward replaces the Pallas TPU kernel
 // src/repro/kernels/flash_attention.py::_fwd_kernel (through _flash_fwd).
 // Same function:
 //
-//   q (B, S, KV, G, D), k / v (B, Sk, KV, D), f32 or bf16, contiguous.
-//   s = (q . k) * scale in f32 (inputs upcast), scale = D^-0.5;
+//   q (B, S, KV, G, D), k / v (B, Sk, KV, D), f32, contiguous.
+//   s = (q . k) * scale in f32, scale = D^-0.5;
 //   key t of query s is masked to the finite NEG_INF = -1e30 when
 //   (causal and s < t) or (window > 0 and s - t >= window);
 //   online softmax over key tiles with running (m, l, acc) in f32;
@@ -28,7 +30,7 @@
 //
 // Design.  One block of 256 threads per (b, kv, g, 64-row query tile); the
 // query tile sits in shared memory, key and value tiles of 64 rows are
-// staged there in turn, both upcast to f32 (D zero-padded to 64 or 128).
+// staged there in turn (D zero-padded to 64 or 128).
 // A 16 x 16 thread grid: thread (ty, tx) owns query rows 4ty..4ty+3, holds
 // their scores for keys tx + 16j (j < 4), their (m, l), and their output
 // columns in float4 groups tx + 16jj.  Row max and row sum are 16-lane
@@ -45,7 +47,6 @@
 // flash_attention_sm90.cu on the tensor cores (wgmma, TMA).
 
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -55,19 +56,6 @@ constexpr int kBK = 64;           // keys per tile
 constexpr int kThreads = 256;     // 16 x 16
 constexpr float kNegInf = -1e30f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);  // round to nearest even, as torch's cast
-}
 
 __device__ __forceinline__ float max16(float x) {
 #pragma unroll
@@ -93,22 +81,22 @@ constexpr int smem_bytes() {
 
 // Stage rows [r0, r0 + 64) of a (rows, D) slice with row stride `stride`
 // into shared memory as f32, row stride `ld`, zero past `rows` and past D.
-template <typename T, int DP>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src,
+template <int DP>
+__device__ __forceinline__ void stage(float* dst, int ld, const float* src,
                                       int64_t stride, int r0, int rows,
                                       int D) {
   for (int idx = threadIdx.x; idx < 64 * DP; idx += kThreads) {
     const int r = idx / DP, c = idx % DP;
     float val = 0.0f;
-    if (r0 + r < rows && c < D) val = to_f32(src[(r0 + r) * stride + c]);
+    if (r0 + r < rows && c < D) val = src[(r0 + r) * stride + c];
     dst[r * ld + c] = val;
   }
 }
 
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, 2)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int S, int Sk, int KV, int G, int D,
                  int causal, int window, float scale) {
   constexpr int QS = DP + 4;       // row stride of the Q and K tiles
@@ -126,11 +114,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
   const int64_t q_stride = static_cast<int64_t>(KV) * G * D;
   const int64_t k_stride = static_cast<int64_t>(KV) * D;
-  const T* qb = q + static_cast<int64_t>(b) * S * q_stride + (kvh * G + g) * D;
-  T* ob = o + static_cast<int64_t>(b) * S * q_stride + (kvh * G + g) * D;
+  const int64_t head = static_cast<int64_t>(b) * S * q_stride + (kvh * G + g) * D;
+  const float* qb = q + head;
+  float* ob = o + head;
   const int64_t kv_off = static_cast<int64_t>(b) * Sk * k_stride + kvh * D;
 
-  stage<T, DP>(sQ, QS, qb, q_stride, q0, S, D);
+  stage<DP>(sQ, QS, qb, q_stride, q0, S, D);
 
   const int q1 = min(q0 + kBQ, S) - 1;     // last real row of the tile
   const int n_kt = (Sk + kBK - 1) / kBK;
@@ -153,8 +142,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's P and V are no longer read
-    stage<T, DP>(sK, QS, k + kv_off, k_stride, k0, Sk, D);
-    stage<T, DP>(sV, DP, v + kv_off, k_stride, k0, Sk, D);
+    stage<DP>(sK, QS, k + kv_off, k_stride, k0, Sk, D);
+    stage<DP>(sV, DP, v + kv_off, k_stride, k0, Sk, D);
     __syncthreads();
 
     float s[4][4];
@@ -252,26 +241,26 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int c = (tx + 16 * jj) * 4 + u;
-        if (c < D) ob[qpos * q_stride + c] = from_f32<T>(acc[i][jj][u] / lc);
+        if (c < D) ob[qpos * q_stride + c] = acc[i][jj][u] / lc;
       }
     if (tx == 0) lse[static_cast<int64_t>(bkg) * S + qpos] = m[i] + logf(lc);
   }
 }
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int S, int Sk, int KV, int G, int D,
                    int causal, int window, float scale, cudaStream_t stream) {
-  auto kernel = flash_fwd_kernel<T, DP>;
+  auto kernel = flash_fwd_kernel<DP>;
   constexpr int bytes = smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * KV * G, (S + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      S, Sk, KV, G, D, causal, window, scale);
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse), S, Sk, KV, G, D, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -284,7 +273,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 //   dv = sum p^T do,  dk = sum ds^T q,  dq = sum ds k,
 //
 // with delta = sum(o * do) over D (B, KV, G, S) computed by the caller, all
-// products in f32 on upcast inputs.  The mask is the forward's (causal,
+// products in f32.  The mask is the forward's (causal,
 // sliding window); a query or key past S or Sk (a ragged last tile) is
 // masked too.  A masked p is exactly 0, so a query row with no allowed key
 // gets a zero gradient (the reference's where(mask, ..., 0)), and a tile
@@ -296,9 +285,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // causal, against q, k, v, do, lse, delta read and the gradients written
 // once; at training shapes that is ~1000 flops per byte, above the tensor
 // cores' ~295.  Like the forward, these kernels run their products on the
-// fp32 CUDA cores (67 TFLOP/s).  dK/dV here serves the f32 route only (bf16
-// runs in flash_attention_sm90.cu); dQ serves both dtypes, its bf16 route
-// still on the CUDA cores.
+// fp32 CUDA cores (67 TFLOP/s); bf16 runs both on the tensor cores
+// (flash_attention_sm90.cu).
 // ---------------------------------------------------------------------------
 
 template <int DP>
@@ -361,14 +349,16 @@ __device__ __forceinline__ bool allowed(int qpos, int kpos, int S, int Sk,
 // writes P and dS to shared memory, then for the sums owns keys 4ty..4ty+3
 // and the float4 column groups tx + 16jj of dk and dv.  Key tiles are issued
 // heaviest first (under causal the first key tile meets every query tile).
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, DP == 64 ? 2 : 1)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q,
+                     const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int S, int Sk, int KV, int G, int D,
-                     int causal, int window, float scale) {
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int S, int Sk, int KV, int G,
+                     int D, int causal, int window, float scale) {
   constexpr int QS = DP + 4;
   constexpr int PS = kBK + 4;
   constexpr int NG = DP / 64;
@@ -388,8 +378,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t k_stride = static_cast<int64_t>(KV) * D;
   const int64_t kv_off = static_cast<int64_t>(b) * Sk * k_stride + kvh * D;
 
-  stage<T, DP>(sK, QS, k + kv_off, k_stride, k0, Sk, D);
-  stage<T, DP>(sV, QS, v + kv_off, k_stride, k0, Sk, D);
+  stage<DP>(sK, QS, k + kv_off, k_stride, k0, Sk, D);
+  stage<DP>(sV, QS, v + kv_off, k_stride, k0, Sk, D);
 
   // query tiles that meet this key tile (kBQ == kBK, so under causal the
   // first is the key tile's own index)
@@ -417,8 +407,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int qt = qt_begin; qt < qt_end; ++qt) {
       const int q0 = qt * kBQ;
       __syncthreads();  // the previous step's reads of Q, dO, P, dS are done
-      stage<T, DP>(sQ, QS, q + head, q_stride, q0, S, D);
-      stage<T, DP>(sdO, QS, dout + head, q_stride, q0, S, D);
+      stage<DP>(sQ, QS, q + head, q_stride, q0, S, D);
+      stage<DP>(sdO, QS, dout + head, q_stride, q0, S, D);
       __syncthreads();
 
       float s[4][4], dp[4][4];
@@ -479,8 +469,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < 4; ++u) {
         const int c = (tx + 16 * jj) * 4 + u;
         if (c < D) {
-          dk[kv_off + kpos * k_stride + c] = from_f32<T>(adk[i][jj][u]);
-          dv[kv_off + kpos * k_stride + c] = from_f32<T>(adv[i][jj][u]);
+          dk[kv_off + kpos * k_stride + c] = adk[i][jj][u];
+          dv[kv_off + kpos * k_stride + c] = adv[i][jj][u];
         }
       }
   }
@@ -495,12 +485,14 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // one tile of K and V, computes the score and dP tiles as the dK/dV kernel
 // does, writes dS over the V tile, and adds dS K into rows 4ty..4ty+3,
 // column groups tx + 16jj.  Query tiles are issued heaviest first.
-template <typename T, int DP>
+template <int DP>
 __global__ void __launch_bounds__(kThreads, DP == 64 ? 2 : 1)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q,
+                    const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq,
+                    const float* __restrict__ delta, float* __restrict__ dq,
                     int S, int Sk, int KV, int G, int D, int causal,
                     int window, float scale) {
   constexpr int QS = DP + 4;
@@ -522,8 +514,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t head = static_cast<int64_t>(b) * S * q_stride + (kvh * G + g) * D;
   const int64_t kv_off = static_cast<int64_t>(b) * Sk * k_stride + kvh * D;
 
-  stage<T, DP>(sQ, QS, q + head, q_stride, q0, S, D);
-  stage<T, DP>(sdO, QS, dout + head, q_stride, q0, S, D);
+  stage<DP>(sQ, QS, q + head, q_stride, q0, S, D);
+  stage<DP>(sdO, QS, dout + head, q_stride, q0, S, D);
 
   float l[4], dl[4];
 #pragma unroll
@@ -549,8 +541,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's K and dS are no longer read
-    stage<T, DP>(sK, QS, k + kv_off, k_stride, k0, Sk, D);
-    stage<T, DP>(sV, QS, v + kv_off, k_stride, k0, Sk, D);
+    stage<DP>(sK, QS, k + kv_off, k_stride, k0, Sk, D);
+    stage<DP>(sV, QS, v + kv_off, k_stride, k0, Sk, D);
     __syncthreads();
 
     float s[4][4], dp[4][4];
@@ -605,49 +597,49 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
         const int c = (tx + 16 * jj) * 4 + u;
-        if (c < D) dq[head + qpos * q_stride + c] = from_f32<T>(acc[i][jj][u]);
+        if (c < D) dq[head + qpos * q_stride + c] = acc[i][jj][u];
       }
   }
 }
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int S, int Sk, int KV, int G,
                        int D, int causal, int window, float scale,
                        cudaStream_t stream) {
-  auto kernel = flash_bwd_dkv_kernel<T, DP>;
+  auto kernel = flash_bwd_dkv_kernel<DP>;
   constexpr int bytes = dkv_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * KV, (Sk + kBK - 1) / kBK);
   kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), S, Sk, KV, G, D, causal,
+      static_cast<float*>(dk), static_cast<float*>(dv), S, Sk, KV, G, D, causal,
       window, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int DP>
+template <int DP>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int B, int S, int Sk, int KV, int G, int D,
                       int causal, int window, float scale,
                       cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<T, DP>;
+  auto kernel = flash_bwd_dq_kernel<DP>;
   constexpr int bytes = dq_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * KV * G, (S + kBQ - 1) / kBQ);
   kernel<<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const float*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dq), S, Sk, KV, G, D, causal, window, scale);
+      static_cast<float*>(dq), S, Sk, KV, G, D, causal, window, scale);
   return cudaGetLastError();
 }
 
@@ -656,12 +648,11 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
 extern "C" {
 
 // Runs on `stream`, allocates nothing, does not synchronise, and returns
-// cudaGetLastError() after the launch (0 when it was accepted).  The caller
-// checks shapes: contiguous q (B, S, KV, G, D), k and v (B, Sk, KV, D) of
-// one dtype, 1 <= D <= 128, S, Sk >= 1, B * KV * G < 2^31,
-// ceil(S / 64) <= 65535; o like q, lse f32 (B, KV, G, S).  The forward and
-// dK/dV launchers take f32 only (bf16 runs in flash_attention_sm90.cu); dQ
-// takes f32, or bf16 when `is_bf16`.
+// cudaGetLastError() after the launch (0 when it was accepted).  Every
+// launcher takes f32 only (bf16 runs in flash_attention_sm90.cu).  The
+// caller checks shapes: contiguous q (B, S, KV, G, D), k and v
+// (B, Sk, KV, D), 1 <= D <= 128, S, Sk >= 1, B * KV * G < 2^31,
+// ceil(S / 64) <= 65535; o like q, lse f32 (B, KV, G, S).
 
 int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
                      void* lse, int B, int S, int Sk, int KV, int G, int D,
@@ -670,10 +661,10 @@ int flash_fwd_launch(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? launch<float, 64>(q, k, v, o, lse, B, S, Sk, KV, G, D,
-                                     causal, window, scale, s)
-                 : launch<float, 128>(q, k, v, o, lse, B, S, Sk, KV, G, D,
-                                      causal, window, scale, s);
+  return D <= 64 ? launch<64>(q, k, v, o, lse, B, S, Sk, KV, G, D, causal,
+                              window, scale, s)
+                 : launch<128>(q, k, v, o, lse, B, S, Sk, KV, G, D, causal,
+                               window, scale, s);
 }
 
 // The backward launchers take the forward's shapes and rules, plus dout
@@ -688,37 +679,24 @@ int flash_bwd_dkv_launch(const void* q, const void* k, const void* v,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D <= 64 ? launch_dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, B,
-                                         S, Sk, KV, G, D, causal, window,
-                                         scale, s)
-                 : launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv,
-                                          B, S, Sk, KV, G, D, causal, window,
-                                          scale, s);
+  return D <= 64 ? launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, B, S, Sk,
+                                  KV, G, D, causal, window, scale, s)
+                 : launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, S,
+                                   Sk, KV, G, D, causal, window, scale, s);
 }
 
 int flash_bwd_dq_launch(const void* q, const void* k, const void* v,
                         const void* dout, const void* lse, const void* delta,
-                        void* dq, int is_bf16, int B, int S, int Sk, int KV,
-                        int G, int D, int causal, int window, float scale,
-                        int device, void* stream) {
+                        void* dq, int B, int S, int Sk, int KV, int G, int D,
+                        int causal, int window, float scale, int device,
+                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    err = D <= 64 ? launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, dq,
-                                                 B, S, Sk, KV, G, D, causal,
-                                                 window, scale, s)
-                  : launch_dq<__nv_bfloat16, 128>(q, k, v, dout, lse, delta,
-                                                  dq, B, S, Sk, KV, G, D,
-                                                  causal, window, scale, s);
-  } else {
-    err = D <= 64 ? launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, B, S,
-                                         Sk, KV, G, D, causal, window, scale, s)
-                  : launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, B, S,
-                                          Sk, KV, G, D, causal, window, scale,
-                                          s);
-  }
-  return err;
+  return D <= 64 ? launch_dq<64>(q, k, v, dout, lse, delta, dq, B, S, Sk, KV,
+                                 G, D, causal, window, scale, s)
+                 : launch_dq<128>(q, k, v, dout, lse, delta, dq, B, S, Sk, KV,
+                                  G, D, causal, window, scale, s);
 }
 
 const char* kernel_error_string(int err) {

@@ -1,29 +1,32 @@
 // GQA flash attention on bf16 for Hopper's tensor cores (sm_90a): the
-// forward and the dK/dV half of the flash-2 backward.
+// forward and both halves of the flash-2 backward.
 //
-// Replaces two Pallas TPU kernels of src/repro/kernels/flash_attention.py:
+// Replaces three Pallas TPU kernels of src/repro/kernels/flash_attention.py:
 //   flash_fwd_sm90_kernel      _fwd_kernel (line 50, through _flash_fwd)
 //   flash_bwd_dkv_sm90_kernel  _bwd_dkv_kernel (line 131, through _flash_bwd)
-// for bf16 inputs, the dtype of every main path.  The f32 route, and dQ on
-// both dtypes, stay in flash_attention.cu.  The function is that file's:
+//   flash_bwd_dq_sm90_kernel   _bwd_dq_kernel (line 168, through _flash_bwd)
+// for bf16 inputs, the dtype of every main path.  The f32 route stays in
+// flash_attention.cu.  The function is that file's:
 // the same layouts (q (B, S, KV, G, D), k / v (B, Sk, KV, D), lse and delta
 // f32 (B, KV, G, S)), the same masks (causal, sliding window, ragged S and
 // Sk), the same finite NEG_INF = -1e30, o = acc / max(l, 1e-30) and
 // lse = m + log(max(l, 1e-30)).  The backward recomputes p from the lse:
 //   p = exp(scale s - lse) where allowed, else exactly 0;
-//   dv += p^T do;  ds = p (dp - delta) scale with dp = do v^T;  dk += ds^T q.
+//   dv += p^T do;  ds = p (dp - delta) scale with dp = do v^T;  dk += ds^T q;
+//   dq += ds k.
 //
 // Numerics: every product runs on the tensor cores with bf16 operands and
-// f32 accumulation.  p (forward), p^T and ds^T (backward) are rounded to
+// f32 accumulation.  p (forward), p^T, ds^T and ds (backward) are rounded to
 // bf16 in registers before the product that consumes them, as
 // FlashAttention-2 and -3 do; softmax statistics, the row sums l and the
 // lse stay f32.  The exponentials are ex2.approx (MUFU) on log2e-scaled
 // scores.
 //
 // Bound on this card: operations.  Causal attention does 2 S Sk D flops per
-// (b, head) in the forward and 4 S Sk D in dK/dV (half of full attention
-// each), against q, k, v, o (and do, lse, delta, dk, dv) read or written
-// once: ~1000 flops per byte at the main paths' shapes, above the ~295 at
+// (b, head) in the forward, 4 S Sk D in dK/dV and 3 S Sk D in dQ (half of
+// full attention each), against q, k, v, o (and do, lse, delta, dq, dk, dv)
+// read or written once: ~1000 flops per byte at the main paths' shapes,
+// above the ~295 at
 // which the bf16 tensor cores (989 TFLOP/s dense) and not HBM (3.35 TB/s)
 // are the limit.  So the design feeds the tensor cores from shared memory
 // and keeps every S x S intermediate in registers:
@@ -58,6 +61,18 @@
 //   registers, dV += P^T dO and dK += dS^T Q with P^T and dS^T as register
 //   A operands.  No atomics: each block owns its keys and sums in one fixed
 //   order, so a step is deterministic.  Key tiles are issued heaviest first.
+// * dQ: the forward's shape, Q-stationary: one block per (b, kv, g, 128-row
+//   query tile), Q and dO loaded once and resident, 128-key K and V tiles
+//   through the ring over the band only.  S = Q K^T and dP = dO V^T by
+//   wgmma from shared memory (K-major, as the forward's S); p from the lse
+//   on the fragment (each thread keeps its two rows' lse and delta in
+//   registers for the whole block); dS packed to bf16 is the register A
+//   operand of dQ += dS K, the same K tile read as an MN-major B operand,
+//   as the forward reads V.  dQ stays in f32 registers until the epilogue.
+//   At D = 128 each key tile is taken in two 64-key halves, so the S and dP
+//   fragments (32 registers each, not 64) fit beside dQ's 64 without
+//   spilling.  No atomics: each block owns its query rows and sums its key
+//   tiles in one fixed order.
 
 #include <cstdint>
 #include <cuda.h>
@@ -75,6 +90,8 @@ constexpr int kFwdBQ = 64 * kConsumers;        // forward: query rows a block
 constexpr int kFwdBK = 128;                    // forward: keys a tile
 constexpr int kBwdBK = 64 * kConsumers;        // dK/dV: keys a block
 constexpr int kBwdBQ = 64;                     // dK/dV: query rows a tile
+constexpr int kDqBQ = 64 * kConsumers;         // dQ: query rows a block
+constexpr int kDqBK = 128;                     // dQ: keys a tile
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf2 = -1e30f * kLog2e;    // NEG_INF on the log2 scale
@@ -690,6 +707,206 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   }
 }
 
+// -- dQ ---------------------------------------------------------------------
+
+template <int DP>
+constexpr int dq_smem_bytes() {  // Q, dO, then the K and V rings
+  return (2 * kDqBQ * DP + 2 * kStages * kDqBK * DP) * 2 + 1024;
+}
+
+// D (64 x N, f32) (+)= A (64 x 16) B (16 x N), both from shared memory.
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  if constexpr (N == 128)
+    wgmma_ss_n128(d, da, db, scale_d);
+  else
+    wgmma_ss_n64(d, da, db, scale_d);
+}
+
+// One block per (b, kv, g, 128-row query tile), as the forward; Q and dO
+// stay in shared memory, K and V tiles of 128 keys arrive through the ring.
+// Each key tile is taken in NK-key halves (NK = 128 at D <= 64; 64 at
+// D = 128, where 128-key S and dP fragments beside dQ would spill).
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dq, int S, int Sk, int KV, int G,
+                         int D, int causal, int window, float scale,
+                         float scale_log2) {
+  constexpr int NK = DP == 128 ? 64 : 128;      // keys a product covers
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, k_full[kStages], v_full[kStages],
+      empty[kStages];
+  bf16* sQ = align1024(smem_raw);
+  bf16* sdO = sQ + kDqBQ * DP;
+  bf16* sK = sdO + kDqBQ * DP;
+  bf16* sV = sK + kStages * kDqBK * DP;
+
+  const int bkg = blockIdx.x;                   // (b * KV + kv) * G + g
+  const int g = bkg % G, kvh = (bkg / G) % KV, b = bkg / (G * KV);
+  const int h = kvh * G + g;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqBQ;  // heaviest first
+
+  // the band of key tiles: a tile in which every pair is masked adds nothing
+  const int q1 = min(q0 + kDqBQ, S) - 1;        // last real row of the tile
+  const int n_kt = (Sk + kDqBK - 1) / kDqBK;
+  const int kt_end = causal ? min(n_kt, q1 / kDqBK + 1) : n_kt;
+  const int kt_begin = window > 0 ? max(0, q0 - window + 1) / kDqBK : 0;
+  const int n_tiles = max(0, kt_end - kt_begin);
+
+  if (threadIdx.x == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], 128 * kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // ---- producer: one thread keeps the ring full ----
+    setmaxnreg_producer();
+    if (threadIdx.x == 128 * kConsumers) {
+      constexpr uint32_t tile_bytes = kDqBK * DP * 2;
+      mbar_expect_tx(&q_full, 2 * kDqBQ * DP * 2);
+      load_tile<DP, kDqBQ>(sQ, &tq, &q_full, h, q0, b);
+      load_tile<DP, kDqBQ>(sdO, &tdo, &q_full, h, q0, b);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages, n = i / kStages;
+        const int k0 = (kt_begin + i) * kDqBK;
+        mbar_wait(&empty[s], (n & 1) ^ 1);
+        mbar_expect_tx(&k_full[s], tile_bytes);
+        load_tile<DP, kDqBK>(sK + s * kDqBK * DP, &tk, &k_full[s], kvh, k0, b);
+        mbar_expect_tx(&v_full[s], tile_bytes);
+        load_tile<DP, kDqBK>(sV + s * kDqBK * DP, &tv, &v_full[s], kvh, k0, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: query rows q0 + 64 wg + [0, 64) ----
+    setmaxnreg_consumer();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int row = q0 + 64 * wg + 16 * (t / 32) + lane / 4;  // and row + 8
+    const int col = 2 * (lane % 4);                           // in an 8-group
+    const int wq_lo = q0 + 64 * wg, wq_hi = wq_lo + 63;
+
+    // the two rows' lse (log2 scale) and delta, for the whole block
+    float l2[2], dl[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qpos = row + 8 * e;
+      l2[e] = qpos < S ? lse[static_cast<int64_t>(bkg) * S + qpos] * kLog2e : 0.0f;
+      dl[e] = qpos < S ? delta[static_cast<int64_t>(bkg) * S + qpos] : 0.0f;
+    }
+
+    float acc[DP / 64][32];
+#pragma unroll
+    for (int p = 0; p < DP / 64; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] = 0.0f;
+
+    mbar_wait(&q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int s = i % kStages;
+      const uint32_t par = (i / kStages) & 1;
+      const bf16* tK = sK + s * kDqBK * DP;
+      const bf16* tV = sV + s * kDqBK * DP;
+      mbar_wait(&k_full[s], par);
+      mbar_wait(&v_full[s], par);
+#pragma unroll
+      for (int half = 0; half < kDqBK / NK; ++half) {
+        const int k0 = (kt_begin + i) * kDqBK + NK * half;
+
+        // S = Q K^T and dP = dO V^T over keys [k0, k0 + NK)
+        float sc[NK / 2], dp[NK / 2];
+        fence_regs(sc);
+        fence_regs(dp);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_ss<NK>(sc, desc_k<kDqBQ>(sQ, 64 * wg, kk),
+                       desc_k<kDqBK>(tK, NK * half, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          wgmma_ss<NK>(dp, desc_k<kDqBQ>(sdO, 64 * wg, kk),
+                       desc_k<kDqBK>(tV, NK * half, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // p = exp(scale s - lse), exactly 0 where masked or past Sk (only a
+        // tile on the band's edge needs the selects);
+        // ds = p (dp - delta) scale, rounded to bf16: the A operand
+        const bool edge = k0 + NK > Sk || (causal && k0 + NK - 1 > wq_lo) ||
+                          (window > 0 && wq_hi - k0 >= window);
+#pragma unroll
+        for (int r = 0; r < NK / 2; ++r)
+          sc[r] = ex2(sc[r] * scale_log2 - l2[(r % 4) / 2]);
+        if (edge) {
+#pragma unroll
+          for (int r = 0; r < NK / 2; ++r) {
+            const int kpos = k0 + 8 * (r / 4) + col + (r % 2);
+            const int qpos = row + 8 * ((r % 4) / 2);
+            const bool ok = kpos < Sk && !masked(qpos, kpos, causal, window);
+            sc[r] = ok ? sc[r] : 0.0f;
+          }
+        }
+        uint32_t da[NK / 4];
+#pragma unroll
+        for (int r = 0; r < NK / 2; ++r)
+          dp[r] = sc[r] * (dp[r] - dl[(r % 4) / 2]) * scale;
+#pragma unroll
+        for (int r = 0; r < NK / 4; ++r) da[r] = pack_bf16(dp[2 * r], dp[2 * r + 1]);
+
+        // dQ += dS K, K read as an MN-major B operand (as the forward's V)
+#pragma unroll
+        for (int p = 0; p < DP / 64; ++p) fence_regs(acc[p]);
+        fence_regs(da);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < NK / 16; ++kk)
+#pragma unroll
+          for (int p = 0; p < DP / 64; ++p)
+            wgmma_rs_n64(acc[p], da + 4 * kk,
+                         desc_mn<kDqBK>(tK, NK / 16 * half + kk, p), 1);
+        wgmma_commit();
+        wgmma_wait_all();
+#pragma unroll
+        for (int p = 0; p < DP / 64; ++p) fence_regs(acc[p]);
+      }
+      mbar_arrive(&empty[s]);
+    }
+
+    // epilogue: dq rows row and row + 8, bf16
+    const int64_t q_stride = static_cast<int64_t>(KV) * G * D;
+    bf16* dqb = dq + static_cast<int64_t>(b) * S * q_stride + h * D;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int qpos = row + 8 * e;
+      if (qpos >= S) continue;
+#pragma unroll
+      for (int p = 0; p < DP / 64; ++p)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 64 * p + 8 * j + col;
+          if (c < D)
+            *reinterpret_cast<__nv_bfloat162*>(dqb + qpos * q_stride + c) =
+                __floats2bfloat162_rn(acc[p][4 * j + 2 * e],
+                                      acc[p][4 * j + 2 * e + 1]);
+        }
+    }
+  }
+}
+
 // -- host: tensor maps and launches -----------------------------------------
 
 // Error codes of this library beyond cudaError_t's.
@@ -788,6 +1005,30 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return cudaGetLastError();
 }
 
+template <int DP>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int B, int S,
+              int Sk, int KV, int G, int D, int causal, int window,
+              float scale, cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = make_map(&tq, q, D, KV * G, S, B, kDqBQ);
+  if (!err) err = make_map(&tdo, dout, D, KV * G, S, B, kDqBQ);
+  if (!err) err = make_map(&tk, k, D, KV, Sk, B, kDqBK);
+  if (!err) err = make_map(&tv, v, D, KV, Sk, B, kDqBK);
+  if (err) return err;
+  auto kernel = flash_bwd_dq_sm90_kernel<DP>;
+  constexpr int bytes = dq_smem_bytes<DP>();
+  cudaError_t cerr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (cerr != cudaSuccess) return cerr;
+  const dim3 grid(B * KV * G, (S + kDqBQ - 1) / kDqBQ);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      tq, tk, tv, tdo, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq), S, Sk, KV, G,
+      D, causal, window, scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -827,6 +1068,23 @@ int flash_bwd_dkv_sm90_launch(const void* q, const void* k, const void* v,
                                   KV, G, D, causal, window, scale, s)
                  : launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, B, S,
                                    Sk, KV, G, D, causal, window, scale, s);
+}
+
+// The forward's shapes and rules, plus dout like q, lse and delta f32
+// (B, KV, G, S), dq like q.
+int flash_bwd_dq_sm90_launch(const void* q, const void* k, const void* v,
+                             const void* dout, const void* lse,
+                             const void* delta, void* dq, int B, int S,
+                             int Sk, int KV, int G, int D, int causal,
+                             int window, float scale, int device,
+                             void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D <= 64 ? launch_dq<64>(q, k, v, dout, lse, delta, dq, B, S, Sk, KV,
+                                 G, D, causal, window, scale, s)
+                 : launch_dq<128>(q, k, v, dout, lse, delta, dq, B, S, Sk,
+                                  KV, G, D, causal, window, scale, s);
 }
 
 const char* kernel_error_string(int err) {

@@ -7,17 +7,17 @@ Three wrappers, each replacing a Pallas kernel of
 * ``flash_bwd_dkv`` (``_bwd_dkv_kernel``) -> (dk, dv);
 * ``flash_bwd_dq`` (``_bwd_dq_kernel``) -> dq.
 
-On CUDA tensors each launches a kernel chosen by dtype: bf16 ``flash_fwd``
-and ``flash_bwd_dkv`` run on the tensor cores (``csrc/flash_attention_sm90.cu``:
-wgmma fed by a TMA ring); f32, and dQ on either dtype, run on the CUDA
-cores (``csrc/flash_attention.cu``).  This is a dispatch, not a fallback: a
-failed build or launch raises.  On CPU tensors each runs the plain PyTorch
-version (``flash_attention_plain``, ``flash_bwd_plain``), and a CUDA tensor
-never takes it.  Launches are counted in ``<wrapper>.launches``, whatever
-kernel ran.  The wrappers are not differentiable themselves:
-``FlashAttentionFn`` (the port of the reference's ``jax.custom_vjp``) runs
-``flash_fwd`` forward and ``flash_bwd`` (both backward kernels) backward,
-and ``flash_attention`` routes an input that requires grad through it.
+On CUDA tensors each launches a kernel chosen by dtype: bf16 runs on the
+tensor cores (``csrc/flash_attention_sm90.cu``: wgmma fed by a TMA ring),
+f32 on the CUDA cores (``csrc/flash_attention.cu``).  This is a dispatch,
+not a fallback: a failed build or launch raises.  On CPU tensors each runs
+the plain PyTorch version (``flash_attention_plain``, ``flash_bwd_plain``),
+and a CUDA tensor never takes it.  Launches are counted in
+``<wrapper>.launches``, whatever kernel ran.  The wrappers are not
+differentiable themselves: ``FlashAttentionFn`` (the port of the
+reference's ``jax.custom_vjp``) runs ``flash_fwd`` forward and
+``flash_bwd`` (both backward kernels) backward, and ``flash_attention``
+routes an input that requires grad through it.
 
 Layout as in the reference: q ``(B, S, KV, G, D)`` (grouped GQA, no repeated
 kv heads), k / v ``(B, Sk, KV, D)``; o in q's dtype, lse f32
@@ -46,12 +46,14 @@ def _lib(bf16: bool = False) -> ctypes.CDLL:
         lib = _build.load("flash_attention_sm90")
         lib.flash_fwd_sm90_launch.argtypes = [_P] * 5 + [_I] * 8 + [_F, _I, _P]
         lib.flash_bwd_dkv_sm90_launch.argtypes = [_P] * 8 + [_I] * 8 + [_F, _I, _P]
+        lib.flash_bwd_dq_sm90_launch.argtypes = [_P] * 7 + [_I] * 8 + [_F, _I, _P]
         lib.flash_fwd_sm90_launch.restype = lib.flash_bwd_dkv_sm90_launch.restype = _I
+        lib.flash_bwd_dq_sm90_launch.restype = _I
         return lib
     lib = _build.load("flash_attention")
     lib.flash_fwd_launch.argtypes = [_P] * 5 + [_I] * 8 + [_F, _I, _P]
     lib.flash_bwd_dkv_launch.argtypes = [_P] * 8 + [_I] * 8 + [_F, _I, _P]
-    lib.flash_bwd_dq_launch.argtypes = [_P] * 7 + [_I] * 9 + [_F, _I, _P]
+    lib.flash_bwd_dq_launch.argtypes = [_P] * 7 + [_I] * 8 + [_F, _I, _P]
     lib.flash_fwd_launch.restype = lib.flash_bwd_dkv_launch.restype = _I
     lib.flash_bwd_dq_launch.restype = _I
     return lib
@@ -271,13 +273,13 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return _bwd_plain(q, k, v, do, lse, delta, causal, window)[0]
     _check_kernel(q, k)
     B, S, KV, G, D = q.shape
+    q, k, v, do = _aligned(q), _aligned(k), _aligned(v), _aligned(do)
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", False,
+    _launch("flash_bwd_dq", q.dtype == torch.bfloat16,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            int(q.dtype == torch.bfloat16), B, S, k.shape[1], KV, G, D,
-            int(bool(causal)), int(window), D ** -0.5, q.device.index,
-            torch.cuda.current_stream(q.device).cuda_stream)
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, S, k.shape[1],
+            KV, G, D, int(bool(causal)), int(window), D ** -0.5,
+            q.device.index, torch.cuda.current_stream(q.device).cuda_stream)
     flash_bwd_dq.launches += 1
     return dq
 

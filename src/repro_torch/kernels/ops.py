@@ -202,8 +202,8 @@ def jacobi1d_tiled(x: torch.Tensor, t_steps: int, width: int = 512,
     unskew path; only the chunked pass differs.
 
     HBM accounting charges the irredundant scheme: each cell is read once
-    and written once per pass regardless of T, the carry riding in shared
-    memory.
+    and written once per pass regardless of T; the kernel's carry (2 x T
+    floats a tile) rides in shared memory, and in L2 between tiles.
     """
     m = _mode(backend, x)
     n = x.shape[0]

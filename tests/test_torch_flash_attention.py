@@ -306,16 +306,39 @@ def _emulate_dkv(q, k, v, do, lse, delta, causal, window, bq=64):
     return dk.to(torch.bfloat16), dv.to(torch.bfloat16)
 
 
+def _emulate_dq(q, k, v, do, lse, delta, causal, window, bk=128):
+    """The bf16 dQ kernel's arithmetic: key tiles of ``bk`` (the kernel's 128,
+    or its 64-key halves at D = 128), S and dP in f32 from bf16 inputs, dS
+    rounded to bf16 before dS K, f32 accumulation tile by tile -> dq in
+    bf16.  Each query row is independent, so the 128-row query tiles need
+    no loop."""
+    D, Sk = q.shape[-1], k.shape[1]
+    scale = D ** -0.5
+    allowed = fa._mask(q.shape[1], Sk, causal, window, q.device)
+    qf, dof = q.float(), do.float()
+    dq = torch.zeros(q.shape)
+    for k0 in range(0, Sk, bk):
+        kt, vt = k[:, k0:k0 + bk].float(), v[:, k0:k0 + bk].float()
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kt) * scale
+        p = torch.where(allowed[:, k0:k0 + bk], torch.exp(s - lse[..., None]),
+                        torch.zeros_like(s))
+        dp = torch.einsum("bqkgd,bskd->bkgqs", dof, vt)
+        ds = p * (dp - delta[..., None]) * scale
+        dq += torch.einsum("bkgqs,bskd->bqkgd", _bf16(ds), kt)
+    return dq.to(torch.bfloat16)
+
+
 @pytest.mark.parametrize("B,S,KV,G,D,causal,window,blk", [
     (1, 128, 2, 2, 64, True, 0, 64), (1, 128, 2, 2, 64, True, 32, 64),
     (1, 80, 2, 2, 64, True, 0, 16), (1, 128, 2, 2, 32, True, 0, 64),
     (2, 128, 1, 3, 32, False, 0, 32)])
 def test_bf16_tensor_core_rounding_matches_jax(B, S, KV, G, D, causal, window,
                                                blk):
-    """The tensor-core kernels round p (forward), p^T and ds^T (dK/dV) to
-    bf16 before their products; emulated here on the CPU, on bf16 inputs,
-    against the Pallas kernels in interpret mode (forward; ``jax.grad``
-    through them for the backward) at chip_smoke.py's bf16 tolerances.
+    """The tensor-core kernels round p (forward), p^T and ds^T (dK/dV) and
+    ds (dQ) to bf16 before their products; emulated here on the CPU, on
+    bf16 inputs, against the Pallas kernels in interpret mode (forward;
+    ``jax.grad`` through them for the backward) at chip_smoke.py's bf16
+    tolerances.
     The forward walks the kernel's 128-key tiles and 64-key ones; S = 80 is
     ragged against both (the reference blocks by ``blk``, which divides S).
 
@@ -323,7 +346,8 @@ def test_bf16_tensor_core_rounding_matches_jax(B, S, KV, G, D, causal, window,
     the kernels: chip_smoke.py's attention and attention_bwd phases, which
     hold the kernels against the plain versions on the card, do. The
     emulation's tiles follow the kernels' (128-key forward tiles, 64-row
-    dK/dV query tiles); when those change, change ``bk`` and ``bq`` here."""
+    dK/dV query tiles, 128-key dQ tiles); when those change, change ``bk``
+    and ``bq`` here."""
     (qj, kj, vj), (q, k, v) = _inputs(B, S, KV, G, D, seed=11, dtype="bfloat16")
     oj, lj = jfa._flash_fwd(qj, kj, vj, causal=causal, window=window, bq=blk,
                             bk=blk, interpret=True)
@@ -336,12 +360,15 @@ def test_bf16_tensor_core_rounding_matches_jax(B, S, KV, G, D, causal, window,
         o = jfa.flash_attention(q, k, v, causal, window, blk, blk, True)
         return jnp.sum(o.astype(jnp.float32) * jnp.cos(o.astype(jnp.float32)))
 
-    _, dkj, dvj = jax.grad(loss, argnums=(0, 1, 2))(qj, kj, vj)
+    dqj, dkj, dvj = jax.grad(loss, argnums=(0, 1, 2))(qj, kj, vj)
     of = o.float()
     do = (torch.cos(of) - of * torch.sin(of)).to(torch.bfloat16)
-    dk, dv = _emulate_dkv(q, k, v, do, lse, fa.bwd_delta(o, do), causal, window)
+    delta = fa.bwd_delta(o, do)
+    dk, dv = _emulate_dkv(q, k, v, do, lse, delta, causal, window)
     assert _rel(dk, dkj) < _BF16_BWD_TOL
     assert _rel(dv, dvj) < _BF16_BWD_TOL
+    dq = _emulate_dq(q, k, v, do, lse, delta, causal, window)
+    assert _rel(dq, dqj) < _BF16_BWD_TOL
 
 
 def test_bf16_kernel_limits():

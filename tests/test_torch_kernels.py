@@ -95,6 +95,58 @@ def test_jacobi_chunked_plain_is_skewed_buffer(t_steps, width, n):
     assert np.abs(y_t - y_int).max() < 1e-5
 
 
+def _evolving_ghost(rng) -> np.float32:
+    """A value a with ((a + a) + a) / 3 != a in f32: as x[0] it makes the
+    ghost left of cell 0 change from level to level."""
+    while True:
+        a = np.float32(rng.standard_normal())
+        if ((a + a) + a) / np.float32(3) != a:
+            return a
+
+
+def _tiled_jacobi(x, t_steps, tile):
+    """The CUDA kernel's algorithm at a tile width of its own: every tile
+    steps its cells with the carry, the two cells left of it at the same
+    level; the first tile's carry is the ghost x[0], evolved by the same
+    update.  Cells past n are 0: the update only reads to the left."""
+    n = x.shape[0]
+    c = torch.zeros(-(-n // tile) * tile)
+    c[:n] = x
+    c = c.reshape(-1, tile)
+    three = torch.tensor(3.0)
+    ghost = x[:1].reshape(1, 1)
+    for _ in range(t_steps):
+        ext = torch.cat([torch.cat([ghost.expand(1, 2), c[:-1, -2:]]), c], 1)
+        ghost = (ghost + ghost + ghost) / three
+        c = (ext[:, :-2] + ext[:, 1:-1] + ext[:, 2:]) / three
+    return c.reshape(-1)[:n]
+
+
+@pytest.mark.parametrize("n,t_steps,widths", [
+    (1024, 16, (64, 256)), (2048, 61, (64, 512)), (768, 0, (16, 256))])
+def test_jacobi_skewed_buffer_does_not_depend_on_width(n, t_steps, widths):
+    """The fact that lets the CUDA kernel tile by its own width: the skewed
+    buffer is the same at every chunk width W.  The reference's Pallas
+    kernel in interpret mode gives bit-identical buffers at two widths,
+    within 1e-5 of the port's plain version (not bit-identical: under jit,
+    XLA on the CPU divides by 3 as a multiply by 1/3, where the port keeps
+    the IEEE quotient); and the kernel's algorithm, emulated at the two
+    widths, at its own 32-cell lanes and 4096-cell blocks, and with a
+    ragged last tile, is bit-identical to the plain version."""
+    rng = np.random.default_rng(n + t_steps)
+    x = rng.standard_normal(n).astype(np.float32)
+    x[0] = _evolving_ghost(rng)
+    ys = [np.asarray(jjm.jacobi_chunked(jnp.asarray(x), t_steps=t_steps,
+                                        width=w, interpret=True))
+          for w in widths]
+    assert np.array_equal(ys[0], ys[1])
+    plain = jacobi_mars.jacobi_chunked_plain(_cpu(x), t_steps, widths[0])
+    assert np.abs(_np(plain) - ys[0]).max() < 1e-5
+    for tile in (*widths, 32, 4096, 48):
+        got = _tiled_jacobi(_cpu(x), t_steps, tile)
+        assert torch.equal(got, plain), tile
+
+
 @pytest.mark.parametrize("n,width,t_steps", [(100, 8, 6), (64, 64, 62)])
 def test_jacobi_chunked_asserts(n, width, t_steps):
     x = torch.zeros(n)
