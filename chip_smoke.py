@@ -33,8 +33,10 @@ Phases, one JSON line each:
                that the SASS of the three tensor-core kernels
                (``flash_attention_sm90.cu``: forward, dK/dV, dQ) holds HGMMA
                (wgmma) instructions and report their count, registers and
-               spills; launch each kernel once on a tiny input, the flash
-               ones in f32 and bf16 (set-up);
+               spills; report the codec kernels' static SASS (instructions,
+               SHFL / VOTE and the other opcodes of their inner loop) and
+               their registers, shared memory and spills; launch each kernel
+               once on a tiny input, the flash ones in f32 and bf16 (set-up);
 2. card      — ``nvidia-smi`` name and power limit, and the rate of a 1 GiB
                device-to-device copy;
 3. main      — the stencil and codec path above, then a profile of one
@@ -49,7 +51,18 @@ Phases, one JSON line each:
                independent oracle ``ref.jacobi_chunked_ref`` on a small
                input (<= 1e-5, the tolerance of tests/test_kernels.py);
 5. codec     — pack / unpack bit-identical to their plain versions at the
-               main-path shape and over a bits sweep with int32 wrap;
+               main-path shape and on two back-to-back launches, and their
+               launch plans (grid, shared memory);
+               ``blockcodec.quantize`` on the card equal to its CPU run at
+               the main shape, codes and scales; then a sweep of every bits
+               1..32 at blocks 32, 96, 256, 4096 and 65536, in row counts
+               ragged against the kernels' tile and on one row, plus views
+               4 bytes off 16-byte alignment, plus cases at each block whose
+               units outnumber the persistent grid 2.5 to 1 (each block
+               walks several units; at block 65536 it starts each new long
+               row with a fresh carry): full-range codes whose deltas
+               wrap int32 through pack and unpack bit-identical to the plain
+               versions, and the round trip of codes whose deltas fit;
 6. lm_init   — the granite-8b weights on the card (count, GiB, seconds);
 7. prefill   — the prefill path: 36 flash launches, finite logits (4, 49152),
                a profile of one more prefill (device ops, idle share);
@@ -98,8 +111,9 @@ Phases, one JSON line each:
                bf16 losses within 2e-2 and grad norms within 5e-3 relative;
 16. the ``{"kernels": [...]}`` line, then the card line, then the result line.
 
-The three tensor-core rows (flash forward, dK/dV, dQ) and the jacobi row
-also carry ``design``.
+The three tensor-core rows (flash forward, dK/dV, dQ), the jacobi row and
+the two codec rows also carry ``design``; the codec rows add their time a
+launch in the main path's profile (``profile_ms``).
 
 ``bound_ms`` is the larger of the bytes the function must move over the
 H100's published 3.35 TB/s and its operations over the published peak for
@@ -112,7 +126,6 @@ printing no result, when there is no GPU or any check fails.
 import copy
 import dataclasses
 import json
-import re
 import subprocess
 import sys
 import tempfile
@@ -141,7 +154,18 @@ BF16_FLOPS_PER_S = 989e12     # H100 SXM, bf16 tensor cores, dense (data sheet)
 SEED = 0
 N_CELLS, T_STEPS, WIDTH = 1 << 26, 64, 512
 QBITS, BITS, BLOCK = 7, 8, 256
-SWEEP_BITS, SWEEP_ROWS = (1, 4, 7, 8, 13, 16, 31, 32), 4096
+#: the codec sweep: every bits 1..32 at each block, on about SWEEP_WORDS
+#: codes a case in a row count ragged against the kernels' tile
+SWEEP_BLOCKS, SWEEP_WORDS = (32, 96, 256, 4096, 65536), 1 << 20
+#: (block, bits) of the cases run on a view 4 bytes off 16-byte alignment
+OFFSET_CASES = ((256, 8), (96, 13), (32, 32), (65536, 31))
+#: bits of the walk cases: units = WALK_UNITS x the largest grid, so that
+#: every block of the persistent grid takes several units
+WALK_BITS, WALK_UNITS = (1, 7, 13, 32), 2.5
+#: the codec kernels, as their names stand (mangled) in ptxas' log and SASS
+BITPLANE_KERNELS = {"pack": "11pack_kernel", "unpack": "13unpack_kernel"}
+#: ... and as the profiler names them (demangled)
+CODEC_PROFILE_KEYS = {"pack": "::pack_kernel", "unpack": "unpack_kernel"}
 JACOBI_TOL = 1e-5                         # the small input against the oracle
 #: (n, T, W) for the jacobi kernel against its plain version: the build's
 #: and the oracle's shapes, T = 0, T = W - 3, n below and ragged against
@@ -215,6 +239,25 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def stream_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time of one call in a stream of back-to-back calls: CUDA
+    events around `calls` calls, divided, median of `reps`.  The wrapper's
+    host time overlaps the kernels before it, so unlike ``time_ms`` this
+    reads the kernel and not the host, as long as the host keeps ahead."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return float(np.median(times))
+
+
 def bound(nbytes: int, nops: int, copy_rate: float,
           ops_per_s: float = FP32_OPS_PER_S) -> dict:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -246,46 +289,37 @@ def tile_rel_err(got: torch.Tensor, want: torch.Tensor, rows: int = 64) -> float
     return float((num / w.norm(dim=-1).clamp_min(1e-30)).max())
 
 
-def wrapped_codes(rng, rows: int, bits: int) -> np.ndarray:
+def wrapped_codes(rng, rows: int, bits: int, block: int = BLOCK) -> np.ndarray:
     """int32 codes whose deltas (first word included) fit `bits`; their
     running sum wraps int32 where `bits` is wide enough."""
     lo, hi = -(1 << (bits - 1)), (1 << (bits - 1))
-    d = rng.integers(lo, hi, size=(rows, BLOCK), dtype=np.int64)
+    d = rng.integers(lo, hi, size=(rows, block), dtype=np.int64)
     q = np.cumsum(d, axis=1)
     return (((q + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).astype(np.int32)
 
 
-def ptxas_by_kernel(log: str) -> dict:
-    """ptxas -v's registers, stack and spill bytes for each entry function."""
-    out, name = {}, None
-    for ln in log.splitlines():
-        m = re.search(r"Compiling entry function '(\w+)'", ln)
-        if m:
-            name = m.group(1)
-            out[name] = {}
-        elif name and "spill stores" in ln:
-            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
-            out[name].update(stack_bytes=nums[0], spill_store_bytes=nums[1],
-                             spill_load_bytes=nums[2])
-        elif name and "Used" in ln and "registers" in ln:
-            out[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+def bitplane_sass(lib: Path, log: str) -> dict:
+    """pack_kernel's and unpack_kernel's static SASS (instructions, the
+    shuffle/vote pipe's SHFL and VOTE, and the opcodes the byte-slice
+    transpose and the copies use) beside ptxas' registers and spills."""
+    sass, ptxas = _build.sass_opcodes(lib), _build.ptxas_by_kernel(log)
+    keep = ("SHFL", "VOTE", "PRMT", "LOP3", "SHF", "IADD3", "LDS", "STS",
+            "LDGSTS", "LDG", "STG", "BAR", "BRA")
+    out = {}
+    for label, key in BITPLANE_KERNELS.items():
+        fns = [fn for fn in sass if key in fn]
+        check(len(fns) == 1, f"{key}: expected one kernel in the SASS, got {fns}")
+        ops_ = sass[fns[0]]["by_opcode"]
+        out[label] = {"sass_instructions": sass[fns[0]]["instructions"],
+                      **{op: ops_.get(op, 0) for op in keep},
+                      **next((v for k, v in ptxas.items() if key in k), {})}
     return out
 
 
 def tensor_core_sass(name: str) -> dict:
     """HGMMA (wgmma) instructions in the SASS of each kernel of a library."""
-    cuobjdump = Path(_build.nvcc()).parent / "cuobjdump"
-    sass = subprocess.run([str(cuobjdump), "-sass", str(_build.lib_path(name))],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    counts, fn = {}, None
-    for ln in sass.splitlines():
-        if "Function :" in ln:
-            fn = ln.split("Function :")[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HGMMA" in ln:
-            counts[fn] += 1
-    return counts
+    return {fn: k["by_opcode"].get("HGMMA", 0)
+            for fn, k in _build.sass_opcodes(_build.lib_path(name)).items()}
 
 
 def phase_build(dev) -> None:
@@ -295,7 +329,7 @@ def phase_build(dev) -> None:
             for name, log in logs.items()}
     # the tensor-core kernels: each instantiation's SASS must hold HGMMA
     hgmma = tensor_core_sass("flash_attention_sm90")
-    ptxas = ptxas_by_kernel(logs["flash_attention_sm90"])
+    ptxas = _build.ptxas_by_kernel(logs["flash_attention_sm90"])
     tc = {}
     for kernel in TENSOR_CORE_KERNELS:
         found = {fn: n for fn, n in hgmma.items() if kernel in fn}
@@ -320,7 +354,9 @@ def phase_build(dev) -> None:
     emit({"phase": "build", "seconds": t1 - t0,
           "first_launch_seconds": time.perf_counter() - t1,
           "sources": list(_build.SOURCES), "ptxas": regs,
-          "tensor_core_kernels": tc})
+          "tensor_core_kernels": tc,
+          "bitplane_kernels": bitplane_sass(_build.lib_path("bitplane"),
+                                            logs["bitplane"])})
 
 
 def phase_card(dev) -> tuple:
@@ -374,12 +410,13 @@ def phase_main(dev) -> dict:
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
     # one more run under the profiler: how much of the wall time is device
     prof = device_profile(path, {"jacobi": "jacobi_wavefront_kernel",
-                                 "pack": "::pack_kernel", "unpack": "unpack_kernel"})
+                                 **CODEC_PROFILE_KEYS})
     emit({"phase": "main", "n_cells": N_CELLS, "t_steps": T_STEPS,
           "width": WIDTH, "codes": list(q.shape), "qbits": QBITS, "bits": BITS,
           "wall_ms": wall_ms, "launches": launches, "peak_GiB": peak,
           "max_roundtrip_err": float(err.max()), **prof})
-    return {"x": x, "y": y, "q": q, "planes": planes, "launches": launches}
+    return {"x": x, "y": y, "q": q, "scale": scale, "planes": planes,
+            "launches": launches, "watched": prof.get("watched", {})}
 
 
 def evolving_ghost(rng) -> np.float32:
@@ -451,6 +488,54 @@ def phase_stencil(dev, main: dict, copy_rate: float) -> dict:
     return row
 
 
+def placed(t: torch.Tensor, offset: int) -> torch.Tensor:
+    """A contiguous copy of t that starts `offset` int32 words into its
+    buffer (offset 1: 4 bytes off the allocator's alignment)."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=torch.int32, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t.view(torch.int32))
+    check(view.is_contiguous() and view.data_ptr() % 16 == 4 * offset % 16,
+          f"offset view at {view.data_ptr() % 16}")
+    return view
+
+
+def codec_case(dev, rng, n: int, block: int, bits: int, offset: int = 0) -> dict:
+    """pack and unpack of [n, block] codes against their plain versions:
+    full-range codes (deltas wrap int32 and overflow `bits`), their plain
+    planes, and codes whose deltas fit `bits` (the round trip restores
+    them).  Every input is placed `offset` words into its buffer."""
+    full = placed(torch.from_numpy(rng.integers(
+        -2**31, 2**31, size=(n, block), dtype=np.int64).astype(np.int32)).to(dev), offset)
+    e_pack = max_abs_diff(bitplane.pack(full, bits), bitplane.pack_plain(full, bits))
+    planes = placed(bitplane.pack_plain(full, bits), offset)
+    e_unpack = max_abs_diff(bitplane.unpack(planes, bits, block),
+                            bitplane.unpack_plain(planes, bits, block))
+    qw = placed(torch.from_numpy(wrapped_codes(rng, n, bits, block)).to(dev), offset)
+    trip = bool(torch.equal(bitplane.unpack(bitplane.pack(qw, bits), bits, block), qw))
+    check(e_pack == 0 and e_unpack == 0 and trip,
+          f"n={n} block={block} bits={bits} offset={offset}: pack err {e_pack}, "
+          f"unpack err {e_unpack}, round trip {trip}")
+    return {"n": n, "block": block, "bits": bits, "offset_words": offset}
+
+
+def sweep_rows(block: int, sms: int) -> int:
+    """About SWEEP_WORDS codes in a row count ragged against the tile."""
+    plan = bitplane.launch_plan("pack", 1, block, 8, sms)
+    r = plan.rows_per_tile
+    return max(1, SWEEP_WORDS // block // r) * r + max(1, r // 2)
+
+
+def walk_rows(block: int, sms: int) -> int:
+    """Rows that give WALK_UNITS units to each block of the largest grid,
+    the last unit a part of a tile where a tile holds several rows."""
+    plan = bitplane.launch_plan("pack", 1, block, 8, sms)
+    units = int(WALK_UNITS * sms * bitplane.BLOCKS_PER_SM)
+    r = plan.rows_per_tile
+    return units * r + (r // 2 if r > 1 else 0)
+
+
 def phase_codec(dev, main: dict, copy_rate: float) -> list:
     q, planes = main["q"], main["planes"]
     n = q.shape[0]
@@ -461,44 +546,83 @@ def phase_codec(dev, main: dict, copy_rate: float) -> list:
     err_unpack = max_abs_diff(uk, up)
     check(err_unpack == 0, f"unpack codes differ from plain: {err_unpack}")
     check(bool(torch.equal(uk, q)), "unpack(pack(q)) != q")
+    check(bool(torch.equal(bitplane.pack(q, BITS), pk)), "two back-to-back packs differ")
+    check(bool(torch.equal(bitplane.unpack(planes, BITS, BLOCK), uk)),
+          "two back-to-back unpacks differ")
+    del pp, up
 
+    # quantize on the card against its CPU run, bit for bit; beside it the
+    # scales that a division by a host scalar would give on the card
+    y = main["y"]
+    q_cpu, s_cpu = blockcodec.quantize(y.cpu(), QBITS, BLOCK)
+    check(bool(torch.equal(main["q"].cpu(), q_cpu)), "quantize: card codes differ from CPU")
+    check(bool(torch.equal(main["scale"].cpu(), s_cpu)),
+          "quantize: card scales differ from CPU")
+    amax = y.reshape(-1, BLOCK).abs().amax(dim=-1)
+    host_scalar = int((amax / float(2 ** (QBITS - 1) - 1)).cpu().ne(
+        amax.cpu() / float(2 ** (QBITS - 1) - 1)).sum())
+    del q_cpu, s_cpu, amax
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     # 32-bit integer operations per word: pack = subtract, mask, and per
     # plane a shift and an and; unpack = per plane two shifts, an and and
     # an or, then the sign extension and the scan's add
     rows = []
-    for name, line, fn, plain, err, io, nops in (
-        ("bitplane.pack", 46, lambda: bitplane.pack(q, BITS),
+    for name, kind, line, fn, plain, err, io, nops in (
+        ("bitplane.pack", "pack", 46, lambda: bitplane.pack(q, BITS),
          lambda: bitplane.pack_plain(q, BITS), err_pack,
          ops.pack_io_bytes(n, BLOCK, BITS), n * BLOCK * (2 + 2 * BITS)),
-        ("bitplane.unpack", 62, lambda: bitplane.unpack(planes, BITS, BLOCK),
+        ("bitplane.unpack", "unpack", 62, lambda: bitplane.unpack(planes, BITS, BLOCK),
          lambda: bitplane.unpack_plain(planes, BITS, BLOCK), err_unpack,
          ops.unpack_io_bytes(n, BLOCK, BITS), n * BLOCK * (4 * BITS + 3)),
     ):
+        watched = main["watched"].get(kind, {})
         rows.append({"name": name, "route": "cuda",
                      "source": "src/repro_torch/kernels/csrc/bitplane.cu",
+                     "design": "tiles+cp.async, thread per group",
                      "replaces": f"src/repro/kernels/bitplane.py:{line}",
                      "launches": main["launches"][name], "max_abs_err": err,
                      "ms": time_ms(fn, reps=20), "plain_ms": time_ms(plain, reps=3),
-                     **bound(sum(io), nops, copy_rate), "library_ms": None})
-    emit({"phase": "codec", "codes": [n, BLOCK], "bits": BITS, "rows": rows})
+                     **bound(sum(io), nops, copy_rate), "library_ms": None,
+                     "profile_ms": (watched["device_ms"] / watched["launches"]
+                                    if watched.get("launches") else None),
+                     "ms_back_to_back": stream_ms(fn),
+                     **launch_costs(fn, CODEC_PROFILE_KEYS[kind])})
+    plans = {kind: bitplane.launch_plan(kind, n, BLOCK, BITS, sms)
+             for kind in bitplane.KINDS}
+    emit({"phase": "codec", "codes": [n, BLOCK], "bits": BITS,
+          "plans": {kind: {"grid": p.grid, "units": p.units, "smem_bytes": p.smem}
+                    for kind, p in plans.items()},
+          "bit_identical": {"main": True, "back_to_back": True},
+          "quantize_card_equals_cpu": True,
+          "host_scalar_scale_mismatches": host_scalar, "rows": rows})
 
     rng = np.random.default_rng(SEED + 2)
     sweep = []
-    for bits in SWEEP_BITS:
-        full = torch.from_numpy(rng.integers(-2**31, 2**31, size=(SWEEP_ROWS, BLOCK),
-                                             dtype=np.int64).astype(np.int32)).to(dev)
-        pk = bitplane.pack(full, bits)
-        e_pack = max_abs_diff(pk, bitplane.pack_plain(full, bits))
-        e_unpack = max_abs_diff(bitplane.unpack(pk, bits, BLOCK),
-                                bitplane.unpack_plain(pk, bits, BLOCK))
-        qw = torch.from_numpy(wrapped_codes(rng, SWEEP_ROWS, bits)).to(dev)
-        trip = bool(torch.equal(bitplane.unpack(bitplane.pack(qw, bits), bits, BLOCK), qw))
-        check(e_pack == 0 and e_unpack == 0 and trip,
-              f"bits={bits}: pack err {e_pack}, unpack err {e_unpack}, trip {trip}")
-        sweep.append({"bits": bits, "pack_err": e_pack, "unpack_err": e_unpack,
-                      "roundtrip": trip})
-    emit({"phase": "codec_sweep", "rows": SWEEP_ROWS, "block": BLOCK,
-          "sweep": sweep})
+    for block in SWEEP_BLOCKS:
+        rows_ = sweep_rows(block, sms)
+        for bits in range(1, 33):
+            sweep.append(codec_case(dev, rng, rows_, block, bits))
+        sweep.append(codec_case(dev, rng, 1, block, 5))
+    for block, bits in OFFSET_CASES:
+        sweep.append(codec_case(dev, rng, sweep_rows(block, sms), block, bits, offset=1))
+    walks = {}
+    for block in SWEEP_BLOCKS:
+        rows_ = walk_rows(block, sms)
+        for bits in WALK_BITS:
+            for kind in bitplane.KINDS:
+                plan = bitplane.launch_plan(kind, rows_, block, bits, sms)
+                check(plan.units >= 2 * plan.grid,
+                      f"walk case {kind} block={block} bits={bits}: {plan.units} "
+                      f"units on a grid of {plan.grid}")
+            sweep.append(codec_case(dev, rng, rows_, block, bits))
+        walks[block] = {"rows": rows_, "units": plan.units, "grid": plan.grid}
+        torch.cuda.empty_cache()
+    emit({"phase": "codec_sweep", "cases": len(sweep),
+          "rows_by_block": {b: sweep_rows(b, sms) for b in SWEEP_BLOCKS},
+          "walk_cases": {"bits": WALK_BITS, "by_block": walks},
+          "offset_cases": [c for c in sweep if c["offset_words"]],
+          "all_bit_identical": True})
     return rows
 
 
@@ -1224,7 +1348,8 @@ def main() -> int:
     phase_train_loop(dev)
     rows += phase_attention_bwd(dev, trained, copy_rate)
     phase_train_parity(dev)
-    emit({"kernels": [{k: v for k, v in r.items() if k != "copy_bound_ms"}
+    emit({"kernels": [{k: v for k, v in r.items()
+                       if k != "copy_bound_ms"}
                       for r in rows]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

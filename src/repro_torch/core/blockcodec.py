@@ -130,11 +130,17 @@ def _reshape_blocks(x: torch.Tensor, block: int) -> torch.Tensor:
 
 def quantize(x: torch.Tensor, bits: int, block: int
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """float32 -> (int32 codes, per-block scale).  Symmetric, saturating."""
+    """float32 -> (int32 codes, per-block scale).  Symmetric, saturating.
+
+    ``maxval`` is divided by a 0-dim f32 tensor on x's device, not by a
+    Python float: on a GPU, PyTorch divides by a host scalar as a multiply
+    by its reciprocal, which is not the IEEE quotient the reference gives.
+    """
     xb = _reshape_blocks(x, block)
     maxval = xb.abs().amax(dim=-1, keepdim=True)
     qmax = float(2 ** (bits - 1) - 1)
-    scale = torch.where(maxval > 0, maxval / qmax,
+    qmax_t = torch.full((), qmax, dtype=torch.float32, device=x.device)
+    scale = torch.where(maxval > 0, maxval / qmax_t,
                         torch.ones_like(maxval)).to(torch.float32)
     q = _f32_to_i32_sat(torch.clamp(torch.round(xb / scale), -qmax, qmax))
     return q, scale[..., 0]

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -105,3 +106,44 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.kernel_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err}: {msg}")
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """ptxas -v's registers, static shared memory, stack and spill bytes for
+    each entry function."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name and "spill stores" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            out[name].update(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                             spill_load_bytes=nums[2])
+        elif name and "Used" in ln and "registers" in ln:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            out[name]["static_smem_bytes"] = int(m.group(1)) if m else 0
+    return out
+
+
+def sass_opcodes(lib: Path) -> dict:
+    """Static SASS of each kernel of a library: its instruction count, and
+    the count of each opcode (the part before the first dot)."""
+    cuobjdump = Path(nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            fn = ln.split("Function :")[1].strip()
+            out[fn] = {"instructions": 0, "by_opcode": {}}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", ln)
+        if fn is not None and m:
+            op = m.group(1)
+            out[fn]["instructions"] += 1
+            out[fn]["by_opcode"][op] = out[fn]["by_opcode"].get(op, 0) + 1
+    return out
+

@@ -55,11 +55,19 @@ def init(params: Mapping[str, torch.Tensor], cfg: AdamConfig) -> AdamState:
 
 
 def schedule(cfg: AdamConfig, step: torch.Tensor) -> torch.Tensor:
-    """Learning rate at ``step`` (a tensor): linear warm-up, cosine to 10%."""
+    """Learning rate at ``step`` (a tensor): linear warm-up, cosine to 10%.
+
+    Both divisors are 0-dim f32 tensors on step's device: a GPU divides by
+    a host scalar as a multiply by its reciprocal, not as IEEE division.
+    """
     step = step.to(F32)
-    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+
+    def divisor(v: int) -> torch.Tensor:
+        return torch.full((), float(max(v, 1)), dtype=F32, device=step.device)
+
+    warm = torch.clamp(step / divisor(cfg.warmup_steps), max=1.0)
     frac = torch.clamp((step - cfg.warmup_steps)
-                       / max(cfg.total_steps - cfg.warmup_steps, 1), 0, 1)
+                       / divisor(cfg.total_steps - cfg.warmup_steps), 0, 1)
     cos = 0.5 * (1 + torch.cos(math.pi * frac))
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
