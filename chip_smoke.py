@@ -18,8 +18,9 @@ read just after:
   bf16, random weights from a seeded ``torch.Generator`` on the card):
   ``ModelApi.prefill`` on 4 x 2048 tokens (flash attention in every layer)
   and ``ServeEngine.generate`` with an int8 KV cache on 8 prompts of
-  16-128 tokens, 32 new tokens each (kv_quant and kv_dequant in every
-  layer at every step), then a short int4 generate;
+  16-128 tokens, 32 new tokens each (the decode step replayed as a CUDA
+  graph: kv_quant_store once and kv_dequant twice in every layer at every
+  step), then a short int4 generate;
 * training tinyllama-1.1b at its full published width and depth (22 layers,
   d_model 2048, bf16 weights, f32 AdamW moments, remat): 3 timed steps of
   ``train.step.make_train_step`` (the step ``train.loop.train`` runs) on
@@ -66,12 +67,27 @@ Phases, one JSON line each:
 6. lm_init   — the granite-8b weights on the card (count, GiB, seconds);
 7. prefill   — the prefill path: 36 flash launches, finite logits (4, 49152),
                a profile of one more prefill (device ops, idle share);
-8. serve     — the generate path: 2 x 36 x steps launches of each kv kernel,
-               tokens/s, cache bytes, peak memory; an int4 generate; a profile
-               of 8 decode steps (top device ops, idle share);
+8. serve     — the generate path: the graph's capture ms, then launches
+               checked exactly (36 x steps kv_quant_store, 72 x steps
+               kv_dequant, no kv_quant and nothing else), tokens/s, cache
+               bytes, peak memory; an int4 generate, counted the same way;
+               the graph against eager ``decode_step`` from the same state
+               (16 int8 steps, and the int4 generate's schedule): logits
+               ``torch.equal`` at every step, identical greedy tokens, equal
+               caches, host ms a step of both; a profile of 8 replayed steps
+               (top device ops, idle share; kv_quant_store found 36 x 8
+               times, kv_dequant 72 x 8); a step's token copy and replay
+               by CUDA events, and the idle share of the untraced generate's
+               step against the profile's busy time a step;
 9. kvpack    — kv_quant / kv_dequant bit-identical to their plain versions
                at the serve path's shapes, bits 8 and 4, f32 and bf16, and on
-               an odd row count;
+               an odd row count; kv_quant_store ``torch.equal`` to its plain
+               version on caches full of seeded noise, at the serve shape
+               and two small ones, bits 8 and 4, f32 and bf16, every
+               sequence at slot 0, mid, S - 1, past the end, and a seeded
+               mix (60 cases); the three kv rows timed by events, back to
+               back and in the profile, beside the profiler's device time of
+               a one-element ``fill_`` (the card's launch floor);
 10. attention — the flash forward against its plain version at one layer's
                prefill shape (bf16: o within 3e-2, lse within 1e-3, and o's
                relative error on every 64-row query tile of each head within
@@ -111,9 +127,12 @@ Phases, one JSON line each:
                bf16 losses within 2e-2 and grad norms within 5e-3 relative;
 16. the ``{"kernels": [...]}`` line, then the card line, then the result line.
 
-The three tensor-core rows (flash forward, dK/dV, dQ), the jacobi row and
-the two codec rows also carry ``design``; the codec rows add their time a
-launch in the main path's profile (``profile_ms``).
+The three tensor-core rows (flash forward, dK/dV, dQ), the jacobi row, the
+two codec rows and the fused KV store's row also carry ``design``; the
+codec rows add their time a launch in the main path's profile
+(``profile_ms``), the kv rows their time back to back, in the profile and
+the launch floor.  kv_quant's ``launches`` is 0: the serve path writes its
+cache through kv_quant_store.
 
 ``bound_ms`` is the larger of the bytes the function must move over the
 H100's published 3.35 TB/s and its operations over the published peak for
@@ -178,6 +197,9 @@ STENCIL_KERNELS = ("bitplane.pack", "bitplane.unpack", "jacobi_mars.jacobi_chunk
 ARCH = "granite-8b"
 PREFILL_B, PREFILL_S = 4, 2048
 SERVE_B, SERVE_SEQ, SERVE_NEW = 8, 256, 32
+#: (B, S, KV, D) of the fused KV store's sweep: the serve path's (one layer
+#: of granite-8b at batch 8, seq 256), and two small ones
+STORE_SHAPES = ((SERVE_B, SERVE_SEQ, 8, 128), (3, 16, 2, 8), (1, 4, 1, 128))
 PROFILE_STEPS = 8
 PARITY_B, PARITY_S, PARITY_STEPS, PARITY_NEW = 4, 64, 24, 8
 F32_TOL, BF16_REL = 1e-4, 3e-2          # bf16: relative to the largest logit
@@ -762,13 +784,82 @@ def phase_prefill(dev, lm: dict) -> dict:
     return {"launches": launches, "wall_ms": wall_ms}
 
 
+def lockstep(engine: ServeEngine, prompts: list, max_new: int, dev) -> dict:
+    """``generate``'s schedule run twice side by side from the same fresh
+    state: the engine's CUDA graph replayed, and ``decode_step`` eagerly.
+    The logits must be ``torch.equal`` at every step, the greedy tokens
+    identical, and the caches and positions equal at the end.  Host ms a
+    step (each ending in the argmax's copy to the host) for both."""
+    B, lens = len(prompts), [len(p) for p in prompts]
+    total = max(lens) + max_new
+    step = engine.graphed_step(B)
+    step.reset()
+    state = engine.api.init_decode_state(B)
+    toks = {k: [[] for _ in range(B)] for k in ("graph", "eager")}
+    cur = {k: np.array([p[0] for p in prompts], np.int64) for k in toks}
+    ms = {k: [] for k in toks}
+    equal = 0
+    for t in range(total - 1):
+        t0 = time.perf_counter()
+        lg_g, nxt_g = step(torch.from_numpy(cur["graph"]))
+        model = {"graph": nxt_g.cpu().numpy()}
+        t1 = time.perf_counter()
+        lg_e, state = engine.api.decode_step(
+            engine.params, state, torch.from_numpy(cur["eager"]).to(dev))
+        model["eager"] = torch.argmax(lg_e, dim=-1).cpu().numpy()
+        t2 = time.perf_counter()
+        ms["graph"].append((t1 - t0) * 1e3)
+        ms["eager"].append((t2 - t1) * 1e3)
+        equal += bool(torch.equal(lg_g, lg_e))
+        for k in toks:
+            for i in range(B):
+                if t + 1 < lens[i]:
+                    cur[k][i] = prompts[i][t + 1]
+                else:
+                    cur[k][i] = model[k][i]
+                    if len(toks[k][i]) < max_new:
+                        toks[k][i].append(int(model[k][i]))
+    state_equal = torch.equal(step.state.pos, state.pos) and all(
+        torch.equal(a, b) for ca, cb in zip(step.state.caches, state.caches)
+        for a, b in zip(ca, cb) if a is not None)
+    check(equal == total - 1, f"graph logits equal eager on {equal} of "
+          f"{total - 1} steps")
+    check(toks["graph"] == toks["eager"], "graph and eager greedy tokens differ")
+    check(state_equal, "graph and eager caches differ after the steps")
+    return {"steps": total - 1, "logits_equal_steps": equal,
+            "tokens_identical": True, "state_equal": True,
+            "graph_step_ms": float(np.median(ms["graph"])),
+            "eager_step_ms": float(np.median(ms["eager"])),
+            "tokens": toks["graph"]}
+
+
+def captured(engine: ServeEngine, batch: int) -> float:
+    """Build the engine's graph for ``batch``: ms of its eager warm-up step,
+    capture and instantiation (a one-off cost a batch size)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.graphed_step(batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def check_serve_launches(launches: dict, n_layers: int, steps: int) -> None:
+    """The serve path's exact counts: the fused store once a layer and step,
+    dequant twice (K and V), and no other kernel (kv_quant is off the path)."""
+    want = {name: 0 for name in launches}
+    want["kvpack.kv_quant_store"] = n_layers * steps
+    want["kvpack.kv_dequant"] = 2 * n_layers * steps
+    check(launches == want, f"generate launched {launches}, want {want}")
+
+
 def phase_serve(dev, lm: dict) -> dict:
     cfg, rc, params = lm["cfg"], lm["rc"], lm["params"]
     rng = np.random.default_rng(SEED + 4)
     lens = rng.integers(16, 129, SERVE_B)
     prompts = [rng.integers(0, cfg.vocab, int(n)).tolist() for n in lens]
     engine = ServeEngine(cfg, rc, params=params, device=str(dev))
-    engine.generate([p[:4] for p in prompts], max_new=2)   # first use of shapes
+    capture_ms = captured(engine, SERVE_B)
+    engine.generate([p[:4] for p in prompts], max_new=2)   # first use of the loop
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
 
@@ -779,16 +870,14 @@ def phase_serve(dev, lm: dict) -> dict:
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = ops.launch_counts()
     steps = int(lens.max()) + SERVE_NEW - 1
-    per_kernel = 2 * cfg.n_layers * steps
-    for name in ("kvpack.kv_quant", "kvpack.kv_dequant"):
-        check(launches[name] == per_kernel,
-              f"generate launched {name} {launches[name]} times, want {per_kernel}")
+    check_serve_launches(launches, cfg.n_layers, steps)
     check([len(t) for t in out] == [SERVE_NEW] * SERVE_B, "generated lengths")
     check(all(0 <= t < cfg.vocab for seq in out for t in seq), "token out of range")
 
     # the int4 cache on the path too: a short generate
     rc4 = dataclasses.replace(rc, kv_cache_bits=4)
     engine4 = ServeEngine(cfg, rc4, params=params, device=str(dev))
+    capture4_ms = captured(engine4, SERVE_B)
     short = [p[:16] for p in prompts]
     ops.reset_launch_counts()
     t0 = time.perf_counter()
@@ -797,23 +886,38 @@ def phase_serve(dev, lm: dict) -> dict:
     wall4_ms = (time.perf_counter() - t0) * 1e3
     launches4 = ops.launch_counts()
     steps4 = 16 + 4 - 1
-    for name in ("kvpack.kv_quant", "kvpack.kv_dequant"):
-        check(launches4[name] == 2 * cfg.n_layers * steps4,
-              f"int4 generate launched {name} {launches4[name]} times")
+    check_serve_launches(launches4, cfg.n_layers, steps4)
     check([len(t) for t in out4] == [4] * SERVE_B, "int4 generated lengths")
 
-    # 8 decode steps of the int8 engine under the profiler
-    state = engine.api.init_decode_state(SERVE_B)
-    cur = torch.tensor([p[0] for p in prompts], device=dev)
-    _, state = engine.api.decode_step(params, state, cur)
+    # the graph against eager decode_step: 16 int8 steps (prompts of 4-11
+    # tokens, some steps teacher-forced, some greedy), and the int4 generate
+    ls8 = lockstep(engine, [p[:4 + i] for i, p in enumerate(prompts)], 6, dev)
+    check(ls8["steps"] == 16, f"int8 lockstep ran {ls8['steps']} steps")
+    ls4 = lockstep(engine4, short, 4, dev)
+    check(ls4["tokens"] == out4, "int4 generate's tokens differ from eager's")
+
+    # 8 replayed steps of the int8 engine under the profiler
+    step = engine.graphed_step(SERVE_B)
+    step.reset()
+    cur = torch.tensor([p[0] for p in prompts])
+    step(cur)
 
     def steps_fn():
-        nonlocal state
-        for i in range(PROFILE_STEPS):
-            lg, state = engine.api.decode_step(params, state, cur)
-            torch.argmax(lg, dim=-1).cpu()               # as generate syncs
-    prof = device_profile(steps_fn, {"kv_quant": "::quant_kernel",
+        for _ in range(PROFILE_STEPS):
+            step(cur)[1].cpu()                           # as generate syncs
+    prof = device_profile(steps_fn, {"kv_quant_store": "quant_store_kernel",
+                                     "kv_quant": "::quant_kernel",
                                      "kv_dequant": "dequant_kernel"})
+    seen = {k: v["launches"] for k, v in (prof.get("watched") or {}).items()}
+    want = {"kv_quant_store": cfg.n_layers * PROFILE_STEPS, "kv_quant": 0,
+            "kv_dequant": 2 * cfg.n_layers * PROFILE_STEPS}
+    check(seen == want, f"profile of {PROFILE_STEPS} replayed steps: kernels "
+          f"{seen}, want {want}")
+    # without the profiler (whose per-kernel records stretch a replay): the
+    # device time of a step's token copy and replay by CUDA events, and the
+    # idle share from the profile's busy time over the timed generate's step
+    replay_ms = time_ms(lambda: step(cur), reps=20)
+    busy_step_ms = prof["device_busy_ms"] / PROFILE_STEPS
     n_prompt, n_gen = int(lens.sum()), SERVE_B * SERVE_NEW
     emit({"phase": "serve", "batch": SERVE_B, "seq_len": SERVE_SEQ,
           "kv_cache_bits": 8, "prompt_lens": lens.tolist(), "max_new": SERVE_NEW,
@@ -821,12 +925,19 @@ def phase_serve(dev, lm: dict) -> dict:
           "step_ms": wall_ms / steps,
           "prompt_tokens_per_s": n_prompt / (wall_ms * 1e-3),
           "generated_tokens_per_s": n_gen / (wall_ms * 1e-3),
+          "capture_ms": capture_ms, "graph_launches_per_step": step.launches,
           "kv_cache_bytes": engine.kv_cache_bytes(SERVE_B),
           "kv_cache_bytes_int4": engine4.kv_cache_bytes(SERVE_B),
           "peak_GiB": torch.cuda.max_memory_allocated(dev) / 2**30,
           "launches": launches,
           "int4": {"decode_steps": steps4, "wall_ms": wall4_ms,
-                   "launches": launches4},
+                   "capture_ms": capture4_ms, "launches": launches4},
+          "graph_vs_eager": {
+              "int8": {k: v for k, v in ls8.items() if k != "tokens"},
+              "int4": {k: v for k, v in ls4.items() if k != "tokens"}},
+          "replay_device_ms": replay_ms,
+          "device_busy_ms_per_step": busy_step_ms,
+          "device_idle_share_untraced": 1 - busy_step_ms / (wall_ms / steps),
           "profile_steps": PROFILE_STEPS, **prof})
     return {"launches": launches, "wall_ms": wall_ms, "steps": steps}
 
@@ -878,6 +989,40 @@ def phase_lm_parity(dev) -> dict:
     return {"results": results}
 
 
+def store_inputs(dev, rng, B: int, S: int, KV: int, D: int, dt, bits: int,
+                 slot: torch.Tensor) -> list:
+    """kv_quant_store's arguments (bits aside): int8 caches and f32 scales
+    full of seeded noise, new K and V rows, the slot on the card."""
+    cd = D if bits == 8 else D // 2
+    caches = [torch.from_numpy(rng.integers(-128, 128, (B, S, KV, cd)).astype(
+        np.int8)).to(dev) for _ in range(2)]
+    scales = [torch.from_numpy(rng.random((B, S, KV, 1)).astype(np.float32) + 0.5)
+              .to(dev) for _ in range(2)]
+    new = [torch.from_numpy(rng.standard_normal((B, 1, KV, D)).astype(np.float32))
+           .to(dev).to(dt) for _ in range(2)]
+    return [*caches, *scales, *new, slot.to(dev)]
+
+
+def store_case(dev, rng, shape: tuple, dt, bits: int, slots: str) -> dict:
+    """kv_quant_store on the card against its plain version, whole caches
+    ``torch.equal``; ``slots``: every sequence at slot 0, mid, S - 1 or past
+    the end (clamped), or a seeded mix of those and negative positions."""
+    B, S, KV, D = shape
+    slot = {"first": [0] * B, "mid": [S // 2] * B, "last": [S - 1] * B,
+            "past_end": [S + 7] * B,
+            "mixed": rng.integers(-2, 2 * S, B).tolist()}[slots]
+    args = store_inputs(dev, rng, B, S, KV, D, dt, bits,
+                        torch.tensor(slot, dtype=torch.int32))
+    got, want = [t.clone() for t in args[:4]], [t.clone() for t in args[:4]]
+    kvpack.kv_quant_store(*got, *args[4:], bits)
+    kvpack.kv_quant_store_plain(*want, *args[4:], bits)
+    same = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+    check(all(same), f"kv_quant_store {shape} {dt} bits={bits} slots={slot}: "
+          f"k/v/k_scale/v_scale equal {same}")
+    return {"shape": list(shape), "dtype": str(dt).split(".")[1], "bits": bits,
+            "slots": slots, "identical": True}
+
+
 def phase_kvpack(dev, serve: dict, copy_rate: float) -> list:
     rng = np.random.default_rng(SEED + 6)
     cases = []
@@ -896,31 +1041,58 @@ def phase_kvpack(dev, serve: dict, copy_rate: float) -> list:
                       f"codes/scales/values equal {same}")
                 cases.append({"rows": rows, "dtype": str(dt).split(".")[1],
                               "bits": bits, "identical": True})
+    # the fused store against its plain version: whole caches pre-filled with
+    # seeded noise, so a slot the store should not touch shows if it changed
+    store_cases = [store_case(dev, rng, shape, dt, bits, slots)
+                   for shape in STORE_SHAPES
+                   for dt in (torch.float32, torch.bfloat16) for bits in (8, 4)
+                   for slots in ("first", "mid", "last", "past_end", "mixed")]
     # the serve path's own calls: bf16 new rows [64, 128] and the int8 cache
-    # [16384, 128] of one layer's K (or V) at batch 8, seq 256
+    # [16384, 128] of one layer's K (or V) at batch 8, seq 256; the fused
+    # store's K and V rows (8, 1, 8, 128) into one layer's int8 cache
     x = torch.from_numpy(rng.standard_normal((64, 128)).astype(np.float32)).to(dev).to(
         torch.bfloat16)
     cache = torch.from_numpy(rng.standard_normal((16384, 128)).astype(np.float32)).to(dev)
     codes, scales = kvpack.kv_quant(cache, 8)
+    B, S, KV, D = STORE_SHAPES[0]
+    store = store_inputs(dev, rng, B, S, KV, D, torch.bfloat16, 8,
+                         torch.full((B,), S // 2, dtype=torch.int32))
+    # the card's floor for one launch: the profiler's device time of a
+    # one-element fill_
+    one = torch.zeros(1, device=dev)
+    floor = launch_costs(lambda: one.fill_(1.0), "FillFunctor")["kernel_device_us"]
+    check(floor is not None, "the profiler recorded no fill_ kernel")
     rows_out, costs = [], {}
-    for name, line, fn, plain, io, nops in (
+    for name, line, fn, plain, io, nops, key in (
         ("kvpack.kv_quant", 26, lambda: kvpack.kv_quant(x, 8),
          lambda: kvpack.kv_quant_plain(x, 8),
-         ops.kv_quant_io_bytes(64, 128, 8, 2), 64 * 128 * 7),
+         ops.kv_quant_io_bytes(64, 128, 8, 2), 64 * 128 * 7, "::quant_kernel"),
         ("kvpack.kv_dequant", 40, lambda: kvpack.kv_dequant(codes, scales, 8),
          lambda: kvpack.kv_dequant_plain(codes, scales, 8),
-         ops.kv_dequant_io_bytes(16384, 128, 8), 16384 * 128 * 2),
+         ops.kv_dequant_io_bytes(16384, 128, 8), 16384 * 128 * 2, "dequant_kernel"),
+        ("kvpack.kv_quant_store", 26, lambda: kvpack.kv_quant_store(*store, 8),
+         lambda: kvpack.kv_quant_store_plain(*store, 8),
+         ops.kv_quant_store_io_bytes(B, KV, D, 8, 2), 2 * B * KV * D * 7,
+         "quant_store_kernel"),
     ):
+        costs[name] = launch_costs(fn, key)
         rows_out.append({"name": name, "route": "cuda",
                          "source": "src/repro_torch/kernels/csrc/kvpack.cu",
                          "replaces": f"src/repro/kernels/kvpack.py:{line}",
                          "launches": serve["launches"][name], "max_abs_err": 0.0,
                          "ms": time_ms(fn, reps=50), "plain_ms": time_ms(plain, reps=20),
-                         **bound(sum(io), nops, copy_rate), "library_ms": None})
-        costs[name] = launch_costs(fn, "quant_kernel")
-    emit({"phase": "kvpack", "cases": cases, "launch_costs": costs,
+                         **bound(sum(io), nops, copy_rate), "library_ms": None,
+                         "ms_back_to_back": stream_ms(fn),
+                         "profile_ms": (costs[name]["kernel_device_us"] or 0) / 1e3,
+                         "launch_floor_ms": floor / 1e3})
+    rows_out[-1]["design"] = ("the K and V rows of a layer's step quantized by "
+                              "quant_kernel's row function and stored into the "
+                              "cache slot: one launch, no scatter")
+    emit({"phase": "kvpack", "cases": cases, "store_cases": store_cases,
+          "launch_costs": costs, "fill_floor_us": floor,
           "timed": {"kv_quant": [64, 128, "bfloat16", 8],
-                    "kv_dequant": [16384, 128, "int8"]},
+                    "kv_dequant": [16384, 128, "int8"],
+                    "kv_quant_store": [B, S, KV, D, "bfloat16", 8]},
           "library_ms_null": "no single PyTorch call computes per-row absmax "
                              "int8/int4 packing or its inverse",
           "rows": rows_out})

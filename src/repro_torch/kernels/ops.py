@@ -37,6 +37,7 @@ KERNELS = {
     "jacobi_mars.jacobi_chunked": jacobi_mars.jacobi_chunked,
     "kvpack.kv_quant": kvpack.kv_quant,
     "kvpack.kv_dequant": kvpack.kv_dequant,
+    "kvpack.kv_quant_store": kvpack.kv_quant_store,
     "flash_attention.flash_fwd": flash_attention.flash_fwd,
     "flash_attention.flash_bwd_dkv": flash_attention.flash_bwd_dkv,
     "flash_attention.flash_bwd_dq": flash_attention.flash_bwd_dq,
@@ -78,6 +79,13 @@ def kv_dequant_io_bytes(rows: int, d: int, bits: int):
     """(read, write) bytes for kv_dequant: (codes, scales) -> f32 values."""
     r, w = kv_quant_io_bytes(rows, d, bits)
     return w, rows * d * 4
+
+
+def kv_quant_store_io_bytes(batch: int, kv_heads: int, d: int, bits: int,
+                            itemsize: int = 4):
+    """(read, write) bytes for kv_quant_store: the 2 B KV new K and V rows
+    in, their codes and f32 scales written into the cache slot."""
+    return kv_quant_io_bytes(2 * batch * kv_heads, d, bits, itemsize)
 
 
 def jacobi_io_bytes(n: int):
@@ -173,6 +181,30 @@ def kv_dequant(codes: torch.Tensor, scales: torch.Tensor, bits: int = 8,
     _record("kv_dequant", m,
             *kv_dequant_io_bytes(codes.shape[0], out.shape[-1], bits), bits=bits)
     return out
+
+
+def kv_quant_store(cache_k: torch.Tensor, cache_v: torch.Tensor,
+                   k_scale: torch.Tensor, v_scale: torch.Tensor,
+                   k_new: torch.Tensor, v_new: torch.Tensor, slot: torch.Tensor,
+                   bits: int = 8, backend: str = "auto") -> None:
+    """One decode step's write into the packed cache, in place: k_new, v_new
+    (B, 1, KV, D) quantized per row and stored, codes and scales, at
+    [b, clamp(slot[b], 0, S - 1)] of cache_k, cache_v (B, S, KV, D or D/2)
+    and k_scale, v_scale (B, S, KV, 1).  The reference computes the same in
+    ``repro.models.layers.update_cache`` (``_quant_rows``, then
+    ``dynamic_update_slice``), which XLA fuses under jit."""
+    m = _mode(backend, k_new)
+    with obs.span("kernels/kv_quant_store", mode=m, bits=bits):
+        if m == "ref":
+            kvpack.kv_quant_store_plain(cache_k, cache_v, k_scale, v_scale,
+                                        k_new, v_new, slot, bits)
+        else:
+            kvpack.kv_quant_store(cache_k, cache_v, k_scale, v_scale, k_new,
+                                  v_new, slot, bits)
+    B, _, KV, D = k_new.shape
+    _record("kv_quant_store", m,
+            *kv_quant_store_io_bytes(B, KV, D, bits, k_new.element_size()),
+            bits=bits)
 
 
 # ---------------------------------------------------------------------------

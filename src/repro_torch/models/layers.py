@@ -10,8 +10,9 @@ so ``x @ wq`` is the same product.
   (``kernels.flash_attention``: the forward, and under autograd both
   backward kernels); on a CPU tensor it runs the blockwise online-softmax
   path below (the reference's non-TPU path), differentiated by autograd;
-* the packed KV cache quantizes new rows and dequantizes the cache through
-  ``kernels.ops.kv_quant`` / ``kv_dequant`` (the kvpack kernels on a GPU);
+* the packed KV cache quantizes and stores each step's new rows through
+  ``kernels.ops.kv_quant_store`` and dequantizes the cache through
+  ``kv_dequant`` (the kvpack kernels on a GPU);
 * RoPE uses the interleaved (GPT-J) pairing; GQA is computed in grouped form
   (B, S, KV, G, D) with no repeated kv heads;
 * ``fused_ce_loss`` checkpoints each sequence chunk
@@ -255,13 +256,6 @@ def init_cache(cfg: ModelConfig, batch: int, s_cache: int, bits: int,
                    torch.ones(scale, dtype=F32, device=device))
 
 
-def _quant_rows(x: torch.Tensor, bits: int):
-    """Symmetric per-(pos, head) quantization of (..., D) to int8/int4."""
-    codes, scale = ops.kv_quant(x.reshape(-1, x.shape[-1]), bits)
-    return (codes.reshape(*x.shape[:-1], codes.shape[-1]),
-            scale.reshape(*x.shape[:-1], 1))
-
-
 def _dequant_rows(codes: torch.Tensor, scale: torch.Tensor,
                   bits: int) -> torch.Tensor:
     out = ops.kv_dequant(codes.reshape(-1, codes.shape[-1]),
@@ -278,19 +272,17 @@ def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     reference's dynamic update slice, a position past the end is clamped to
     the last slot.
     """
-    S = cache.k.shape[1]
-    b = torch.arange(pos.shape[0], device=pos.device)
-    slot = torch.clamp(pos, 0, S - 1)
     if bits == 16:
+        b = torch.arange(pos.shape[0], device=pos.device)
+        slot = torch.clamp(pos, 0, cache.k.shape[1] - 1)
         cache.k[b, slot] = k_new[:, 0].to(cache.k.dtype)
         cache.v[b, slot] = v_new[:, 0].to(cache.v.dtype)
         return cache
-    kq, ks = _quant_rows(k_new, bits)
-    vq, vs = _quant_rows(v_new, bits)
-    cache.k[b, slot] = kq[:, 0]
-    cache.v[b, slot] = vq[:, 0]
-    cache.k_scale[b, slot] = ks[:, 0]
-    cache.v_scale[b, slot] = vs[:, 0]
+    # the packed cache: quantize and store the K and V rows in one call (one
+    # kernel launch on a GPU), the reference's _quant_rows and its fused
+    # dynamic_update_slice
+    ops.kv_quant_store(cache.k, cache.v, cache.k_scale, cache.v_scale,
+                       k_new, v_new, pos, bits)
     return cache
 
 

@@ -163,6 +163,18 @@ def init_decode_state(cfg: ModelConfig, rc: RunConfig, batch: int,
                        pos=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
+def reset_decode_state(state: DecodeState) -> DecodeState:
+    """Zero ``state`` in place and return it: what ``init_decode_state``
+    gives (every leaf zero, the scales included), in the same tensors, so a
+    CUDA graph captured on them stays valid."""
+    for cache in state.caches:
+        for t in cache:
+            if t is not None:
+                t.zero_()
+    state.pos.zero_()
+    return state
+
+
 def decode_step(params: DenseParams, state: DecodeState, tokens: torch.Tensor,
                 cfg: ModelConfig, rc: RunConfig
                 ) -> Tuple[torch.Tensor, DecodeState]:
