@@ -6,7 +6,7 @@ Run from the repository root, on a machine with an NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-Three paths, each driven with the launch counts set to 0 just before it and
+Four paths, each driven with the launch counts set to 0 just before it and
 read just after:
 
 * stencil and codec: a 2^26-cell f32 field (256 MiB, seeded with numpy)
@@ -26,7 +26,11 @@ read just after:
   ``train.step.make_train_step`` (the step ``train.loop.train`` runs) on
   8 x 4096 tokens each, the batch cut from the 256 of ``SHAPES["train_4k"]``
   to keep the run short (flash forward twice per layer, forward and remat
-  recompute, and both flash backward kernels once per layer).
+  recompute, and both flash backward kernels once per layer);
+* the paper's host analysis (``core``: MARS, the layout ILP, the codec, the
+  transfer model, the tiled-accelerator executor) with the obs exporters,
+  tied to the card by the Jacobi kernel: the executor's full-tile rows held
+  against ``ops.jacobi1d_tiled`` on the card (three launches).
 
 Phases, one JSON line each:
 
@@ -64,10 +68,26 @@ Phases, one JSON line each:
                row with a fresh carry): full-range codes whose deltas
                wrap int32 through pack and unpack bit-identical to the plain
                versions, and the round trip of codes whose deltas fit;
-6. lm_init   — the granite-8b weights on the card (count, GiB, seconds);
-7. prefill   — the prefill path: 36 flash launches, finite logits (4, 49152),
+6. paper     — Table 1 over ``stencil.ZOO`` equal to the paper's numbers
+               (MARS in / out, read / write bursts); Fig. 10's transfer cases
+               (a jacobi-1d history of 4000 cells x 500 steps, seed 0, an
+               interior tile at (64, 64) and (200, 200), fixed18 / fixed24 /
+               float, every pattern of ``transfer.MODES``): ``mars_comp`` the
+               fewest cycles, and the ``transfer/cycles`` counters, through
+               ``obs.sink``'s sidecar written and read back, equal to the
+               direct totals (the report's transfer table printed on a line
+               before); ``Jacobi1dMarsExecutor`` (4000 cells, T = 256,
+               (64, 64) tiles, fixed18 and float) within 1e-2 / 1e-5 of the
+               dense reference, and its full-tile values of rows 64, 128 and
+               the latest within the same tolerance of ``ops.jacobi1d_tiled``
+               on the card, on the cells more than t from both ends (where
+               the reference's fixed ends and the entry point's edge padding
+               agree); cells compared, deviations, compression ratios and
+               each part's host seconds (host time, not device time);
+7. lm_init   — the granite-8b weights on the card (count, GiB, seconds);
+8. prefill   — the prefill path: 36 flash launches, finite logits (4, 49152),
                a profile of one more prefill (device ops, idle share);
-8. serve     — the generate path: the graph's capture ms, then launches
+9. serve     — the generate path: the graph's capture ms, then launches
                checked exactly (36 x steps kv_quant_store, 72 x steps
                kv_dequant, no kv_quant and nothing else), tokens/s, cache
                bytes, peak memory; an int4 generate, counted the same way;
@@ -79,7 +99,7 @@ Phases, one JSON line each:
                times, kv_dequant 72 x 8); a step's token copy and replay
                by CUDA events, and the idle share of the untraced generate's
                step against the profile's busy time a step;
-9. kvpack    — kv_quant / kv_dequant bit-identical to their plain versions
+10. kvpack    — kv_quant / kv_dequant bit-identical to their plain versions
                at the serve path's shapes, bits 8 and 4, f32 and bf16, and on
                an odd row count; kv_quant_store ``torch.equal`` to its plain
                version on caches full of seeded noise, at the serve shape
@@ -88,7 +108,7 @@ Phases, one JSON line each:
                mix (60 cases); the three kv rows timed by events, back to
                back and in the profile, beside the profiler's device time of
                a one-element ``fill_`` (the card's launch floor);
-10. attention — the flash forward against its plain version at one layer's
+11. attention — the flash forward against its plain version at one layer's
                prefill shape (bf16: o within 3e-2, lse within 1e-3, and o's
                relative error on every 64-row query tile of each head within
                FLASH_BF16_REL), on bf16 cases for the tensor-core kernel's
@@ -96,19 +116,19 @@ Phases, one JSON line each:
                non-causal, ragged D = 128, Sk < S) and on the f32 cases
                of tests/test_flash_attention.py (2e-5); the bf16 forward and
                SDPA's forward timed at the prefill and the train shapes;
-11. lm_parity — the granite-8b smoke config with the same weights on the card
+12. lm_parity — the granite-8b smoke config with the same weights on the card
                (kernels) and on the CPU (plain paths): f32 logits within 1e-4
                and identical greedy tokens, bf16 logits within 3e-2 of the
                largest logit, for kv_cache_bits 16, 8 and 4;
-12. train    — the training path above: step ms (median), tokens/s, MFU,
+13. train    — the training path above: step ms (median), tokens/s, MFU,
                peak memory, loss and grad norm per step (finite), launches
                per step checked exactly, a profile of one more step;
-13. train_loop — ``train.loop.train`` itself on the card at the smoke
+14. train_loop — ``train.loop.train`` itself on the card at the smoke
                config of tests/test_train_loop.py, checkpoints in a temp
                dir: no restart without injection and the loss drops; with an
                injected failure one restart, and the resumed losses equal
                the uninterrupted run's (atol 1e-5);
-14. attention_bwd — the dK/dV and dQ kernels (bf16: both on the tensor
+15. attention_bwd — the dK/dV and dQ kernels (bf16: both on the tensor
                cores; f32: on the CUDA cores) against ``flash_bwd_plain``:
                f32 on the shapes of tests/test_flash_attention.py's gradient
                test, windows 32 and 64, ragged S and D = 128 (relative error
@@ -121,11 +141,11 @@ Phases, one JSON line each:
                gradient within 1e-2 of its largest magnitude) run on it
                alone; the kernels timed at that shape,
                the plain backward's times summed over the sequences;
-15. train_parity — the tinyllama smoke config with the same weights on the
+16. train_parity — the tinyllama smoke config with the same weights on the
                card (kernels) and on the CPU (plain paths), 3 train steps:
                f32 losses within 1e-4 and grad norms within 1e-4 relative,
                bf16 losses within 2e-2 and grad norms within 5e-3 relative;
-16. the ``{"kernels": [...]}`` line, then the card line, then the result line.
+17. the ``{"kernels": [...]}`` line, then the card line, then the result line.
 
 The three tensor-core rows (flash forward, dK/dV, dQ), the jacobi row, the
 two codec rows and the fused KV store's row also carry ``design``; the
@@ -156,12 +176,15 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.configs import base as configs  # noqa: E402
-from repro_torch.core import blockcodec  # noqa: E402
+from repro_torch.core import (blockcodec, executor, layout, mars,  # noqa: E402
+                              stencil, transfer)
 from repro_torch.kernels import (_build, bitplane, flash_attention,  # noqa: E402
                                  jacobi_mars, kvpack, ops, ref)
 from repro_torch.data.pipeline import SyntheticPipeline, device_batch  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
+from repro_torch.obs import report  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.train import step as train_step  # noqa: E402
 from repro_torch.train.loop import LoopConfig, train  # noqa: E402
@@ -193,6 +216,20 @@ JACOBI_SWEEP = ((64, 4, 16), (4096, 16, 256), (1024, 0, 64), (4096, 61, 64),
                 (1536, 125, 128), (96, 5, 32), (2144, 29, 32),
                 (10752, 64, 512), (1 << 20, 200, 256))
 STENCIL_KERNELS = ("bitplane.pack", "bitplane.unpack", "jacobi_mars.jacobi_chunked")
+
+#: the paper's Table 1: (input MARS, output MARS, read bursts, write bursts)
+PAPER_TABLE1 = {"jacobi-1d": (7, 4, 3, 1), "jacobi-2d": (28, 13, 10, 1),
+                "seidel-2d": (33, 13, 10, 1)}
+#: the transfer cases: a jacobi-1d history of PAPER_N cells x PAPER_T steps,
+#: the interior tile holding PAPER_POINT = (t, i) at each tile size
+PAPER_N, PAPER_T, PAPER_POINT = 4000, 500, (300, 2000)
+PAPER_TILES, PAPER_DTYPES = ((64, 64), (200, 200)), ("fixed18", "fixed24", "float")
+#: the executor: EXEC_T steps on PAPER_N cells in EXEC_TILE tiles, held to the
+#: dense reference and to the card's Jacobi within tests/test_executor.py's
+#: tolerance for the dtype
+EXEC_T, EXEC_TILE = 256, (64, 64)
+EXEC_TOLS = {"fixed18": 1e-2, "float": 1e-5}
+EXEC_WIDTH = 512
 
 ARCH = "granite-8b"
 PREFILL_B, PREFILL_S = 4, 2048
@@ -725,6 +762,156 @@ def device_profile(fn, watch: dict, top: int = 5) -> dict:
                                 "share_of_busy": dev_us(e) / busy,
                                 "count": e.count}
                                for e in ops_[:top] if dev_us(e) > 0]}
+
+
+def paper_table1() -> list:
+    """Table 1 over the port's stencil zoo: the MARS analysis and the
+    layout ILP of each (stencil, tile sizes) equal to the paper's numbers."""
+    rows = []
+    for (name, ts), spec in stencil.zoo_specs().items():
+        a = mars.analyze(spec)
+        lay = layout.layout_for_analysis(a)
+        got = (a.n_in, a.n_out, lay.read_bursts, lay.write_bursts)
+        check(got == PAPER_TABLE1[name] and lay.exact,
+              f"Table 1 {name} {ts}: {got}, exact {lay.exact}; the paper has "
+              f"{PAPER_TABLE1[name]}")
+        rows.append({"stencil": name, "tiles": list(ts), "n_in": a.n_in,
+                     "n_out": a.n_out, "read_bursts": lay.read_bursts,
+                     "write_bursts": lay.write_bursts, "order": list(lay.order)})
+    return rows
+
+
+def paper_transfer(hist: np.ndarray) -> tuple:
+    """Fig. 10's cases on an interior jacobi-1d tile at each PAPER_TILES
+    size and each PAPER_DTYPES: every pattern of ``transfer.MODES``, the
+    compressed MARS taking the fewest cycles; the ``transfer/cycles``
+    counters, through a sidecar written and read back, equal to the direct
+    totals.  Returns (cases, the report's transfer table)."""
+    direct, cases = {}, []
+    with obs.enabled_scope() as (reg, tr):
+        for ts in PAPER_TILES:
+            spec = stencil.jacobi1d_spec(ts)
+            a = mars.analyze(spec)
+            rep = tuple(int(x) for x in spec.tile_of(np.array([PAPER_POINT]))[0])
+            model = transfer.TileIOModel(spec, a, layout.layout_for_analysis(a),
+                                         rep_tile=rep)
+            pts = np.concatenate(model.input_mars_points() + model.output_mars_points())
+            check(pts[:, 0].min() >= 1 and pts[:, 0].max() <= PAPER_T
+                  and pts[:, 1].min() >= 0 and pts[:, 1].max() < PAPER_N,
+                  f"transfer tile {rep} at {ts} reaches outside the history")
+            for dtype in PAPER_DTYPES:
+                cyc = {}
+                for mode in transfer.MODES:
+                    io = model.tile_io(dtype, mode, hist=hist)
+                    cyc[mode] = io.total_cycles
+                    direct[("x".join(map(str, ts)), dtype, mode)] = io.total_cycles
+                check(cyc["mars_comp"] == min(cyc.values()),
+                      f"transfer {ts} {dtype}: mars_comp is not the fewest: {cyc}")
+                cases.append({"tiles": list(ts), "tile": list(rep), "dtype": dtype,
+                              "cycles": cyc,
+                              "minimal_over_mars_comp": cyc["minimal"] / cyc["mars_comp"]})
+        with tempfile.TemporaryDirectory() as tmp:
+            obs.write_sidecar(tmp, reg, tr, meta=obs.run_metadata(config="paper"))
+            doc = obs.read_summary(tmp)
+    counters = doc["metrics"]["counters"]
+    for (tile, dtype, mode), total in direct.items():
+        key = obs.series_key("transfer/cycles", dict(
+            bench="jacobi-1d", tile=tile, dtype=dtype, pattern=mode))
+        check(counters.get(key) == total,
+              f"sidecar {key} = {counters.get(key)}, tile_io says {total}")
+    table = report.render(doc).split("\n## ")[1].split("\n", 1)[1].strip()
+    check(table.count("| jacobi-1d") == len(PAPER_TILES) * len(PAPER_DTYPES),
+          f"the report's transfer table: {table}")
+    return cases, table
+
+
+def paper_executor(init: np.ndarray, hist: np.ndarray, dev) -> dict:
+    """``Jacobi1dMarsExecutor`` (the software model of the paper's tiled
+    accelerator) at each EXEC_TOLS dtype, against the dense reference, and
+    its full-tile rows against the card's ``ops.jacobi1d_tiled`` (f32,
+    ``csrc/jacobi_mars.cu``).  Compared only on the cells more than t from
+    both ends: the dense reference keeps its two end cells fixed, the entry
+    point pads the edges, and the two agree only inside that band."""
+    n = init.shape[0]
+    runs, values = {}, {}
+    for dtype, tol in EXEC_TOLS.items():
+        t0 = time.perf_counter()
+        ex = executor.Jacobi1dMarsExecutor(stencil.jacobi1d_spec(EXEC_TILE), n, EXEC_T,
+                                           dtype=dtype, record=True)
+        out = ex.run(init)
+        secs = time.perf_counter() - t0
+        vals = ex.full_tile_values
+        keys = np.array(list(vals), dtype=np.int64)
+        ref_err = max(float(np.abs(out - hist[EXEC_T]).max()),
+                      float(np.abs(np.fromiter(vals.values(), float)
+                                   - hist[keys[:, 0], keys[:, 1]]).max()))
+        check(ref_err < tol, f"executor {dtype} vs the dense reference: {ref_err}")
+        st = ex.stats
+        values[dtype] = vals
+        runs[dtype] = {"host_seconds": secs, "ref_max_abs_err": ref_err,
+                       "stats": dataclasses.asdict(st),
+                       "full_tile_values": len(vals),
+                       "compression_ratio": st.uncompressed_bits / st.compressed_bits}
+    ts_full = {t for t, _ in values["float"]}
+    check(all({t for t, _ in v} == ts_full for v in values.values()),
+          "the dtypes' executors ran different full tiles")
+    rows = [64, 128, max(ts_full)]
+    x = torch.from_numpy(init.astype(np.float32)).to(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    kernel = {t: ops.jacobi1d_tiled(x, t, width=EXEC_WIDTH, backend="cuda").cpu().numpy()
+              for t in rows}
+    kernel_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    want = {name: 0 for name in launches}
+    want["jacobi_mars.jacobi_chunked"] = len(rows)
+    check(launches == want, f"the paper phase launched {launches}, want {want}")
+    for dtype, tol in EXEC_TOLS.items():
+        vals = values[dtype]
+        by_row = []
+        for t in rows:
+            cells = np.array(sorted(i for (r, i) in vals if r == t and t < i < n - 1 - t))
+            check(cells.size > 0, f"row {t} has no full-tile cell inside the band")
+            got = np.array([vals[(t, int(i))] for i in cells])
+            err = float(np.abs(got - kernel[t][cells]).max())
+            check(err <= tol, f"executor {dtype} row {t} vs the card's jacobi1d_tiled: "
+                              f"{err} over {cells.size} cells")
+            by_row.append({"t": t, "cells": int(cells.size), "first": int(cells[0]),
+                           "last": int(cells[-1]), "max_abs_err": err})
+        runs[dtype].update({"rows_vs_card": by_row, "tol": tol,
+                            "cells_compared": sum(r["cells"] for r in by_row),
+                            "card_max_abs_err": max(r["max_abs_err"] for r in by_row)})
+    return {"runs": runs, "rows": rows, "launches": launches,
+            "kernel_host_seconds": kernel_s}
+
+
+def phase_paper(dev, smi: str) -> None:
+    """The paper's host analysis, tied to the card: Table 1, the transfer
+    model and the obs exporters, and the executor against the Jacobi
+    kernel.  Its seconds are host time on the card's machine."""
+    t0 = time.perf_counter()
+    table1 = paper_table1()
+    t1 = time.perf_counter()
+    init = np.cumsum(np.random.default_rng(SEED).uniform(-0.01, 0.01, PAPER_N)) + 1.0
+    hist = stencil.jacobi1d_reference(init, PAPER_T)
+    t2 = time.perf_counter()
+    cases, table = paper_transfer(hist)
+    t3 = time.perf_counter()
+    ex = paper_executor(init, hist[:EXEC_T + 1], dev)
+    t4 = time.perf_counter()
+    print(table, flush=True)
+    emit({"phase": "paper", "nvidia_smi": smi,
+          "host_seconds": {"table1": t1 - t0, "history": t2 - t1,
+                           "transfer_and_sidecar": t3 - t2,
+                           **{f"executor_{d}": r["host_seconds"]
+                              for d, r in ex["runs"].items()},
+                           "card_rows": ex["kernel_host_seconds"], "total": t4 - t0},
+          "time_note": "host time on the card's machine; transfer cycles model "
+                       "the paper's FPGA bus, not the card",
+          "table1": table1, "transfer": cases,
+          "executor": {"n": PAPER_N, "t_steps": EXEC_T, "tiles": list(EXEC_TILE),
+                       "width": EXEC_WIDTH, "rows": ex["rows"],
+                       "launches": ex["launches"], "by_dtype": ex["runs"]}})
 
 
 def phase_lm_init(dev) -> dict:
@@ -1504,6 +1691,7 @@ def main() -> int:
             *phase_codec(dev, main_out, copy_rate)]
     del main_out                                    # the stencil buffers
     torch.cuda.empty_cache()
+    phase_paper(dev, smi)
 
     lm = phase_lm_init(dev)
     prefill = phase_prefill(dev, lm)

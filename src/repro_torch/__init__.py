@@ -15,6 +15,13 @@ Laid out module for module like ``repro``.  Ported so far:
   ``optim``) and the fault-tolerant ``train.loop.train`` with ``data``'s
   synthetic pipeline and ``checkpoint``'s manager (the reference's on-disk
   layout);
+* the paper's host analysis in ``core`` (host numpy, the reference's own
+  arithmetic): the MARS analysis, the layout ILP, the variable-width codec,
+  the transfer-cycle model and the tiled-accelerator executor behind
+  Table 1/2 and Fig. 10/11;
+* the obs exporters (``obs.sink``, ``python -m repro_torch.obs.report`` and
+  ``python -m repro_torch.obs.regress``) with ``launch.report``'s table
+  helpers;
 
 with hand-written CUDA kernels for Hopper (sm_90a) in ``kernels/csrc``.
 
@@ -22,8 +29,8 @@ The package imports ``torch`` and numpy, never ``jax`` or ``repro``.  It
 imports without a GPU; kernels are built with ``nvcc`` at first launch.
 ``python3 chip_smoke.py`` at the repository root drives it on a card.
 """
-from . import (checkpoint, configs, convert, core, data, kernels, models, obs,
-               optim, serve, train)
+from . import (checkpoint, configs, convert, core, data, kernels, launch,
+               models, obs, optim, serve, train)
 
 __all__ = ["checkpoint", "configs", "convert", "core", "data", "kernels",
-           "models", "obs", "optim", "serve", "train"]
+           "launch", "models", "obs", "optim", "serve", "train"]

@@ -1,9 +1,13 @@
 """``repro_torch.obs`` — metrics and trace spans for the PyTorch port.
 
-Copies of ``repro.obs.{metrics,trace,instrument}`` (the port imports
-nothing of ``repro``), with the same series names, so a run of the port
-and a run of the reference publish comparable registries.  The
-``sink``/``report``/``regress`` exporters are not ported yet.
+Copies of ``repro.obs`` (the port imports nothing of ``repro``), with the
+same series names, so a run of the port and a run of the reference publish
+comparable registries.  Ported so far: all of it — the registry
+(``metrics``), spans (``trace``), the enable-gated facade
+(``instrument``), the exporters (``sink``: summary, JSONL, the
+``BENCH_obs.json`` sidecar), the table CLI ``python -m
+repro_torch.obs.report <dir>`` and the regression gate ``python -m
+repro_torch.obs.regress <run> --baseline <b>``.
 
 Typical use::
 
@@ -11,22 +15,27 @@ Typical use::
 
     with obs.enabled_scope() as (registry, tracer):
         ...  # e.g. repro_torch.kernels.ops.pack_codes(q, 8)
-        registry.snapshot().counters
+        doc = obs.summary(registry, tracer)
 
 Disabled (the default unless ``REPRO_OBS=1``), every helper is a single
 flag test — see ``instrument``.
 """
-from . import instrument, metrics, trace
+# NOTE: ``regress`` is deliberately not imported here — it is a ``-m``
+# entry point (importing it from the package __init__ would make runpy
+# warn about double execution); use ``from repro_torch.obs import regress``.
+from . import instrument, metrics, sink, trace
 from .instrument import (counter_inc, disable, disabled_scope, enable,
                          enabled, enabled_scope, gauge_set, hist_observe,
                          instrumented, registry, span, tracer)
 from .metrics import Counter, Gauge, Histogram, Registry, Snapshot, series_key
+from .sink import read_summary, run_metadata, summary, write_jsonl, write_sidecar
 from .trace import Span, SpanRecord, Tracer
 
 __all__ = [
     "Counter", "Gauge", "Histogram", "Registry", "Snapshot", "Span",
     "SpanRecord", "Tracer", "counter_inc", "disable", "disabled_scope",
     "enable", "enabled", "enabled_scope", "gauge_set", "hist_observe",
-    "instrument", "instrumented", "metrics", "registry", "series_key",
-    "span", "trace", "tracer",
+    "instrument", "instrumented", "metrics", "read_summary", "registry",
+    "run_metadata", "series_key", "sink", "span", "summary", "trace",
+    "tracer", "write_jsonl", "write_sidecar",
 ]
