@@ -6,7 +6,7 @@ Run from the repository root, on a machine with an NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-Four paths, each driven with the launch counts set to 0 just before it and
+Seven paths, each driven with the launch counts set to 0 just before it and
 read just after:
 
 * stencil and codec: a 2^26-cell f32 field (256 MiB, seeded with numpy)
@@ -31,6 +31,19 @@ read just after:
   transfer model, the tiled-accelerator executor) with the obs exporters,
   tied to the card by the Jacobi kernel: the executor's full-tile rows held
   against ``ops.jacobi1d_tiled`` on the card (three launches).
+* serving mixtral-8x7b (moe) at full width, 16 of its 32 layers (memory:
+  23.5e9 bf16 weights, 43.7 GiB): a 4 x 2048 prefill and a generate of
+  8 prompts through the replayed decode graph (the expert dispatch and
+  combine are torch ops; kv_quant_store once and kv_dequant twice a layer
+  and step);
+* serving hymba-1.5b (hybrid: attention with a 1024 window beside the SSD
+  mixer) at full size: a 4 x 2048 prefill (the windowed flash forward in
+  every layer) and a generate of 8 prompts of 1000-1100 tokens through
+  the 1024-slot ring cache; mamba2-130m (ssm, no attention, no kernel)
+  likewise with the generate of mixtral's;
+* training hymba-1.5b and mamba2-130m at full size on train_4k's
+  4096-token sequences, batch 8 (hymba: the windowed flash forward twice
+  and both windowed backward kernels once per layer).
 
 Phases, one JSON line each:
 
@@ -119,7 +132,11 @@ Phases, one JSON line each:
 12. lm_parity — the granite-8b smoke config with the same weights on the card
                (kernels) and on the CPU (plain paths): f32 logits within 1e-4
                and identical greedy tokens, bf16 logits within 3e-2 of the
-               largest logit, for kv_cache_bits 16, 8 and 4;
+               largest logit, for kv_cache_bits 16, 8 and 4; each prefill
+               and step runs on the card first, and in f32 the CPU takes
+               the card's cache code where the two round a value apart at a
+               boundary (one code, both values within 1e-3 of a code of the
+               boundary; any other difference fails; ties listed);
 13. train    — the training path above: step ms (median), tokens/s, MFU,
                peak memory, loss and grad norm per step (finite), launches
                per step checked exactly, a profile of one more step;
@@ -145,7 +162,53 @@ Phases, one JSON line each:
                card (kernels) and on the CPU (plain paths), 3 train steps:
                f32 losses within 1e-4 and grad norms within 1e-4 relative,
                bf16 losses within 2e-2 and grad norms within 5e-3 relative;
-17. the ``{"kernels": [...]}`` line, then the card line, then the result line.
+17. families_parity — the smoke configs of mixtral, grok, mamba2 and hymba
+               with the same weights on the card and on the CPU, by
+               lm_parity's rules at bits 16, 8 and 4 (mamba2: 16); where
+               the CPU's MoE routing differs from the card's, it takes the
+               card's experts if the CPU's probabilities of the swapped
+               choices lie within 2e-2 (a near-tie; else the run fails), so
+               every bf16 step is held to 3e-2 and f32 allows no flip; a
+               generate of 100 steps past mixtral's and hymba's 64-slot
+               ring in f32 at bits 16 and 8 (the f32 rule on every step,
+               tokens equal; at 8 the cache-code ties followed and listed),
+               train_parity's 3 steps in f32 and bf16, and a mixtral bf16
+               train step run twice from one state: loss, gradients and
+               updated weights ``torch.equal``;
+18. moe_serve — mixtral at full width, depth 16: weights counted against
+               ``param_count()``; the prefill (16 flash launches, nothing
+               else; wall ms, tokens/s, profile) and the share of routed
+               copies past the expert capacity (2560) in one more prefill;
+               the generate (int8, seq_len 256; launches checked exactly,
+               16 x steps kv_quant_store, 32 x steps kv_dequant), a profile
+               of 8 replayed steps, and the graph against eager
+               ``decode_step`` on 16 steps (logits ``torch.equal``);
+19. hybrid_serve — hymba-1.5b: the prefill (32 windowed flash launches);
+               the windowed forward at one layer's shape (4, 2048, 5, 5,
+               64), window 1024, against its plain version (o, lse and
+               o's tiles as in attention) and timed beside SDPA with the
+               band as an explicit mask (backend named); the generate
+               (seq_len 1280, 8 prompts of 1000-1100 tokens, 64 new, int8,
+               the ring wraps; launches exact); the graph against eager on
+               steps 1016-1039, across the wrap at 1024 (the eager state a
+               copy of the graph's at step 1016); kv_quant_store
+               ``torch.equal`` to its plain version at (8, 1, 5, 64) into
+               (8, 1024, 5, 64), and kv_dequant on that cache's 40,960 rows
+               of 64, int8 and int4, full of seeded noise;
+20. ssm_serve — mamba2-130m: prefill and generate as moe_serve (no kernel
+               launched), the graph against eager with logits and the
+               final state (h, conv) equal;
+21. families_train — hymba-1.5b and mamba2-130m, 8 x 4096 tokens: step ms
+               (median of 3), tokens/s, MFU from the counted parameters,
+               peak memory, launches per step checked exactly, a profiled
+               step; for hymba the windowed dK/dV and dQ at (8, 4096, 5,
+               5, 64), window 1024, each sequence held against the plain
+               forward and ``flash_bwd_plain`` run on it alone (attention_bwd's
+               rules), and timed beside SDPA's banded backward;
+22. the ``{"kernels": [...]}`` line, then the card line, then the result line.
+               The kv and flash rows add ``launches_by_path`` (their
+               launches on every LM path run), the flash rows
+               ``at_hymba_window`` (the windowed times and bounds).
 
 The three tensor-core rows (flash forward, dK/dV, dQ), the jacobi row, the
 two codec rows and the fused KV store's row also carry ``design``; the
@@ -162,6 +225,7 @@ their type: 989 TFLOP/s for bf16 attention (tensor cores, dense), else
 divides the same bytes by this run's measured copy rate.  Exits non-zero,
 printing no result, when there is no GPU or any check fails.
 """
+import contextlib
 import copy
 import dataclasses
 import json
@@ -183,7 +247,7 @@ from repro_torch.core import (blockcodec, executor, layout, mars,  # noqa: E402
 from repro_torch.kernels import (_build, bitplane, flash_attention,  # noqa: E402
                                  jacobi_mars, kvpack, ops, ref)
 from repro_torch.data.pipeline import SyntheticPipeline, device_batch  # noqa: E402
-from repro_torch.models import model_zoo  # noqa: E402
+from repro_torch.models import model_zoo, moe, transformer  # noqa: E402
 from repro_torch.obs import report  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.train import step as train_step  # noqa: E402
@@ -240,6 +304,17 @@ STORE_SHAPES = ((SERVE_B, SERVE_SEQ, 8, 128), (3, 16, 2, 8), (1, 4, 1, 128))
 PROFILE_STEPS = 8
 PARITY_B, PARITY_S, PARITY_STEPS, PARITY_NEW = 4, 64, 24, 8
 F32_TOL, BF16_REL = 1e-4, 3e-2          # bf16: relative to the largest logit
+#: a MoE routing flip between the card and the CPU in bf16 is a near-tie
+#: broken apart by bf16 rounding: the CPU's router probabilities of the
+#: swapped choices within this gap (bf16's ~4e-3 relative rounding of
+#: unit-scale router logits moves a probability of ~0.25 by ~5e-3); the CPU
+#: then takes the card's experts, and every step stays within BF16_REL
+FLIP_MARGIN = 2e-2
+#: an int8 / int4 code that the card and the CPU round apart in f32: both
+#: values (value / scale, in codes) within this distance of the half code
+#: between the two (the devices' f32 K and V differ by ~1e-6 relative, so
+#: by ~1e-4 of a code at the top of int8's range)
+ROUND_TIE_EPS = 1e-3
 FLASH_BF16_TOL, FLASH_LSE_TOL, FLASH_F32_TOL = 3e-2, 1e-3, 2e-5
 #: bf16 o: the largest relative Frobenius error over the 64-row query tiles
 #: of each head (see ``tile_rel_err``); ~3x the 2.73e-3 read on an H100
@@ -268,6 +343,18 @@ FLASH_KERNELS = ("flash_attention.flash_fwd", "flash_attention.flash_bwd_dkv",
 TENSOR_CORE_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel",
                        "flash_bwd_dq_sm90_kernel")
 SM90_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
+
+#: the moe, ssm and hybrid families: their smoke configs against the CPU,
+#: and the ring generate (seq_len 128 past a 64-slot ring: 100 steps)
+FAMILY_SMOKES = ("mixtral-8x7b", "grok-1-314b", "mamba2-130m", "hymba-1.5b")
+RING_ARCHES, RING_SEQ, RING_STEPS = ("mixtral-8x7b", "hymba-1.5b"), 128, 100
+RING_PROMPTS, RING_NEW = (61, 40, 52, 17), 40
+MOE_ARCH, MOE_LAYERS = "mixtral-8x7b", 16  # depth cut from 32: memory
+HYBRID_ARCH, SSM_ARCH = "hymba-1.5b", "mamba2-130m"
+#: hymba's generate: prompts of 1000-1100 tokens, 64 new, through its
+#: 1024-slot ring; the graph held to eager on steps 1016-1039 (the wrap)
+HYBRID_SEQ, HYBRID_LENS, HYBRID_NEW = 1280, (1000, 1101), 64
+HYBRID_LOCKSTEP, HYBRID_SKIP = 1040, 1016
 
 
 class CheckFailed(RuntimeError):
@@ -933,50 +1020,60 @@ def phase_lm_init(dev) -> dict:
     return {"cfg": cfg, "rc": rc, "params": params}
 
 
-def phase_prefill(dev, lm: dict) -> dict:
-    cfg, params = lm["cfg"], lm["params"]
-    rc = configs.RunConfig(seq_len=PREFILL_S, global_batch=PREFILL_B,
-                           kind="prefill")
+def prefill_run(dev, cfg, params, seed: int, watch: dict) -> tuple:
+    """A PREFILL_B x PREFILL_S prefill of seeded tokens: one warm-up (the
+    first use of the GEMM shapes), one timed, one profiled; flash launched
+    once a layer where the family has attention, else no kernel.
+    -> (row, api, tokens)."""
+    rc = configs.RunConfig(seq_len=PREFILL_S, global_batch=PREFILL_B, kind="prefill")
     api = model_zoo.get_api(cfg, rc, dev)
-    rng = np.random.default_rng(SEED + 3)
+    rng = np.random.default_rng(seed)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab, (PREFILL_B, PREFILL_S))).to(dev)
     t0 = time.perf_counter()
-    api.prefill(params, {"tokens": toks})        # first use of the GEMM shapes
+    api.prefill(params, {"tokens": toks})
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.reset_peak_memory_stats(dev)
-
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     lg = api.prefill(params, {"tokens": toks})
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = ops.launch_counts()
-
-    check(launches["flash_attention.flash_fwd"] == cfg.n_layers,
-          f"prefill launched flash {launches['flash_attention.flash_fwd']} times")
-    check(all(v == 0 for k, v in launches.items()
-              if k != "flash_attention.flash_fwd"), f"prefill launches {launches}")
+    want = {k: 0 for k in launches}
+    if transformer._has_attn(cfg):
+        want["flash_attention.flash_fwd"] = cfg.n_layers
+    check(launches == want, f"{cfg.name} prefill launched {launches}, want {want}")
     check(tuple(lg.shape) == (PREFILL_B, cfg.vocab), f"logits {tuple(lg.shape)}")
-    check(bool(torch.isfinite(lg).all()), "non-finite prefill logits")
-    prof = device_profile(lambda: api.prefill(params, {"tokens": toks}),
-                          {"flash": "flash_fwd_sm90_kernel"})
-    emit({"phase": "prefill", "batch": PREFILL_B, "seq": PREFILL_S,
-          "q_block": rc.q_block, "kv_block": rc.kv_block,
-          "first_call_ms": warm_ms, "wall_ms": wall_ms,
-          "tokens_per_s": PREFILL_B * PREFILL_S / (wall_ms * 1e-3),
-          "launches": launches,
-          "peak_GiB": torch.cuda.max_memory_allocated(dev) / 2**30,
-          "logits": list(lg.shape), **prof})
-    return {"launches": launches, "wall_ms": wall_ms}
+    check(bool(torch.isfinite(lg).all()), f"{cfg.name}: non-finite prefill logits")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    prof = device_profile(lambda: api.prefill(params, {"tokens": toks}), watch, top=8)
+    row = {"batch": PREFILL_B, "seq": PREFILL_S, "q_block": rc.q_block,
+           "kv_block": rc.kv_block,
+           "window": cfg.sliding_window if cfg.sliding_window < PREFILL_S else 0,
+           "first_call_ms": warm_ms, "wall_ms": wall_ms,
+           "tokens_per_s": PREFILL_B * PREFILL_S / (wall_ms * 1e-3),
+           "launches": launches, "peak_GiB": peak, "logits": list(lg.shape), **prof}
+    return row, api, toks
 
 
-def lockstep(engine: ServeEngine, prompts: list, max_new: int, dev) -> dict:
+def phase_prefill(dev, lm: dict) -> dict:
+    row, _, _ = prefill_run(dev, lm["cfg"], lm["params"], SEED + 3,
+                            {"flash": "flash_fwd_sm90_kernel"})
+    emit({"phase": "prefill", **row})
+    return {"launches": row["launches"], "wall_ms": row["wall_ms"]}
+
+
+def lockstep(engine: ServeEngine, prompts: list, max_new: int, dev,
+             skip: int = 0) -> dict:
     """``generate``'s schedule run twice side by side from the same fresh
     state: the engine's CUDA graph replayed, and ``decode_step`` eagerly.
     The logits must be ``torch.equal`` at every step, the greedy tokens
-    identical, and the caches and positions equal at the end.  Host ms a
-    step (each ending in the argmax's copy to the host) for both."""
+    identical, and the states (kv caches, SSM state, positions) equal at the
+    end.  Host ms a step (each ending in the argmax's copy to the host) for
+    both.  With ``skip``, the graph runs the first ``skip`` steps alone and
+    the eager state starts as a copy of the graph's there: the comparison
+    covers the steps from ``skip`` on (a ring's wrap, far into a sequence)."""
     B, lens = len(prompts), [len(p) for p in prompts]
     total = max(lens) + max_new
     step = engine.graphed_step(B)
@@ -987,18 +1084,25 @@ def lockstep(engine: ServeEngine, prompts: list, max_new: int, dev) -> dict:
     ms = {k: [] for k in toks}
     equal = 0
     for t in range(total - 1):
+        if t == skip and skip:
+            for a, b in zip(transformer.cache_leaves(state),
+                            transformer.cache_leaves(step.state)):
+                a.copy_(b)
+            state.pos.copy_(step.state.pos)
+            cur["eager"] = cur["graph"].copy()
+            toks["eager"] = copy.deepcopy(toks["graph"])
         t0 = time.perf_counter()
         lg_g, nxt_g = step(torch.from_numpy(cur["graph"]))
         model = {"graph": nxt_g.cpu().numpy()}
         t1 = time.perf_counter()
-        lg_e, state = engine.api.decode_step(
-            engine.params, state, torch.from_numpy(cur["eager"]).to(dev))
-        model["eager"] = torch.argmax(lg_e, dim=-1).cpu().numpy()
-        t2 = time.perf_counter()
+        if t >= skip:
+            lg_e, state = engine.api.decode_step(
+                engine.params, state, torch.from_numpy(cur["eager"]).to(dev))
+            model["eager"] = torch.argmax(lg_e, dim=-1).cpu().numpy()
+            ms["eager"].append((time.perf_counter() - t1) * 1e3)
+            equal += bool(torch.equal(lg_g, lg_e))
         ms["graph"].append((t1 - t0) * 1e3)
-        ms["eager"].append((t2 - t1) * 1e3)
-        equal += bool(torch.equal(lg_g, lg_e))
-        for k in toks:
+        for k in model:
             for i in range(B):
                 if t + 1 < lens[i]:
                     cur[k][i] = prompts[i][t + 1]
@@ -1007,14 +1111,16 @@ def lockstep(engine: ServeEngine, prompts: list, max_new: int, dev) -> dict:
                     if len(toks[k][i]) < max_new:
                         toks[k][i].append(int(model[k][i]))
     state_equal = torch.equal(step.state.pos, state.pos) and all(
-        torch.equal(a, b) for ca, cb in zip(step.state.caches, state.caches)
-        for a, b in zip(ca, cb) if a is not None)
-    check(equal == total - 1, f"graph logits equal eager on {equal} of "
-          f"{total - 1} steps")
+        torch.equal(a, b) for a, b in zip(transformer.cache_leaves(step.state),
+                                          transformer.cache_leaves(state)))
+    compared = total - 1 - skip
+    check(equal == compared, f"graph logits equal eager on {equal} of "
+          f"{compared} steps")
     check(toks["graph"] == toks["eager"], "graph and eager greedy tokens differ")
-    check(state_equal, "graph and eager caches differ after the steps")
-    return {"steps": total - 1, "logits_equal_steps": equal,
-            "tokens_identical": True, "state_equal": True,
+    check(state_equal, "graph and eager states differ after the steps")
+    return {"steps": total - 1, "compared_from_step": skip,
+            "logits_equal_steps": equal, "tokens_identical": True,
+            "state_equal": True,
             "graph_step_ms": float(np.median(ms["graph"])),
             "eager_step_ms": float(np.median(ms["eager"])),
             "tokens": toks["graph"]}
@@ -1039,27 +1145,79 @@ def check_serve_launches(launches: dict, n_layers: int, steps: int) -> None:
     check(launches == want, f"generate launched {launches}, want {want}")
 
 
-def phase_serve(dev, lm: dict) -> dict:
-    cfg, rc, params = lm["cfg"], lm["rc"], lm["params"]
-    rng = np.random.default_rng(SEED + 4)
-    lens = rng.integers(16, 129, SERVE_B)
-    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist() for n in lens]
+def generate_run(dev, cfg, rc, params, prompts: list, max_new: int) -> tuple:
+    """``ServeEngine.generate`` through the replayed graph: capture, one
+    warm-up (the first use of the loop), one timed run with its launches
+    checked exactly (the fused store once an attention layer and step,
+    dequant twice, nothing else), a profile of PROFILE_STEPS replayed steps
+    with the same counts, and a step's token copy and replay by CUDA events.
+    -> (row, engine)."""
+    B = len(prompts)
     engine = ServeEngine(cfg, rc, params=params, device=str(dev))
-    capture_ms = captured(engine, SERVE_B)
-    engine.generate([p[:4] for p in prompts], max_new=2)   # first use of the loop
+    capture_ms = captured(engine, B)
+    engine.generate([p[:4] for p in prompts], max_new=2)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
-
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    out = engine.generate(prompts, max_new=SERVE_NEW)
+    out = engine.generate(prompts, max_new=max_new)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = ops.launch_counts()
-    steps = int(lens.max()) + SERVE_NEW - 1
-    check_serve_launches(launches, cfg.n_layers, steps)
-    check([len(t) for t in out] == [SERVE_NEW] * SERVE_B, "generated lengths")
+    lens = [len(p) for p in prompts]
+    steps = max(lens) + max_new - 1
+    n_attn = cfg.n_layers if transformer._has_attn(cfg) else 0
+    check_serve_launches(launches, n_attn, steps)
+    check([len(t) for t in out] == [max_new] * B, "generated lengths")
     check(all(0 <= t < cfg.vocab for seq in out for t in seq), "token out of range")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    step = engine.graphed_step(B)
+    step.reset()
+    cur = torch.tensor([p[0] for p in prompts])
+    step(cur)
+
+    def steps_fn():
+        for _ in range(PROFILE_STEPS):
+            step(cur)[1].cpu()                           # as generate syncs
+    prof = device_profile(steps_fn, {"kv_quant_store": "quant_store_kernel",
+                                     "kv_quant": "::quant_kernel",
+                                     "kv_dequant": "dequant_kernel"}, top=8)
+    seen = {k: v["launches"] for k, v in (prof.get("watched") or {}).items()}
+    want = {"kv_quant_store": n_attn * PROFILE_STEPS, "kv_quant": 0,
+            "kv_dequant": 2 * n_attn * PROFILE_STEPS}
+    check(seen == want, f"profile of {PROFILE_STEPS} replayed steps: kernels "
+          f"{seen}, want {want}")
+    # without the profiler (whose per-kernel records stretch a replay): the
+    # device time of a step's token copy and replay by CUDA events, and the
+    # idle share from the profile's busy time over the timed generate's step
+    replay_ms = time_ms(lambda: step(cur), reps=20)
+    busy_step_ms = prof["device_busy_ms"] / PROFILE_STEPS
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    row = {"batch": B, "seq_len": rc.seq_len, "kv_cache_bits": rc.kv_cache_bits,
+           "prompt_lens": lens, "max_new": max_new, "decode_steps": steps,
+           "wall_ms": wall_ms, "step_ms": wall_ms / steps,
+           "prompt_tokens_per_s": sum(lens) / (wall_ms * 1e-3),
+           "generated_tokens_per_s": B * max_new / (wall_ms * 1e-3),
+           "capture_ms": capture_ms, "graph_launches_per_step": step.launches,
+           "kv_cache_bytes": engine.kv_cache_bytes(B), "peak_GiB": peak,
+           "launches": launches, "replay_device_ms": replay_ms,
+           "device_busy_ms_per_step": busy_step_ms,
+           "device_idle_share_untraced": 1 - busy_step_ms / (wall_ms / steps),
+           "weight_read_bound_ms": weight_bytes / HBM_BYTES_PER_S * 1e3,
+           "profile_steps": PROFILE_STEPS, **prof}
+    return row, engine
+
+
+def serve_prompts(rng, cfg, lens) -> list:
+    return [rng.integers(0, cfg.vocab, int(n)).tolist() for n in lens]
+
+
+def phase_serve(dev, lm: dict) -> dict:
+    cfg, rc, params = lm["cfg"], lm["rc"], lm["params"]
+    rng = np.random.default_rng(SEED + 4)
+    prompts = serve_prompts(rng, cfg, rng.integers(16, 129, SERVE_B))
+    row, engine = generate_run(dev, cfg, rc, params, prompts, SERVE_NEW)
 
     # the int4 cache on the path too: a short generate
     rc4 = dataclasses.replace(rc, kv_cache_bits=4)
@@ -1082,51 +1240,174 @@ def phase_serve(dev, lm: dict) -> dict:
     check(ls8["steps"] == 16, f"int8 lockstep ran {ls8['steps']} steps")
     ls4 = lockstep(engine4, short, 4, dev)
     check(ls4["tokens"] == out4, "int4 generate's tokens differ from eager's")
-
-    # 8 replayed steps of the int8 engine under the profiler
-    step = engine.graphed_step(SERVE_B)
-    step.reset()
-    cur = torch.tensor([p[0] for p in prompts])
-    step(cur)
-
-    def steps_fn():
-        for _ in range(PROFILE_STEPS):
-            step(cur)[1].cpu()                           # as generate syncs
-    prof = device_profile(steps_fn, {"kv_quant_store": "quant_store_kernel",
-                                     "kv_quant": "::quant_kernel",
-                                     "kv_dequant": "dequant_kernel"})
-    seen = {k: v["launches"] for k, v in (prof.get("watched") or {}).items()}
-    want = {"kv_quant_store": cfg.n_layers * PROFILE_STEPS, "kv_quant": 0,
-            "kv_dequant": 2 * cfg.n_layers * PROFILE_STEPS}
-    check(seen == want, f"profile of {PROFILE_STEPS} replayed steps: kernels "
-          f"{seen}, want {want}")
-    # without the profiler (whose per-kernel records stretch a replay): the
-    # device time of a step's token copy and replay by CUDA events, and the
-    # idle share from the profile's busy time over the timed generate's step
-    replay_ms = time_ms(lambda: step(cur), reps=20)
-    busy_step_ms = prof["device_busy_ms"] / PROFILE_STEPS
-    n_prompt, n_gen = int(lens.sum()), SERVE_B * SERVE_NEW
-    emit({"phase": "serve", "batch": SERVE_B, "seq_len": SERVE_SEQ,
-          "kv_cache_bits": 8, "prompt_lens": lens.tolist(), "max_new": SERVE_NEW,
-          "decode_steps": steps, "wall_ms": wall_ms,
-          "step_ms": wall_ms / steps,
-          "prompt_tokens_per_s": n_prompt / (wall_ms * 1e-3),
-          "generated_tokens_per_s": n_gen / (wall_ms * 1e-3),
-          "capture_ms": capture_ms, "graph_launches_per_step": step.launches,
-          "kv_cache_bytes": engine.kv_cache_bytes(SERVE_B),
+    emit({"phase": "serve", **row,
           "kv_cache_bytes_int4": engine4.kv_cache_bytes(SERVE_B),
-          "peak_GiB": torch.cuda.max_memory_allocated(dev) / 2**30,
-          "launches": launches,
           "int4": {"decode_steps": steps4, "wall_ms": wall4_ms,
                    "capture_ms": capture4_ms, "launches": launches4},
           "graph_vs_eager": {
               "int8": {k: v for k, v in ls8.items() if k != "tokens"},
-              "int4": {k: v for k, v in ls4.items() if k != "tokens"}},
-          "replay_device_ms": replay_ms,
-          "device_busy_ms_per_step": busy_step_ms,
-          "device_idle_share_untraced": 1 - busy_step_ms / (wall_ms / steps),
-          "profile_steps": PROFILE_STEPS, **prof})
-    return {"launches": launches, "wall_ms": wall_ms, "steps": steps}
+              "int4": {k: v for k, v in ls4.items() if k != "tokens"}}})
+    return {"launches": row["launches"], "wall_ms": row["wall_ms"],
+            "steps": row["decode_steps"]}
+
+
+class moe_routes:
+    """Within the block, ``moe.route`` records each call's route in
+    ``.calls`` as (device type, route).  With ``follow``, the CPU routes as
+    the card did: where its j-th call's top k differs from the card's j-th
+    call (the card's call comes first), it takes the card's experts, with
+    combine weights and rows from its own probabilities (``moe.assign``),
+    and records the flip in ``.flips``: the call, its rows, and the largest
+    gap, in the CPU's probabilities, between an expert it chose and the
+    card's choice in that place.  A sync a call: eager runs only."""
+
+    def __init__(self, follow: bool = False):
+        self.follow, self.calls, self.flips = follow, [], []
+
+    def __enter__(self) -> "moe_routes":
+        self.orig = moe.route
+
+        def recording(xf, router, cfg):
+            r = self.orig(xf, router, cfg)
+            if self.follow and xf.device.type == "cpu":
+                r = self._follow(r, cfg)
+            self.calls.append((xf.device.type, r))
+            return r
+        moe.route = recording
+        return self
+
+    def __exit__(self, *exc) -> None:
+        moe.route = self.orig
+
+    def _follow(self, r, cfg):
+        j = sum(d == "cpu" for d, _ in self.calls)
+        card = [g for d, g in self.calls if d == "cuda"]
+        check(j < len(card), "the CPU routed before the card")
+        want = card[j].top_e.cpu()
+        rows = (r.top_e != want).any(dim=-1).nonzero()[:, 0]
+        if not len(rows):
+            return r
+        gap = (torch.gather(r.probs, 1, r.top_e) - torch.gather(r.probs, 1, want))[rows]
+        self.flips.append({"call": j, "rows": rows.tolist()[:8], "n_rows": len(rows),
+                           "margin": float(gap.abs().max())})
+        return moe.assign(r.probs, want, cfg)
+
+
+class kv_ties:
+    """Within the block, ``ops.kv_quant_store`` on the CPU stores the codes
+    that the card's call of the same index stored (the card's call comes
+    first), where the two differ by one code at a rounding boundary: both
+    devices' value / scale within ROUND_TIE_EPS of the half code between
+    the two codes.  Any other difference fails.  ``.ties`` lists each call
+    with ties: its index, the codes taken and their largest distance from
+    the boundary.  A sync a call: eager runs only."""
+
+    def __enter__(self) -> "kv_ties":
+        self.orig, self.card, self.n_cpu, self.ties = ops.kv_quant_store, [], 0, []
+
+        def storing(cache_k, cache_v, k_scale, v_scale, k_new, v_new, slot,
+                    bits=8, backend="auto"):
+            self.orig(cache_k, cache_v, k_scale, v_scale, k_new, v_new, slot,
+                      bits, backend)
+            b = torch.arange(slot.shape[0], device=slot.device)
+            s = torch.clamp(slot, 0, cache_k.shape[1] - 1)
+            rows = [(codes, codes[b, s].cpu(), scales[b, s].cpu(), new[:, 0].float().cpu())
+                    for codes, scales, new in ((cache_k, k_scale, k_new),
+                                               (cache_v, v_scale, v_new))]
+            if cache_k.device.type == "cuda":
+                self.card.append([r[1:] for r in rows])
+                return
+            j = self.n_cpu
+            self.n_cpu += 1
+            check(j < len(self.card), "the CPU stored before the card")
+            for (cache, codes, scales, new), (c_codes, c_scales, c_new) in zip(
+                    rows, self.card[j]):
+                got, want = unpacked(codes, bits), unpacked(c_codes, bits)
+                diff = got != want
+                if not diff.any():
+                    continue
+                half = torch.minimum(got, want) + 0.5
+                dist = torch.maximum((new / scales - half).abs(),
+                                     (c_new / c_scales - half).abs())[diff]
+                one = bool(((got - want).abs()[diff] == 1).all())
+                check(one and float(dist.max()) <= ROUND_TIE_EPS,
+                      f"kv store call {j}: {int(diff.sum())} codes differ from "
+                      f"the card's, one step each {one}, farthest "
+                      f"{float(dist.max())} from a rounding boundary")
+                cache[b, s] = c_codes
+                self.ties.append({"call": j, "codes": int(diff.sum()),
+                                  "boundary_dist": float(dist.max())})
+        ops.kv_quant_store = storing
+        return self
+
+    def __exit__(self, *exc) -> None:
+        ops.kv_quant_store = self.orig
+
+
+def unpacked(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Packed int8 / int4 codes (..., cd) as f32 code values (..., D)."""
+    rows = codes.reshape(-1, codes.shape[-1])
+    out = ref.kv_dequant_ref(rows, torch.ones(rows.shape[0], 1), bits)
+    return out.reshape(*codes.shape[:-1], -1)
+
+
+def serve_parity(dev, cfg, dtype: str, bits: int, toks: np.ndarray,
+                 prompts: list, seq_len: int = PARITY_S,
+                 steps: int = PARITY_STEPS, max_new: int = PARITY_NEW) -> dict:
+    """One smoke config, the same weights on the card (kernels) and on the
+    CPU (plain paths): a prefill of ``toks``, ``steps`` decode steps on its
+    first tokens and a generate.  Each prefill and step runs on the card
+    first; the CPU then follows the card's MoE routing where they differ
+    by a near-tie (``moe_routes``: each flip's gap within FLIP_MARGIN) and,
+    in f32, the card's cache codes where they differ by a rounding tie
+    (``kv_ties``).  f32: logits within F32_TOL, no routing flip and
+    identical greedy tokens; bf16: within BF16_REL of the largest logit."""
+    B = toks.shape[0]
+    rc = configs.RunConfig(seq_len=seq_len, global_batch=B, kind="decode",
+                           param_dtype=dtype, kv_cache_bits=bits, q_block=16,
+                           kv_block=32)
+    order = ("cuda", "cpu")
+    apis = {d: model_zoo.get_api(cfg, rc, d) for d in order}
+    params = {"cpu": apis["cpu"].init(SEED)}
+    params["cuda"] = copy.deepcopy(params["cpu"]).to(dev)
+    t = {d: torch.from_numpy(toks).to(d) for d in order}
+    ties = kv_ties() if dtype == "float32" else contextlib.nullcontext()
+    with moe_routes(follow=True) as routes, ties:
+        pre = {d: apis[d].prefill(params[d], {"tokens": t[d]}).float().cpu()
+               for d in order}
+        errs = [float((pre["cuda"] - pre["cpu"]).abs().max())]
+        scales = [float(pre["cpu"].abs().max())]
+        states = {d: apis[d].init_decode_state(B) for d in order}
+        for i in range(steps):
+            lg = {}
+            for d in order:
+                out, states[d] = apis[d].decode_step(params[d], states[d],
+                                                     t[d][:, i])
+                lg[d] = out.float().cpu()
+            errs.append(float((lg["cuda"] - lg["cpu"]).abs().max()))
+            scales.append(float(lg["cpu"].abs().max()))
+    n_calls = {d: sum(dd == d for dd, _ in routes.calls) for d in order}
+    check(n_calls["cuda"] == n_calls["cpu"], f"moe calls differ in number {n_calls}")
+    per_step = max(cfg.n_layers, 1)          # prefill is step 0
+    flips = [{"step": f["call"] // per_step, "layer": f["call"] % per_step, **f}
+             for f in routes.flips]
+    gen = {d: ServeEngine(cfg, rc, params=params[d], device=d).generate(
+        prompts, max_new=max_new) for d in order}
+    if dtype == "float32":
+        ok = max(errs) <= F32_TOL and not flips and gen["cuda"] == gen["cpu"]
+    else:
+        ok = (all(e <= BF16_REL * sc for e, sc in zip(errs, scales))
+              and all(f["margin"] <= FLIP_MARGIN for f in flips))
+    row = {"config": cfg.name, "dtype": dtype, "kv_cache_bits": bits,
+           "prefill_err": errs[0], "decode_max_err": max(errs[1:]),
+           "max_rel_err": max(e / s for e, s in zip(errs, scales)),
+           "steps_past_rule": [i for i, (e, sc) in enumerate(zip(errs, scales))
+                               if e > (F32_TOL if dtype == "float32" else BF16_REL * sc)],
+           "routing_flips_followed": flips,
+           "kv_code_ties_followed": ties.ties if dtype == "float32" else None,
+           "tokens_equal": gen["cuda"] == gen["cpu"], "ok": ok}
+    check(ok, f"serve parity {row}")
+    return row
 
 
 def phase_lm_parity(dev) -> dict:
@@ -1138,38 +1419,8 @@ def phase_lm_parity(dev) -> dict:
     results = []
     for dtype in ("float32", "bfloat16"):
         for bits in (16, 8, 4):
-            rc = configs.RunConfig(seq_len=PARITY_S, global_batch=PARITY_B,
-                                   kind="decode", param_dtype=dtype,
-                                   kv_cache_bits=bits, q_block=16, kv_block=32)
-            apis = {d: model_zoo.get_api(cfg, rc, d) for d in ("cpu", "cuda")}
-            params = {"cpu": apis["cpu"].init(SEED)}
-            params["cuda"] = copy.deepcopy(params["cpu"]).to(dev)
-            t = {d: torch.from_numpy(toks).to(d) for d in ("cpu", "cuda")}
-            pre = {d: apis[d].prefill(params[d], {"tokens": t[d]}).float().cpu()
-                   for d in apis}
-            errs = [float((pre["cuda"] - pre["cpu"]).abs().max())]
-            scales = [float(pre["cpu"].abs().max())]
-            states = {d: apis[d].init_decode_state(PARITY_B) for d in apis}
-            for i in range(PARITY_STEPS):
-                lg = {}
-                for d in apis:
-                    out, states[d] = apis[d].decode_step(params[d], states[d],
-                                                         t[d][:, i])
-                    lg[d] = out.float().cpu()
-                errs.append(float((lg["cuda"] - lg["cpu"]).abs().max()))
-                scales.append(float(lg["cpu"].abs().max()))
-            gen = {d: ServeEngine(cfg, rc, params=params[d], device=d).generate(
-                prompts, max_new=PARITY_NEW) for d in apis}
-            if dtype == "float32":
-                ok = max(errs) <= F32_TOL and gen["cuda"] == gen["cpu"]
-            else:
-                ok = all(e <= BF16_REL * s for e, s in zip(errs, scales))
-            row = {"dtype": dtype, "kv_cache_bits": bits,
-                   "prefill_err": errs[0], "decode_max_err": max(errs[1:]),
-                   "max_rel_err": max(e / s for e, s in zip(errs, scales)),
-                   "tokens_equal": gen["cuda"] == gen["cpu"], "ok": ok}
-            results.append(row)
-            check(ok, f"lm_parity {row}")
+            row = serve_parity(dev, cfg, dtype, bits, toks, prompts)
+            results.append({k: v for k, v in row.items() if k != "config"})
     emit({"phase": "lm_parity", "config": cfg.name, "batch": PARITY_B,
           "seq": PARITY_S, "decode_steps": PARITY_STEPS, "max_new": PARITY_NEW,
           "f32_tol": F32_TOL, "bf16_rel_tol": BF16_REL, "results": results})
@@ -1381,9 +1632,14 @@ def phase_attention(dev, prefill: dict, copy_rate: float) -> dict:
     return row
 
 
-def phase_train(dev) -> dict:
-    """tinyllama-1.1b at full width: warm-up, TRAIN_STEPS timed steps, a profile."""
-    cfg = configs.load_arch(TRAIN_ARCH)
+def train_run(dev, arch: str) -> dict:
+    """One model at full size on train_4k's sequences, batch TRAIN_B, bf16
+    weights, f32 AdamW moments, remat: TRAIN_STEPS timed steps of
+    ``train.step.make_train_step`` (the step ``train.loop.train`` runs)
+    after a warm-up, launches checked exactly (flash forward twice a layer,
+    forward and remat recompute, and both backward kernels once, where the
+    family has attention), a profiled step."""
+    cfg = configs.load_arch(arch)
     rc = configs.run_config_for("train_4k", cfg, global_batch=TRAIN_B)
     check(rc.remat and rc.opt_dtype == "float32" and rc.param_dtype == "bfloat16",
           f"train config {rc}")
@@ -1392,18 +1648,15 @@ def phase_train(dev) -> dict:
     state = train_step.init_state(api, rc, SEED)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n = sum(p.numel() for p in state.params.parameters())
-    check(n == cfg.param_count(), f"{n} parameters, config says {cfg.param_count()}")
+    n_params = sum(p.numel() for p in state.params.parameters())
     step_fn = train_step.make_train_step(api, cfg, rc)
     pipe = SyntheticPipeline(cfg, rc, seed=SEED)
     batches = [device_batch(pipe.next(), cfg, rc, dev) for _ in range(TRAIN_STEPS + 2)]
-
     t0 = time.perf_counter()
     state, m = step_fn(state, batches[0])
     warm_loss = float(m["loss"])
     warm_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.reset_peak_memory_stats(dev)
-
     ops.reset_launch_counts()
     times, losses, gnorms = [], [], []
     for b in batches[1:TRAIN_STEPS + 1]:
@@ -1415,16 +1668,15 @@ def phase_train(dev) -> dict:
         gnorms.append(float(m["grad_norm"]))
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-
     L = cfg.n_layers
-    want = {"flash_attention.flash_fwd": 2 * L * TRAIN_STEPS,     # forward + recompute
-            "flash_attention.flash_bwd_dkv": L * TRAIN_STEPS,
-            "flash_attention.flash_bwd_dq": L * TRAIN_STEPS}
-    for name, count in launches.items():
-        check(count == want.get(name, 0),
-              f"train launched {name} {count} times, want {want.get(name, 0)}")
+    want = {k: 0 for k in launches}
+    if transformer._has_attn(cfg):
+        want.update({"flash_attention.flash_fwd": 2 * L * TRAIN_STEPS,
+                     "flash_attention.flash_bwd_dkv": L * TRAIN_STEPS,
+                     "flash_attention.flash_bwd_dq": L * TRAIN_STEPS})
+    check(launches == want, f"{arch} train launched {launches}, want {want}")
     check(all(np.isfinite(losses + gnorms)) and np.isfinite(warm_loss),
-          f"non-finite loss or grad norm: {losses}, {gnorms}")
+          f"{arch}: non-finite loss or grad norm: {losses}, {gnorms}")
     check(int(state.step) == TRAIN_STEPS + 1, f"step counter {int(state.step)}")
 
     def one_step():
@@ -1436,27 +1688,40 @@ def phase_train(dev) -> dict:
                                      "flash_bwd_dq": "flash_bwd_dq_sm90_kernel"}, top=8)
     step_ms = float(np.median(times))
     tokens = TRAIN_B * rc.seq_len
-    n_params = cfg.param_count()
-    # causal attention: half of PaLM's 12 L H D S flops per token (forward
-    # 2 products, backward 4); the remat recompute is not counted
-    attn_flops = 6 * L * cfg.n_heads * cfg.hd * rc.seq_len * tokens
+    attn_flops = 0
+    if transformer._has_attn(cfg):
+        mean_keys = band_pairs(rc.seq_len, cfg.sliding_window) / rc.seq_len
+        attn_flops = int(12 * L * cfg.n_heads * cfg.hd * mean_keys * tokens)
     model_flops = 6 * n_params * tokens + attn_flops
-    emit({"phase": "train", "arch": TRAIN_ARCH, "n_layers": L,
-          "d_model": cfg.d_model, "params": n_params, "batch": TRAIN_B,
-          "seq": rc.seq_len, "tokens_per_step": tokens,
-          "reduced": {"global_batch": [256, TRAIN_B]},
-          "remat": rc.remat, "param_dtype": rc.param_dtype,
-          "opt_dtype": rc.opt_dtype, "init_s": init_s,
-          "warmup_step_ms": warm_ms, "step_ms": times, "step_ms_median": step_ms,
-          "tokens_per_s": tokens / (step_ms * 1e-3),
-          "mfu": model_flops / (step_ms * 1e-3) / BF16_FLOPS_PER_S,
-          "mfu_formula": "(6*N*tokens + 6*L*H*D*S*tokens) / step_s / 989e12",
-          "model_flops_per_step": model_flops, "attention_flops_per_step": attn_flops,
-          "loss": [warm_loss] + losses, "grad_norm": gnorms, "peak_GiB": peak,
-          "launches": launches,
-          "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
-          **prof})
-    return {"launches": launches, "step_ms": step_ms}
+    del state, batches
+    torch.cuda.empty_cache()
+    return {"arch": arch, "n_layers": L, "d_model": cfg.d_model,
+            "params": n_params, "param_count_formula": cfg.param_count(),
+            "batch": TRAIN_B, "seq": rc.seq_len,
+            "window": cfg.sliding_window, "tokens_per_step": tokens,
+            "reduced": {"global_batch": [256, TRAIN_B]},
+            "remat": rc.remat, "param_dtype": rc.param_dtype,
+            "opt_dtype": rc.opt_dtype, "init_s": init_s,
+            "warmup_step_ms": warm_ms, "step_ms": times, "step_ms_median": step_ms,
+            "tokens_per_s": tokens / (step_ms * 1e-3),
+            "mfu": model_flops / (step_ms * 1e-3) / BF16_FLOPS_PER_S,
+            "mfu_formula": "(6*N*tokens + 12*L*H*D*k*tokens) / step_s / 989e12, "
+                           "N the counted parameters, k the mean keys a query "
+                           "scores (window-limited); the SSD scan not counted",
+            "model_flops_per_step": model_flops, "attention_flops_per_step": attn_flops,
+            "loss": [warm_loss] + losses, "grad_norm": gnorms, "peak_GiB": peak,
+            "launches": launches,
+            "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
+            **prof}
+
+
+def phase_train(dev) -> dict:
+    """tinyllama-1.1b at full width: warm-up, TRAIN_STEPS timed steps, a profile."""
+    row = train_run(dev, TRAIN_ARCH)
+    check(row["params"] == row["param_count_formula"],
+          f"{row['params']} parameters, config says {row['param_count_formula']}")
+    emit({"phase": "train", **row})
+    return {"launches": row["launches"], "step_ms": row["step_ms_median"]}
 
 
 def phase_train_loop(dev) -> None:
@@ -1634,46 +1899,432 @@ def phase_attention_bwd(dev, trained: dict, copy_rate: float) -> list:
     return rows
 
 
+def train_parity(dev, cfg, dtype: str) -> dict:
+    """One smoke config, the same weights on the card (kernels) and on the
+    CPU (plain paths), 3 train steps: f32 losses within TRAIN_F32_TOL and
+    grad norms within TRAIN_F32_TOL relative, bf16 losses within
+    TRAIN_BF16_REL and grad norms within TRAIN_BF16_GN_REL relative; a
+    family with attention launched every flash kernel."""
+    rc = configs.RunConfig(seq_len=64, global_batch=4, kind="train",
+                           param_dtype=dtype, q_block=16, kv_block=32, lr=1e-3)
+    apis = {d: model_zoo.get_api(cfg, rc, d) for d in ("cpu", "cuda")}
+    states = {d: train_step.init_state(apis[d], rc, SEED) for d in apis}
+    with torch.no_grad():
+        for pc, pg in zip(states["cpu"].params.parameters(),
+                          states["cuda"].params.parameters()):
+            pg.copy_(pc)
+    steps = {d: train_step.make_train_step(apis[d], cfg, rc) for d in apis}
+    pipe = SyntheticPipeline(cfg, rc, seed=SEED)
+    ops.reset_launch_counts()
+    losses, gnorms = {"cpu": [], "cuda": []}, {"cpu": [], "cuda": []}
+    for _ in range(3):
+        batch = pipe.next()
+        for d in apis:
+            states[d], m = steps[d](states[d], device_batch(batch, cfg, rc, d))
+            losses[d].append(float(m["loss"]))
+            gnorms[d].append(float(m["grad_norm"]))
+    launches = ops.launch_counts()
+    loss_err = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    gn_rel = max(abs(a - b) / abs(b) for a, b in zip(gnorms["cuda"], gnorms["cpu"]))
+    ok = (loss_err <= TRAIN_F32_TOL and gn_rel <= TRAIN_F32_TOL
+          if dtype == "float32" else
+          loss_rel <= TRAIN_BF16_REL and gn_rel <= TRAIN_BF16_GN_REL)
+    flash = transformer._has_attn(cfg)
+    ok = ok and all((launches[n] > 0) == flash for n in FLASH_KERNELS)
+    row = {"dtype": dtype, "loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"],
+           "loss_max_abs_err": loss_err, "loss_max_rel_err": loss_rel,
+           "grad_norm_max_rel_err": gn_rel, "launches": launches, "ok": ok}
+    check(ok, f"train_parity {cfg.name} {row}")
+    return row
+
+
 def phase_train_parity(dev) -> None:
     """The smoke config, same weights, kernels on the card vs plain on the CPU."""
     cfg = configs.load_smoke(TRAIN_ARCH)
-    results = []
-    for dtype in ("float32", "bfloat16"):
-        rc = configs.RunConfig(seq_len=64, global_batch=4, kind="train",
-                               param_dtype=dtype, q_block=16, kv_block=32, lr=1e-3)
-        apis = {d: model_zoo.get_api(cfg, rc, d) for d in ("cpu", "cuda")}
-        states = {d: train_step.init_state(apis[d], rc, SEED) for d in apis}
-        with torch.no_grad():
-            for pc, pg in zip(states["cpu"].params.parameters(),
-                              states["cuda"].params.parameters()):
-                pg.copy_(pc)
-        steps = {d: train_step.make_train_step(apis[d], cfg, rc) for d in apis}
-        pipe = SyntheticPipeline(cfg, rc, seed=SEED)
-        ops.reset_launch_counts()
-        losses, gnorms = {"cpu": [], "cuda": []}, {"cpu": [], "cuda": []}
-        for _ in range(3):
-            batch = pipe.next()
-            for d in apis:
-                states[d], m = steps[d](states[d], device_batch(batch, cfg, rc, d))
-                losses[d].append(float(m["loss"]))
-                gnorms[d].append(float(m["grad_norm"]))
-        launches = ops.launch_counts()
-        loss_err = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
-        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"], losses["cpu"]))
-        gn_rel = max(abs(a - b) / abs(b) for a, b in zip(gnorms["cuda"], gnorms["cpu"]))
-        ok = (loss_err <= TRAIN_F32_TOL and gn_rel <= TRAIN_F32_TOL
-              if dtype == "float32" else
-              loss_rel <= TRAIN_BF16_REL and gn_rel <= TRAIN_BF16_GN_REL)
-        ok = ok and all(launches[n] > 0 for n in FLASH_KERNELS)
-        row = {"dtype": dtype, "loss_cuda": losses["cuda"], "loss_cpu": losses["cpu"],
-               "loss_max_abs_err": loss_err, "loss_max_rel_err": loss_rel,
-               "grad_norm_max_rel_err": gn_rel, "launches": launches, "ok": ok}
-        results.append(row)
-        check(ok, f"train_parity {row}")
+    results = [train_parity(dev, cfg, dtype) for dtype in ("float32", "bfloat16")]
     emit({"phase": "train_parity", "config": cfg.name, "steps": 3,
           "f32_tol": TRAIN_F32_TOL, "bf16_rel_tol": TRAIN_BF16_REL,
           "bf16_grad_norm_rel_tol": TRAIN_BF16_GN_REL,
           "results": results})
+
+
+# ---------------------------------------------------------------------------
+# The moe, ssm and hybrid families
+# ---------------------------------------------------------------------------
+
+def phase_families_parity(dev) -> None:
+    """The four smoke configs with the same weights on the card (kernels)
+    and on the CPU (plain paths): serving at bits 16, 8 and 4 (mamba2 has
+    no kv cache: 16 only), a generate past the 64-slot ring of mixtral and
+    hymba at bits 16 and 8, 3 train steps; and a mixtral train step run
+    twice from one state, bit-identical."""
+    rng = np.random.default_rng(SEED + 9)
+    serve, ring, trained = [], [], []
+    for arch in FAMILY_SMOKES:
+        cfg = configs.load_smoke(arch)
+        toks = rng.integers(0, cfg.vocab, (PARITY_B, PARITY_S))
+        prompts = [toks[i, :n].tolist() for i, n in enumerate((5, 17, 24, 9))]
+        for dtype in ("float32", "bfloat16"):
+            for bits in (16, 8, 4) if transformer._has_attn(cfg) else (16,):
+                serve.append(serve_parity(dev, cfg, dtype, bits, toks, prompts))
+        trained += [{"config": cfg.name, **train_parity(dev, cfg, dtype)}
+                    for dtype in ("float32", "bfloat16")]
+    for arch in RING_ARCHES:
+        cfg = configs.load_smoke(arch)
+        check(cfg.sliding_window == 64, f"{arch} smoke window {cfg.sliding_window}")
+        toks = rng.integers(0, cfg.vocab, (len(RING_PROMPTS), RING_SEQ))
+        prompts = [toks[i, :n].tolist() for i, n in enumerate(RING_PROMPTS)]
+        check(max(RING_PROMPTS) + RING_NEW - 1 == RING_STEPS, "ring schedule")
+        ring += [serve_parity(dev, cfg, "float32", bits, toks, prompts,
+                              seq_len=RING_SEQ, steps=RING_STEPS, max_new=RING_NEW)
+                 for bits in (16, 8)]
+
+    # determinism: one mixtral state, the gradient pass twice and the whole
+    # step on two copies of it, bit for bit
+    cfg = configs.load_smoke("mixtral-8x7b")
+    rc = configs.RunConfig(seq_len=64, global_batch=4, kind="train",
+                           param_dtype="bfloat16", q_block=16, kv_block=32, lr=1e-3)
+    api = model_zoo.get_api(cfg, rc, dev)
+    state = train_step.init_state(api, rc, SEED)
+    batch = device_batch(SyntheticPipeline(cfg, rc, seed=SEED).next(), cfg, rc, dev)
+    runs = []
+    for _ in range(2):
+        for p in state.params.parameters():
+            p.grad = None
+        loss = api.loss_fn(state.params, batch)
+        loss.backward()
+        runs.append((loss.detach(), [p.grad for p in state.params.parameters()]))
+    twin = copy.deepcopy(state)
+    step_fn = train_step.make_train_step(api, cfg, rc)
+    (a, ma), (b, mb) = step_fn(state, batch), step_fn(twin, batch)
+    same = {"loss": bool(torch.equal(runs[0][0], runs[1][0])),
+            "grads": all(torch.equal(x, y) for x, y in zip(runs[0][1], runs[1][1])),
+            "step_loss": bool(torch.equal(ma["loss"], mb["loss"])),
+            "step_params": all(torch.equal(x, y) for x, y in
+                               zip(a.params.parameters(), b.params.parameters()))}
+    check(all(same.values()), f"mixtral train step not bit-identical: {same}")
+    emit({"phase": "families_parity", "configs": list(FAMILY_SMOKES),
+          "batch": PARITY_B, "seq": PARITY_S, "decode_steps": PARITY_STEPS,
+          "f32_tol": F32_TOL, "bf16_rel_tol": BF16_REL, "serve": serve,
+          "ring": {"seq_len": RING_SEQ, "window": 64, "decode_steps": RING_STEPS,
+                   "prompt_lens": list(RING_PROMPTS), "max_new": RING_NEW,
+                   "results": ring},
+          "train": {"steps": 3, "f32_tol": TRAIN_F32_TOL,
+                    "bf16_rel_tol": TRAIN_BF16_REL,
+                    "bf16_grad_norm_rel_tol": TRAIN_BF16_GN_REL, "results": trained},
+          "mixtral_step_bit_identical": same})
+
+
+def init_family(dev, cfg, rc) -> tuple:
+    """Random bf16 weights on the card: (params, facts for the phase line)."""
+    t0 = time.perf_counter()
+    params = model_zoo.get_api(cfg, rc, dev).init(SEED)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in params.parameters())
+    nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    if cfg.family == "moe":
+        check(n == cfg.param_count(), f"{n} parameters, config says {cfg.param_count()}")
+    return params, {"arch": cfg.name, "n_layers": cfg.n_layers,
+                    "d_model": cfg.d_model, "params": n,
+                    "param_count_formula": cfg.param_count(),
+                    "GiB": nbytes / 2**30, "init_s": time.perf_counter() - t0}
+
+
+def routed_drops(fn) -> dict:
+    """Run ``fn`` counting each MoE call's routed copies and the ones past
+    their expert's capacity (a sync a layer: untimed)."""
+    with moe_routes() as routes:
+        fn()
+    seen = [(int(r.keep.numel() - r.keep.sum()), r.keep.numel(), r.cap)
+            for _, r in routes.calls]
+    dropped, routed = sum(d for d, _, _ in seen), sum(n for _, n, _ in seen)
+    return {"calls": len(seen), "capacity": seen[0][2], "routed_copies": routed,
+            "dropped_copies": dropped, "dropped_share": dropped / routed,
+            "dropped_by_layer": [d for d, _, _ in seen]}
+
+
+def phase_moe_serve(dev) -> dict:
+    """mixtral-8x7b at full width, 16 of its 32 layers: prefill, generate."""
+    cfg = dataclasses.replace(configs.load_arch(MOE_ARCH), n_layers=MOE_LAYERS)
+    rc = configs.RunConfig(seq_len=SERVE_SEQ, global_batch=SERVE_B, kind="decode",
+                           kv_cache_bits=8)
+    params, facts = init_family(dev, cfg, rc)
+    pre, api, toks = prefill_run(dev, cfg, params, SEED + 10,
+                                 {"flash": "flash_fwd_sm90_kernel"})
+    drops = routed_drops(lambda: api.prefill(params, {"tokens": toks}))
+    check(drops["calls"] == cfg.n_layers and drops["capacity"] == int(
+        cfg.capacity_factor * cfg.topk * PREFILL_B * PREFILL_S / cfg.n_experts),
+        f"moe calls {drops['calls']}, capacity {drops['capacity']}")
+    rng = np.random.default_rng(SEED + 11)
+    prompts = serve_prompts(rng, cfg, rng.integers(16, 129, SERVE_B))
+    gen, engine = generate_run(dev, cfg, rc, params, prompts, SERVE_NEW)
+    ls = lockstep(engine, [p[:4 + i] for i, p in enumerate(prompts)], 6, dev)
+    check(ls["steps"] == 16, f"lockstep ran {ls['steps']} steps")
+    emit({"phase": "moe_serve", **facts,
+          "reduced": {"n_layers": [32, MOE_LAYERS]},
+          "prefill": pre, "prefill_routing": drops, "generate": gen,
+          "graph_vs_eager": {k: v for k, v in ls.items() if k != "tokens"}})
+    return {"prefill": pre["launches"], "generate": gen["launches"]}
+
+
+def band_pairs(S: int, window: int) -> int:
+    """(query, key) pairs a causal attention of S positions scores, within
+    ``window`` keys of the query when window > 0."""
+    return sum(min(q + 1, window) if window else q + 1 for q in range(S))
+
+
+def sdpa_band(q, k, v, window: int):
+    """SDPA with an explicit causal band mask on (B, S, KV, G, D) inputs,
+    heads expanded: (a function that runs it, the backend that ran)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    B, S, KV, G, D = q.shape
+    qs = q.reshape(B, S, KV * G, D).transpose(1, 2)
+    ks = k[:, :, :, None].expand(B, S, KV, G, D).reshape(B, S, KV * G, D).transpose(1, 2)
+    vs = v[:, :, :, None].expand(B, S, KV, G, D).reshape(B, S, KV * G, D).transpose(1, 2)
+    mask = flash_attention._mask(S, S, True, window, q.device)
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                F.scaled_dot_product_attention(qs[:1], ks[:1], vs[:1], attn_mask=mask)
+        except RuntimeError:
+            continue
+
+        def run(qs=qs, ks=ks, vs=vs, backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+        return run, backend.name
+    return None, "none ran"
+
+
+def windowed_fwd(dev, shape: tuple, window: int, copy_rate: float) -> dict:
+    """The bf16 flash forward with a sliding window at one layer's shape
+    against its plain version (o within FLASH_BF16_TOL and its query tiles
+    within FLASH_BF16_REL, lse within FLASH_LSE_TOL), timed beside SDPA
+    with the same band as an explicit mask."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 12)
+    B, S, KV, G, D = shape
+    q = torch.randn(B, S, KV, G, D, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, S, KV, D, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    o, lse = flash_attention.flash_fwd(q, k, v, True, window)
+    op, lp = flash_attention.flash_attention_plain(q, k, v, True, window)
+    e_o, e_l = max_abs_diff(o.float(), op.float()), max_abs_diff(lse, lp)
+    e_r = tile_rel_err(o, op)
+    check(e_o < FLASH_BF16_TOL and e_l < FLASH_LSE_TOL and e_r < FLASH_BF16_REL,
+          f"windowed flash bf16 {shape} window {window}: o {e_o}, lse {e_l}, "
+          f"o tile rel {e_r}")
+    del op, lp
+    plain_ms = time_ms(lambda: flash_attention.flash_attention_plain(
+        q, k, v, True, window), reps=3)
+    ms = time_ms(lambda: flash_attention.flash_fwd(q, k, v, True, window), reps=10)
+    lib, backend = sdpa_band(q, k, v, window)
+    lib_ms = time_ms(lib, reps=10) if lib else None
+    pairs = band_pairs(S, window)
+    flops = 4 * B * KV * G * D * pairs
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * KV * G * S
+    row = {"shape": list(shape), "window": window, "o_err": e_o, "lse_err": e_l,
+           "o_tile_rel_err": e_r, "ms": ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "library_backend": backend,
+           **bound(nbytes, flops, copy_rate, BF16_FLOPS_PER_S),
+           "tflops_per_s": flops / (ms * 1e-3) / 1e12}
+    row["share_of_bound"] = row["bound_ms"] / ms
+    return row
+
+
+def phase_hybrid_serve(dev, copy_rate: float) -> dict:
+    """hymba-1.5b at full size: prefill (windowed flash), the windowed
+    forward at one layer's shape, a generate through the 1024-slot ring."""
+    cfg = configs.load_arch(HYBRID_ARCH)
+    rc = configs.RunConfig(seq_len=HYBRID_SEQ, global_batch=SERVE_B,
+                           kind="decode", kv_cache_bits=8)
+    params, facts = init_family(dev, cfg, rc)
+    pre, _, _ = prefill_run(dev, cfg, params, SEED + 10,
+                            {"flash": "flash_fwd_sm90_kernel"})
+    check(pre["window"] == cfg.sliding_window > 0, f"prefill window {pre['window']}")
+    G = cfg.n_heads // cfg.n_kv_heads
+    fwd = windowed_fwd(dev, (PREFILL_B, PREFILL_S, cfg.n_kv_heads, G, cfg.hd),
+                       cfg.sliding_window, copy_rate)
+    rng = np.random.default_rng(SEED + 13)
+    prompts = serve_prompts(rng, cfg, rng.integers(*HYBRID_LENS, SERVE_B))
+    gen, engine = generate_run(dev, cfg, rc, params, prompts, HYBRID_NEW)
+    check(gen["decode_steps"] > cfg.sliding_window, "the ring did not wrap")
+    ls = lockstep(engine, [p[:HYBRID_LOCKSTEP] for p in prompts], 1, dev,
+                  skip=HYBRID_SKIP)
+    check(ls["steps"] == HYBRID_LOCKSTEP and HYBRID_SKIP < cfg.sliding_window
+          < HYBRID_LOCKSTEP, f"hybrid lockstep ran {ls['steps']} steps")
+    # the fused store at this path's shape: (8, 1, 5, 64) into a 1024-slot ring
+    store = [store_case(dev, rng, (SERVE_B, cfg.sliding_window, cfg.n_kv_heads,
+                                   cfg.hd), torch.bfloat16, 8, slots)
+             for slots in ("first", "mid", "last", "mixed")]
+    # kv_dequant at this path's shape: one layer's K (or V) ring cache,
+    # (8, 1024, 5, 64) as 40,960 rows of 64, codes and scales seeded noise
+    rows = SERVE_B * cfg.sliding_window * cfg.n_kv_heads
+    dequant = []
+    for bits in (8, 4):
+        cd = cfg.hd if bits == 8 else cfg.hd // 2
+        codes = torch.from_numpy(rng.integers(-128, 128, (rows, cd), dtype=np.int8)).to(dev)
+        scales = torch.from_numpy(np.abs(rng.standard_normal((rows, 1))).astype(
+            np.float32)).to(dev)
+        same = bool(torch.equal(kvpack.kv_dequant(codes, scales, bits),
+                                kvpack.kv_dequant_plain(codes, scales, bits)))
+        check(same, f"kv_dequant at ({rows}, {cfg.hd}) bits {bits} differs from "
+              f"its plain version")
+        dequant.append({"rows": rows, "d": cfg.hd, "bits": bits, "identical": same})
+    emit({"phase": "hybrid_serve", **facts, "prefill": pre,
+          "windowed_flash_fwd": fwd, "generate": gen,
+          "ring_slots": cfg.sliding_window,
+          "graph_vs_eager": {k: v for k, v in ls.items() if k != "tokens"},
+          "kv_quant_store_cases": store, "kv_dequant_cases": dequant})
+    return {"prefill": pre["launches"], "generate": gen["launches"],
+            "window_fwd": fwd}
+
+
+def phase_ssm_serve(dev) -> dict:
+    """mamba2-130m at full size: prefill and generate (no kernel: the SSD
+    scan and conv are torch ops), the graph held to eager with the state."""
+    cfg = configs.load_arch(SSM_ARCH)
+    rc = configs.RunConfig(seq_len=SERVE_SEQ, global_batch=SERVE_B, kind="decode",
+                           kv_cache_bits=8)
+    params, facts = init_family(dev, cfg, rc)
+    pre, _, _ = prefill_run(dev, cfg, params, SEED + 10, {})
+    rng = np.random.default_rng(SEED + 14)
+    prompts = serve_prompts(rng, cfg, rng.integers(16, 129, SERVE_B))
+    gen, engine = generate_run(dev, cfg, rc, params, prompts, SERVE_NEW)
+    ls = lockstep(engine, [p[:4 + i] for i, p in enumerate(prompts)], 6, dev)
+    check(ls["steps"] == 16, f"lockstep ran {ls['steps']} steps")
+    emit({"phase": "ssm_serve", **facts, "prefill": pre, "generate": gen,
+          "graph_vs_eager": {k: v for k, v in ls.items() if k != "tokens"}})
+    return {"prefill": pre["launches"], "generate": gen["launches"]}
+
+
+def windowed_bwd(dev, shape: tuple, window: int, copy_rate: float) -> dict:
+    """The bf16 dK/dV and dQ kernels with a sliding window at one layer's
+    train shape: launched on the whole batch, each sequence held against
+    the plain forward and backward run on it alone; timed beside SDPA's
+    backward with the band as an explicit mask."""
+    fa = flash_attention
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 15)
+    B, S, KV, G, D = shape
+    q, k, v, do = [torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
+                   for sh in ((B, S, KV, G, D), (B, S, KV, D), (B, S, KV, D),
+                              (B, S, KV, G, D))]
+    o, lse = fa.flash_fwd(q, k, v, True, window)
+    got = fa.flash_bwd(q, k, v, o, lse, do, True, window)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fwd_errs, abs_errs, rel_errs, plain_ms = [0.0] * 3, [0.0] * 3, [0.0] * 3, 0.0
+    for b in range(B):
+        one = [t[b:b + 1] for t in (q, k, v, o, lse, do)]
+        op, lp = fa.flash_attention_plain(*one[:3], True, window)
+        fwd_errs = list(map(max, fwd_errs, (
+            max_abs_diff(one[3].float(), op.float()), max_abs_diff(one[4], lp),
+            tile_rel_err(one[3], op))))
+        del op, lp
+        if b == 0:
+            fa.flash_bwd_plain(*one, True, window)                # warm-up
+        start.record()
+        want = fa.flash_bwd_plain(*one, True, window)
+        end.record()
+        end.synchronize()
+        plain_ms += start.elapsed_time(end)
+        errs = [max_abs_diff(g[b:b + 1].float(), w.float()) for g, w in zip(got, want)]
+        abs_errs = list(map(max, abs_errs, errs))
+        rel_errs = list(map(max, rel_errs, (e / float(w.float().abs().max())
+                                            for e, w in zip(errs, want))))
+        del want
+    check(fwd_errs[0] < FLASH_BF16_TOL and fwd_errs[1] < FLASH_LSE_TOL
+          and fwd_errs[2] < FLASH_BF16_REL,
+          f"windowed flash fwd at {shape}: o, lse, o tile rel {fwd_errs}")
+    check(max(rel_errs) < BWD_BF16_TOL,
+          f"windowed flash bwd at {shape}: rel dq, dk, dv {rel_errs}")
+    del got
+    torch.cuda.empty_cache()
+    delta = fa.bwd_delta(o, do)
+    ms_dkv = time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, window), reps=5)
+    ms_dq = time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True, window), reps=5)
+    qs = q.detach().requires_grad_()
+    ks, vs = k.detach().requires_grad_(), v.detach().requires_grad_()
+    lib, backend = sdpa_band(qs, ks, vs, window)
+    lib_ms = None
+    if lib:
+        try:                                        # the yardstick only
+            os_ = lib()
+            dos = do.reshape(B, S, KV * G, D).transpose(1, 2)
+            lib_ms = time_ms(lambda: torch.autograd.grad(os_, (qs, ks, vs), dos,
+                                                         retain_graph=True), reps=5)
+            del os_, dos
+        except RuntimeError as e:
+            backend = f"{backend}: backward failed: {e}"[:300]
+    del qs, ks, vs
+    pairs = band_pairs(S, window)
+    H = KV * G
+    io = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * (lse.numel() + delta.numel())
+    rows = {}
+    for name, ms, nbytes, nflops in (
+            ("flash_attention.flash_bwd_dkv", ms_dkv, io + 2 * 2 * k.numel(),
+             8 * B * H * D * pairs),
+            ("flash_attention.flash_bwd_dq", ms_dq, io + 2 * q.numel(),
+             6 * B * H * D * pairs)):
+        rows[name] = {"shape": list(shape), "window": window, "ms": ms,
+                      "plain_ms": plain_ms, "plain_note": f"flash_bwd_plain "
+                      f"(dq, dk, dv together) on each of the {B} sequences "
+                      f"alone, one call each, times summed",
+                      "library_ms": lib_ms, "library_backend": backend,
+                      "library_note": "SDPA backward with the band as an "
+                                      "explicit mask, heads expanded: dq, dk, "
+                                      "dv together",
+                      **bound(nbytes, nflops, copy_rate, BF16_FLOPS_PER_S),
+                      "tflops_per_s": nflops / (ms * 1e-3) / 1e12}
+        rows[name]["share_of_bound"] = rows[name]["bound_ms"] / ms
+    return {"fwd_o_lse_tile_rel_err": fwd_errs, "rel_err_dq_dk_dv": rel_errs,
+            "abs_err_dq_dk_dv": abs_errs, "rows": rows}
+
+
+def phase_families_train(dev, copy_rate: float) -> dict:
+    hybrid = train_run(dev, HYBRID_ARCH)
+    emit({"phase": "families_train", **hybrid})
+    cfg = configs.load_arch(HYBRID_ARCH)
+    G = cfg.n_heads // cfg.n_kv_heads
+    bwd = windowed_bwd(dev, (TRAIN_B, configs.SHAPES["train_4k"][0],
+                             cfg.n_kv_heads, G, cfg.hd), cfg.sliding_window, copy_rate)
+    emit({"phase": "families_train_windowed_bwd", **bwd})
+    torch.cuda.empty_cache()
+    ssm_ = train_run(dev, SSM_ARCH)
+    emit({"phase": "families_train", **ssm_})
+    return {"hybrid": hybrid["launches"], "ssm": ssm_["launches"],
+            "window_bwd": bwd["rows"]}
+
+
+def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
+                     paths: dict) -> None:
+    """The kv and flash rows of the kernels line: their launches on every LM
+    path run (``launches`` stays the first path's), and the flash rows'
+    windowed times at hymba's shapes."""
+    by_path = {
+        "granite8b_prefill": prefill["launches"],
+        "granite8b_generate": serve["launches"],
+        "tinyllama_train_3_steps": trained["launches"],
+        "mixtral16L_prefill": paths["moe_serve"]["prefill"],
+        "mixtral16L_generate": paths["moe_serve"]["generate"],
+        "hymba_prefill": paths["hybrid_serve"]["prefill"],
+        "hymba_generate": paths["hybrid_serve"]["generate"],
+        "mamba2_prefill": paths["ssm_serve"]["prefill"],
+        "mamba2_generate": paths["ssm_serve"]["generate"],
+        "hymba_train_3_steps": paths["families_train"]["hybrid"],
+        "mamba2_train_3_steps": paths["families_train"]["ssm"]}
+    windowed = {"flash_attention.flash_fwd": paths["hybrid_serve"]["window_fwd"],
+                **paths["families_train"]["window_bwd"]}
+    keep = ("shape", "window", "ms", "plain_ms", "library_ms", "library_backend",
+            "bound_ms", "bound_by", "share_of_bound")
+    for r in rows:
+        if r["name"].startswith(("kvpack.", "flash_attention.")):
+            r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
+        if r["name"] in windowed:
+            r["at_hymba_window"] = {k: windowed[r["name"]][k] for k in keep}
 
 
 def main() -> int:
@@ -1708,6 +2359,17 @@ def main() -> int:
     phase_train_loop(dev)
     rows += phase_attention_bwd(dev, trained, copy_rate)
     phase_train_parity(dev)
+    torch.cuda.empty_cache()
+
+    phase_families_parity(dev)
+    paths = {"moe_serve": phase_moe_serve(dev)}
+    torch.cuda.empty_cache()
+    paths["hybrid_serve"] = phase_hybrid_serve(dev, copy_rate)
+    torch.cuda.empty_cache()
+    paths["ssm_serve"] = phase_ssm_serve(dev)
+    torch.cuda.empty_cache()
+    paths["families_train"] = phase_families_train(dev, copy_rate)
+    add_family_paths(rows, prefill, serve, trained, paths)
     emit({"kernels": [{k: v for k, v in r.items()
                        if k != "copy_bound_ms"}
                       for r in rows]})

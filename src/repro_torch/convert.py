@@ -52,10 +52,13 @@ def params_from_jax(tree, cfg, device: str | torch.device = "cuda"):
     ``tree`` is the reference's ``transformer.DenseParams`` after
     ``np.asarray`` on every leaf (``jax.tree.map(np.asarray, params)``); it
     is read by field name.  Its stacked ``[n_layers, ...]`` leaves are split
-    per layer.  Weights keep the ``(in, out)`` orientation, so ``x @ wq``
-    is the same product.  Dense and vlm families only.
+    per layer; a field the family has not (``None``) stays ``None``.
+    Weights keep the ``(in, out)`` orientation, so ``x @ wq`` is the same
+    product.  The decoder-only families (dense, vlm, moe, ssm, hybrid).
     """
     from repro_torch.models import layers as L
+    from repro_torch.models import moe as M
+    from repro_torch.models import ssm as S
     from repro_torch.models import transformer
 
     transformer.check_family(cfg)
@@ -66,21 +69,19 @@ def params_from_jax(tree, cfg, device: str | torch.device = "cuda"):
     def at(a, i):
         return None if a is None else t(np.asarray(a)[i])
 
+    def module(cls, node, i):
+        return None if node is None else cls(
+            **{f: at(getattr(node, f), i) for f in node._fields})
+
     e, ly = tree.embed, tree.layers
-    a, m = ly.attn, ly.mlp
     embed = L.EmbedParams(table=t(e.table), unembed=t(e.unembed),
                           final_norm=t(e.final_norm))
-    layers = []
-    for i in range(cfg.n_layers):
-        layers.append(transformer.LayerParams(
-            ln1=at(ly.ln1, i),
-            attn=L.AttnParams(wq=at(a.wq, i), wk=at(a.wk, i), wv=at(a.wv, i),
-                              wo=at(a.wo, i), bq=at(a.bq, i), bk=at(a.bk, i),
-                              bv=at(a.bv, i)),
-            ln2=at(ly.ln2, i),
-            mlp=L.MlpParams(w_gate=at(m.w_gate, i), w_up=at(m.w_up, i),
-                            w_down=at(m.w_down, i)),
-        ))
+    layers = [transformer.LayerParams(
+        ln1=at(ly.ln1, i), attn=module(L.AttnParams, ly.attn, i),
+        ssm=module(S.SsmParams, ly.ssm, i), ln_attn_out=at(ly.ln_attn_out, i),
+        ln_ssm_out=at(ly.ln_ssm_out, i), ln2=at(ly.ln2, i),
+        mlp=module(L.MlpParams, ly.mlp, i), moe=module(M.MoeParams, ly.moe, i))
+        for i in range(cfg.n_layers)]
     return transformer.DenseParams(embed, layers)
 
 
@@ -97,7 +98,7 @@ def state_from_jax(tree, cfg, device: str | torch.device = "cuda"):
 
     if tree.resid is not None:
         raise NotImplementedError("error-feedback residuals come with the "
-                                  "distributed slice (ROADMAP Queue 1 item 9)")
+                                  "distributed slice, not ported yet")
 
     def moments(t):
         return {n: p.detach() for n, p in

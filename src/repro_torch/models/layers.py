@@ -20,7 +20,7 @@ so ``x @ wq`` is the same product.
 
 The reference's sharding hooks (``shd.act``, ``checkpoint_name``, the
 ``tp_scatter`` out-projection) have no counterpart yet; ``cross_attention``
-comes with the encoder-decoder family (ROADMAP Queue 1 item 6).
+comes with the encoder-decoder family, which is not ported yet.
 """
 from __future__ import annotations
 
@@ -356,10 +356,14 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, act: str,
     )
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * sigmoid(x), two rounded operations."""
+    return x * torch.sigmoid(x)
+
+
 def mlp(x: torch.Tensor, p: MlpParams, act: str) -> torch.Tensor:
     if act == "swiglu":
-        g = x @ p.w_gate
-        h = g * torch.sigmoid(g) * (x @ p.w_up)  # jax.nn.silu: x * sigmoid(x)
+        h = silu(x @ p.w_gate) * (x @ p.w_up)
     else:
         h = F.gelu(x @ p.w_up, approximate="tanh")  # jax.nn.gelu's default
     return h @ p.w_down

@@ -1,7 +1,8 @@
 """Unified model API: config -> init / loss / prefill / decode / input specs.
 
-Port of ``repro.models.model_zoo`` for the dense and vlm families.  The
-reference's ``abstract_params``, ``param_specs`` and ``decode_state_specs``
+Port of ``repro.models.model_zoo`` for the decoder-only families (dense,
+vlm, moe, ssm, hybrid); the encoder-decoder family raises
+``NotImplementedError``.  The reference's ``abstract_params``, ``param_specs`` and ``decode_state_specs``
 serve its sharding and dry-run tooling, which the port does not have yet.
 """
 from __future__ import annotations

@@ -1,16 +1,20 @@
-"""Decoder-only LM frame for the dense and vlm families: init, forward, loss, serving.
+"""Decoder-only LM frame: the dense, vlm, moe, ssm and hybrid families.
 
-Port of ``repro.models.transformer`` for the serving and training paths.
-The reference scans one stacked layer body over ``n_layers``; here the
-layers are an ``nn.ModuleList`` and a Python loop walks them.  With
-``rc.remat`` each layer runs under ``torch.utils.checkpoint`` while autograd
-records (the reference's ``"full"`` policy: nothing saved, all recomputed).
-The moe, ssm and hybrid families (ROADMAP Queue 1 item 6) are not ported
-yet and raise ``NotImplementedError``.
+Port of ``repro.models.transformer``.  The reference scans one stacked
+layer body over ``n_layers``; here the layers are an ``nn.ModuleList`` and
+a Python loop walks them.  The family picks a layer's sublayers, as in the
+reference: attention (dense, vlm, moe, hybrid), the SSD mixer (ssm,
+hybrid; hybrid averages the two branches after a norm each), an MLP
+(dense, vlm, hybrid) or the MoE block (moe); a field the family has not is
+``None``.  With ``rc.remat`` each layer runs under
+``torch.utils.checkpoint`` while autograd records (the reference's
+``"full"`` policy: nothing saved, all recomputed).  The encoder-decoder
+family (``models/encdec.py`` in the reference) is not ported yet and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
@@ -18,31 +22,52 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from . import layers as L
+from . import moe as M
+from . import ssm as S
 
 #: families whose model this slice of the port runs
-PORTED_FAMILIES = ("dense", "vlm")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
 def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"(ROADMAP Queue 1 item 6); ported: {', '.join(PORTED_FAMILIES)}")
+            f"{cfg.name}: the {cfg.family} family is not ported yet (the "
+            f"encoder-decoder family comes with models/encdec.py); ported: "
+            f"{', '.join(PORTED_FAMILIES)}")
+
+
+def _has_attn(cfg: ModelConfig) -> bool:
+    return cfg.family in ("dense", "vlm", "moe", "hybrid", "encdec")
+
+
+def _has_ssm(cfg: ModelConfig) -> bool:
+    return cfg.family in ("ssm", "hybrid")
+
+
+def _has_mlp(cfg: ModelConfig) -> bool:
+    return cfg.family in ("dense", "vlm", "hybrid", "encdec")
 
 
 class LayerParams(nn.Module):
-    """One decoder layer of the dense / vlm families."""
+    """One decoder layer; a field the family has not is ``None``."""
 
     #: the reference's field order; ``named_parameters`` lists a module's own
-    #: parameters (ln1, ln2) before its submodules' (attn, mlp)
-    FIELDS = ("ln1", "attn", "ln2", "mlp")
+    #: parameters (the norms) before its submodules', so
+    #: ``train.step.reference_tree`` puts this order back
+    FIELDS = ("ln1", "attn", "ssm", "ln_attn_out", "ln_ssm_out", "ln2", "mlp",
+              "moe")
 
-    def __init__(self, ln1, attn: L.AttnParams, ln2, mlp: L.MlpParams):
+    def __init__(self, ln1, attn: Optional[L.AttnParams] = None,
+                 ssm: Optional[S.SsmParams] = None, ln_attn_out=None,
+                 ln_ssm_out=None, ln2=None, mlp: Optional[L.MlpParams] = None,
+                 moe: Optional[M.MoeParams] = None):
         super().__init__()
-        self.ln1 = L._param(ln1)
-        self.attn = attn
-        self.ln2 = L._param(ln2)
-        self.mlp = mlp
+        for name, t in (("ln1", ln1), ("ln_attn_out", ln_attn_out),
+                        ("ln_ssm_out", ln_ssm_out), ("ln2", ln2)):
+            self.register_parameter(name, None if t is None else L._param(t))
+        for name, m in (("attn", attn), ("ssm", ssm), ("mlp", mlp), ("moe", moe)):
+            self.register_module(name, m)
 
 
 class DenseParams(nn.Module):
@@ -55,12 +80,19 @@ class DenseParams(nn.Module):
 
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, dtype) -> LayerParams:
-    d = cfg.d_model
+    d, dev = cfg.d_model, gen.device
+    hybrid = cfg.family == "hybrid"
     return LayerParams(
-        ln1=L.init_rmsnorm(d, dtype, gen.device),
-        attn=L.init_attn(gen, cfg, dtype),
-        ln2=L.init_rmsnorm(d, dtype, gen.device),
-        mlp=L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_act, dtype),
+        ln1=L.init_rmsnorm(d, dtype, dev),
+        attn=L.init_attn(gen, cfg, dtype) if _has_attn(cfg) else None,
+        ssm=S.init_ssm(gen, cfg, dtype) if _has_ssm(cfg) else None,
+        ln_attn_out=L.init_rmsnorm(d, dtype, dev) if hybrid else None,
+        ln_ssm_out=L.init_rmsnorm(d, dtype, dev) if hybrid else None,
+        ln2=L.init_rmsnorm(d, dtype, dev)
+        if _has_mlp(cfg) or cfg.family == "moe" else None,
+        mlp=L.init_mlp(gen, d, cfg.d_ff, cfg.mlp_act, dtype)
+        if _has_mlp(cfg) else None,
+        moe=M.init_moe(gen, cfg, dtype) if cfg.family == "moe" else None,
     )
 
 
@@ -81,12 +113,38 @@ def init(gen: torch.Generator, cfg: ModelConfig,
 # Forward
 # ---------------------------------------------------------------------------
 
-def _layer_fwd(cfg: ModelConfig, rc: RunConfig, x: torch.Tensor,
-               pos: torch.Tensor, lp: LayerParams) -> torch.Tensor:
-    h = L.rmsnorm(x, lp.ln1, cfg.norm_eps)
-    x = x + L.attention(h, lp.attn, cfg, pos, rc.q_block, rc.kv_block)
+def _merge(cfg: ModelConfig, lp: LayerParams, a: Optional[torch.Tensor],
+           s: Optional[torch.Tensor]) -> torch.Tensor:
+    """The sequence mixer's output from the attention branch ``a`` and the
+    SSD branch ``s``: the one the family has, or (hybrid) both, each
+    normed, averaged."""
+    if cfg.family != "hybrid":
+        return s if a is None else a
+    return 0.5 * (L.rmsnorm(a, lp.ln_attn_out, cfg.norm_eps)
+                  + L.rmsnorm(s, lp.ln_ssm_out, cfg.norm_eps))
+
+
+def _ffn(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams):
+    """The layer's MLP or MoE block on x -> (x + out, aux)."""
     h2 = L.rmsnorm(x, lp.ln2, cfg.norm_eps)
-    return x + L.mlp(h2, lp.mlp, cfg.mlp_act)
+    if cfg.family == "moe":
+        out, aux = M.moe_block(h2, lp.moe, cfg)
+        return x + out, aux
+    return x + L.mlp(h2, lp.mlp, cfg.mlp_act), None
+
+
+def _layer_fwd(cfg: ModelConfig, rc: RunConfig, x: torch.Tensor,
+               pos: torch.Tensor, lp: LayerParams
+               ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """-> (x, the layer's MoE aux loss, f32 0-dim; None without a MoE block)."""
+    h = L.rmsnorm(x, lp.ln1, cfg.norm_eps)
+    a = None if lp.attn is None else L.attention(h, lp.attn, cfg, pos,
+                                                 rc.q_block, rc.kv_block)
+    s = None if lp.ssm is None else S.ssd_forward(lp.ssm, h, cfg)
+    x = x + _merge(cfg, lp, a, s)
+    if lp.ln2 is None:
+        return x, None
+    return _ffn(cfg, x, lp)
 
 
 def backbone(params: DenseParams, tokens: torch.Tensor, cfg: ModelConfig,
@@ -94,7 +152,8 @@ def backbone(params: DenseParams, tokens: torch.Tensor, cfg: ModelConfig,
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S_text) [+ optional stub prefix] -> (final hidden x, aux).
 
-    ``aux`` is the reference's MoE auxiliary loss, zero for these families.
+    ``aux`` is the MoE load-balance loss averaged over the layers (zero for
+    the other families).
     """
     check_family(cfg)
     x = L.embed(tokens, params.embed)
@@ -106,14 +165,18 @@ def backbone(params: DenseParams, tokens: torch.Tensor, cfg: ModelConfig,
     if remat and rc.remat_policy == "save_collectives":
         raise NotImplementedError(
             "remat_policy='save_collectives' saves the outputs of sharding "
-            "collectives, which the port does not have yet (ROADMAP Queue 1 "
-            "item 9); use 'full'")
+            "collectives, which come with the distributed slice of the port, "
+            "not ported yet; use 'full'")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params.layers:
         if remat:
-            x = checkpoint(_layer_fwd, cfg, rc, x, pos, lp, use_reentrant=False)
+            x, inc = checkpoint(_layer_fwd, cfg, rc, x, pos, lp,
+                                use_reentrant=False)
         else:
-            x = _layer_fwd(cfg, rc, x, pos, lp)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, inc = _layer_fwd(cfg, rc, x, pos, lp)
+        if inc is not None:
+            aux = aux + inc
+    return x, aux / cfg.n_layers
 
 
 def forward(params: DenseParams, tokens: torch.Tensor, cfg: ModelConfig,
@@ -128,23 +191,40 @@ def loss_fn(params: DenseParams, batch, cfg: ModelConfig,
             rc: RunConfig) -> torch.Tensor:
     """batch: dict(tokens (B,S), labels (B,S) [, vis_embeds, mask]) -> f32 loss.
 
-    For the vlm family the loss covers the text positions only.
+    For the vlm family the loss covers the text positions only; for moe it
+    adds 0.01 x the aux loss, as the reference.
     """
     vis = batch.get("vis_embeds")
-    x, _ = backbone(params, batch["tokens"], cfg, rc, vis_embeds=vis)
+    x, aux = backbone(params, batch["tokens"], cfg, rc, vis_embeds=vis)
     if vis is not None:
         x = x[:, vis.shape[1]:]
-    return L.fused_ce_loss(x, params.embed, cfg, batch["labels"],
+    loss = L.fused_ce_loss(x, params.embed, cfg, batch["labels"],
                            batch.get("mask"))
+    if cfg.family == "moe":
+        loss = loss + 0.01 * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
 
+class LayerCache(NamedTuple):
+    kv: Optional[L.KVCache]      # attention families
+    ssm: Optional[S.SsmState]    # ssm and hybrid
+
+
 class DecodeState(NamedTuple):
-    caches: List[L.KVCache]   # one per layer (the reference stacks them)
+    caches: List[LayerCache]  # one per layer (the reference stacks them)
     pos: torch.Tensor         # (B,) next position per sequence
+
+
+def cache_leaves(state: DecodeState) -> Iterator[torch.Tensor]:
+    """Every tensor of the state's caches, layer by layer (kv, then ssm)."""
+    for cache in state.caches:
+        for part in cache:
+            if part is not None:
+                yield from (t for t in part if t is not None)
 
 
 def init_decode_state(cfg: ModelConfig, rc: RunConfig, batch: int,
@@ -153,13 +233,18 @@ def init_decode_state(cfg: ModelConfig, rc: RunConfig, batch: int,
     s_cache = rc.seq_len
     if cfg.sliding_window:
         s_cache = min(s_cache, cfg.sliding_window)
-    # every leaf zero, the scales included (the reference zero-fills the
-    # state it shapes from ``init_cache``, whose own scales are ones)
-    caches = [L.KVCache(*(
-        None if t is None else torch.zeros_like(t) for t in L.init_cache(
-            cfg, batch, s_cache, rc.kv_cache_bits, rc.torch_dtype, device)))
-        for _ in range(cfg.n_layers)]
-    return DecodeState(caches=caches,
+
+    def layer():
+        # every leaf zero, the kv scales included (the reference zero-fills
+        # the state it shapes from ``init_cache``, whose own scales are ones)
+        kv = L.KVCache(*(None if t is None else torch.zeros_like(t) for t in
+                         L.init_cache(cfg, batch, s_cache, rc.kv_cache_bits,
+                                      rc.torch_dtype, device))) \
+            if _has_attn(cfg) else None
+        ssm = S.init_ssm_state(cfg, batch, device) if _has_ssm(cfg) else None
+        return LayerCache(kv=kv, ssm=ssm)
+
+    return DecodeState(caches=[layer() for _ in range(cfg.n_layers)],
                        pos=torch.zeros((batch,), dtype=torch.int32, device=device))
 
 
@@ -167,10 +252,8 @@ def reset_decode_state(state: DecodeState) -> DecodeState:
     """Zero ``state`` in place and return it: what ``init_decode_state``
     gives (every leaf zero, the scales included), in the same tensors, so a
     CUDA graph captured on them stays valid."""
-    for cache in state.caches:
-        for t in cache:
-            if t is not None:
-                t.zero_()
+    for t in cache_leaves(state):
+        t.zero_()
     state.pos.zero_()
     return state
 
@@ -180,22 +263,28 @@ def decode_step(params: DenseParams, state: DecodeState, tokens: torch.Tensor,
                 ) -> Tuple[torch.Tensor, DecodeState]:
     """One decode step.  tokens: (B,) -> (logits (B, V), new state).
 
-    The caches are updated in place (``layers.update_cache``); the returned
-    state holds them and the advanced positions.
+    The state is advanced in place: the kv caches by ``layers.update_cache``,
+    the SSM state (h, conv) by a copy into its own tensors, so a CUDA graph
+    captured on the state advances it at every replay.  The returned state
+    holds the same caches and the advanced positions.
     """
     check_family(cfg)
     x = L.embed(tokens[:, None], params.embed)            # (B, 1, d)
-    caches = []
     for lp, cache in zip(params.layers, state.caches):
         h = L.rmsnorm(x, lp.ln1, cfg.norm_eps)
-        a, kv = L.decode_attention(h, lp.attn, cfg, cache, state.pos,
-                                   rc.kv_cache_bits, cfg.sliding_window)
-        x = x + a
-        h2 = L.rmsnorm(x, lp.ln2, cfg.norm_eps)
-        x = x + L.mlp(h2, lp.mlp, cfg.mlp_act)
-        caches.append(kv)
+        a = s = None
+        if cache.kv is not None:
+            a, _ = L.decode_attention(h, lp.attn, cfg, cache.kv, state.pos,
+                                      rc.kv_cache_bits, cfg.sliding_window)
+        if cache.ssm is not None:
+            s, new = S.ssd_decode(lp.ssm, h, cache.ssm, cfg)
+            cache.ssm.h.copy_(new.h)
+            cache.ssm.conv.copy_(new.conv)
+        x = x + _merge(cfg, lp, a, s)
+        if lp.ln2 is not None:
+            x, _ = _ffn(cfg, x, lp)
     lg = L.logits(x, params.embed, cfg)[:, 0]
-    return lg, DecodeState(caches=caches, pos=state.pos + 1)
+    return lg, DecodeState(caches=state.caches, pos=state.pos + 1)
 
 
 def prefill(params: DenseParams, tokens: torch.Tensor, cfg: ModelConfig,

@@ -35,8 +35,8 @@ class GraphedDecodeStep:
     """``decode_step`` for one batch size, captured as a CUDA graph.
 
     The static buffers live as long as the object: the tokens (B,) int64,
-    a ``DecodeState`` whose caches and ``pos`` the graph advances in place,
-    the logits (B, V) and their argmax.  The weights are read in place, so
+    a ``DecodeState`` whose kv caches, SSM state (h, conv) and ``pos`` the
+    graph advances in place, the logits (B, V) and their argmax.  The weights are read in place, so
     an in-place update of them shows in the next replay.
 
     Capture records the kernel wrappers' Python once, so each wrapper's
@@ -119,7 +119,8 @@ class ServeEngine:
         self._graphs: dict = {}
 
     def kv_cache_bytes(self, batch: int) -> int:
-        """Bytes of the decode state's caches for ``batch`` sequences.
+        """Bytes of the decode state's caches for ``batch`` sequences: every
+        leaf, the kv caches and their scales and the SSM state (h, conv).
 
         Counted on PyTorch's meta device: shapes and dtypes, no allocation.
         """
@@ -128,8 +129,7 @@ class ServeEngine:
             state = transformer.init_decode_state(self.cfg, self.rc, batch,
                                                   device="meta")
             cached = sum(t.numel() * t.element_size()
-                         for layer in state.caches for t in layer
-                         if t is not None)
+                         for t in transformer.cache_leaves(state))
             self._kv_bytes[batch] = cached
         return cached
 

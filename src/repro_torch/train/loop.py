@@ -13,8 +13,8 @@ Port of ``repro.train.loop`` on one device:
 * checkpoints use the reference's layout (``checkpoint.ckpt``), so a run can
   resume from the reference's checkpoints and the reverse.
 
-The reference's elastic re-mesh on restore needs the distributed slice
-(ROADMAP Queue 1 item 9).
+The reference's elastic re-mesh on restore needs the distributed slice,
+which is not ported yet.
 """
 from __future__ import annotations
 

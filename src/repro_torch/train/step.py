@@ -3,9 +3,9 @@
 Port of ``repro.train.step`` on its plain gradient path: one device,
 ``loss.backward()`` for the reference's ``jax.value_and_grad``.  The
 reference's compressed cross-pod path (``rc.grad_compress_bits`` on a mesh
-with several pods) needs the distributed slice; a mesh raises
-``NotImplementedError`` (ROADMAP Queue 1 item 9), and without one the
-reference, too, takes the plain path.
+with several pods) needs the distributed slice, not ported yet; a mesh
+raises ``NotImplementedError``, and without one the reference, too, takes
+the plain path.
 
 The step updates the parameters and moments in place (the reference's
 jitted step donates its state): the returned ``TrainState`` holds the same
@@ -59,8 +59,8 @@ def make_train_step(api: ModelApi, cfg: ModelConfig, rc: RunConfig, mesh=None):
     if mesh is not None:
         raise NotImplementedError(
             "a device mesh (sharding, the compressed cross-pod gradient "
-            "exchange) needs the distributed slice of the port (ROADMAP "
-            "Queue 1 item 9)")
+            "exchange) needs the distributed slice of the port, not ported "
+            "yet")
     acfg = adam_config(rc)
 
     def train_step(state: TrainState, batch) -> tuple:
@@ -100,7 +100,9 @@ def reference_tree(named: Mapping[str, torch.Tensor]) -> Attrs:
     its parts in the order the layers come, and the modules register their
     fields in the reference's order, but for a layer's, which
     ``LayerParams.FIELDS`` puts back.  Absent fields (tied unembedding, no
-    qkv bias, gelu's w_gate) are not parameters, so they are not leaves.
+    qkv bias, gelu's w_gate, a sublayer the family has not) are not
+    parameters, so they are not leaves, as ``None`` is none in the
+    reference's tree.
     """
     tree, stacks = Attrs(), {}
     for name, t in named.items():
@@ -114,7 +116,8 @@ def reference_tree(named: Mapping[str, torch.Tensor]) -> Attrs:
             _put(tree, ["layers", *path[2:]], stacks[key])
         stacks[key].parts.append(t)
     if "layers" in tree:
-        tree["layers"] = Attrs((f, tree["layers"][f]) for f in LayerParams.FIELDS)
+        tree["layers"] = Attrs((f, tree["layers"][f]) for f in LayerParams.FIELDS
+                               if f in tree["layers"])
     return tree
 
 
@@ -124,7 +127,7 @@ def checkpoint_tree(state: TrainState) -> Attrs:
     ``.params.layers.attn.wq`` and ``.opt.count``)."""
     if state.resid is not None:
         raise NotImplementedError("error-feedback residuals come with the "
-                                  "distributed slice (ROADMAP Queue 1 item 9)")
+                                  "distributed slice, not ported yet")
     return Attrs(params=reference_tree(dict(state.params.named_parameters())),
                  opt=Attrs(mu=reference_tree(state.opt.mu),
                            nu=reference_tree(state.opt.nu),

@@ -186,16 +186,16 @@ def test_reset_decode_state_equals_init(bits):
     state = api.init_decode_state(2)
     for tok in ([1, 2], [3, 4], [5, 6]):
         _, state = api.decode_step(params, state, torch.tensor(tok))
-    leaves = [t for c in state.caches for t in c if t is not None] + [state.pos]
+    leaves = list(transformer.cache_leaves(state)) + [state.pos]
     assert any(bool(t.any()) for t in leaves)
     ptrs = [t.data_ptr() for t in leaves]
     reset = transformer.reset_decode_state(state)
     fresh = api.init_decode_state(2)
-    got = [t for c in reset.caches for t in c if t is not None] + [reset.pos]
-    want = [t for c in fresh.caches for t in c if t is not None] + [fresh.pos]
+    got = list(transformer.cache_leaves(reset)) + [reset.pos]
+    want = list(transformer.cache_leaves(fresh)) + [fresh.pos]
     assert [t.data_ptr() for t in got] == ptrs
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.dtype == w.dtype and torch.equal(g, w)
-    assert [c.k_scale is None for c in reset.caches] == \
-        [c.k_scale is None for c in fresh.caches]
+    assert [c.kv.k_scale is None for c in reset.caches] == \
+        [c.kv.k_scale is None for c in fresh.caches]
