@@ -6,7 +6,7 @@ Run from the repository root, on a machine with an NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-Seven paths, each driven with the launch counts set to 0 just before it and
+Nine paths, each driven with the launch counts set to 0 just before it and
 read just after:
 
 * stencil and codec: a 2^26-cell f32 field (256 MiB, seeded with numpy)
@@ -43,7 +43,19 @@ read just after:
   likewise with the generate of mixtral's;
 * training hymba-1.5b and mamba2-130m at full size on train_4k's
   4096-token sequences, batch 8 (hymba: the windowed flash forward twice
-  and both windowed backward kernels once per layer).
+  and both windowed backward kernels once per layer);
+* serving whisper-tiny (encoder-decoder) at full size: a prefill of 32
+  clips of 1500 frame embeddings and 448 tokens (the non-causal flash
+  forward over the 1500 frames in each encoder layer, the causal one and
+  the cross-attention to the frames in each decoder layer) and a generate
+  of 32 prompts of 4 tokens, 444 new each, int8, through the replayed
+  graph (kv_quant_store once and kv_dequant twice a decoder layer and step;
+  the cross-attention over the cached cross K/V is torch ops, as in the
+  reference), then a short int4 generate;
+* training whisper-tiny at full size, 128 clips of 1500 frames and 448
+  tokens (the batch cut from Whisper's 256 by memory): the flash forward
+  twice and both backward kernels once per attention call (4 encoder, 4
+  decoder self, 4 cross).
 
 Phases, one JSON line each:
 
@@ -205,10 +217,36 @@ Phases, one JSON line each:
                5, 64), window 1024, each sequence held against the plain
                forward and ``flash_bwd_plain`` run on it alone (attention_bwd's
                rules), and timed beside SDPA's banded backward;
-22. the ``{"kernels": [...]}`` line, then the card line, then the result line.
+22. encdec_parity — whisper-tiny's smoke config with the same weights on the
+               card and on the CPU: ``prefill`` and ``decoder_forward``
+               logits, 24 decode steps from the zero state and again from
+               seeded cross K/V, a generate, at bits 16, 8 and 4, by
+               lm_parity's rules; ``loss_fn`` and every gradient with and
+               without remat (f32: each leaf within 1e-4 of its largest;
+               bf16: the loss and the gradient norm by train_parity's rules),
+               train_parity's 3 steps, in f32 and bf16; and one full-width
+               f32 layer each side at enc_seq 1500 and a 447-token decoder
+               (prefill, loss, every gradient);
+23. encdec_flash — the forward, dK/dV and dQ at whisper's three shapes
+               (B = 32; encoder 1500 x 1500 non-causal, cross 448 x 1500,
+               decoder 447 causal; G = 1), f32 and bf16, against their plain
+               versions on the whole batch (attention's and attention_bwd's
+               rules); the bf16 kernels timed beside the plain versions and
+               SDPA's forward and backward;
+24. encdec_serve — whisper-tiny's prefill (12 flash launches) and generate
+               (launches exact: 4 x steps kv_quant_store, 8 x steps
+               kv_dequant), tokens/s, capture, a profile of 8 replayed steps,
+               the read bound of a step (the decoder's weights and the cross
+               K/V); an int4 generate; the graph against eager on 15 steps
+               from the zero state and from seeded cross K/V (int8 and int4);
+25. encdec_train — train_run at whisper-tiny's size (flash launches 24 / 12
+               / 12 a step, checked exactly), and the warm-up batch's loss
+               lower after the steps than before;
+26. the ``{"kernels": [...]}`` line, then the card line, then the result line.
                The kv and flash rows add ``launches_by_path`` (their
                launches on every LM path run), the flash rows
-               ``at_hymba_window`` (the windowed times and bounds).
+               ``at_hymba_window`` (the windowed times and bounds) and
+               ``at_whisper_shapes`` (times and bounds at whisper's three).
 
 The three tensor-core rows (flash forward, dK/dV, dQ), the jacobi row, the
 two codec rows and the fused KV store's row also carry ``design``; the
@@ -247,7 +285,7 @@ from repro_torch.core import (blockcodec, executor, layout, mars,  # noqa: E402
 from repro_torch.kernels import (_build, bitplane, flash_attention,  # noqa: E402
                                  jacobi_mars, kvpack, ops, ref)
 from repro_torch.data.pipeline import SyntheticPipeline, device_batch  # noqa: E402
-from repro_torch.models import model_zoo, moe, transformer  # noqa: E402
+from repro_torch.models import encdec, model_zoo, moe, transformer  # noqa: E402
 from repro_torch.obs import report  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
 from repro_torch.train import step as train_step  # noqa: E402
@@ -355,6 +393,27 @@ HYBRID_ARCH, SSM_ARCH = "hymba-1.5b", "mamba2-130m"
 #: 1024-slot ring; the graph held to eager on steps 1016-1039 (the wrap)
 HYBRID_SEQ, HYBRID_LENS, HYBRID_NEW = 1280, (1000, 1101), 64
 HYBRID_LOCKSTEP, HYBRID_SKIP = 1040, 1016
+
+#: the encoder-decoder family: whisper-tiny's attention shapes as
+#: ((B, S, Sk, KV, G, D), causal): the encoder's self-attention over its
+#: 1500 frames (11 full 128-key tiles and a ragged one of 92), the
+#: cross-attention of 448 decoder queries to them, the decoder's causal
+#: self-attention at 447 (a ragged query tile); 6 heads, G = 1
+ENCDEC_ARCH, ENCDEC_SEQ = "whisper-tiny", 448
+ENCDEC_SHAPES = {"encoder": ((32, 1500, 1500, 6, 1, 64), False),
+                 "cross": ((32, 448, 1500, 6, 1, 64), False),
+                 "decoder": ((32, 447, 447, 6, 1, 64), True)}
+#: serving: 32 clips; prompts of 4 tokens, 444 new (the 448-slot cache
+#: full), int8; a short int4 run of 8 prompts, 60 new
+ENCDEC_SERVE_B, ENCDEC_PROMPT, ENCDEC_NEW = 32, 4, 444
+ENCDEC_INT4_B, ENCDEC_INT4_NEW = 8, 60
+#: training: the batch cut from Whisper's 256 segments to 128 by memory (the
+#: fused loss's f32 logits are B x 448 x 51865 x 4 bytes, 23.8 GB at 256,
+#: held several times over: 256 runs out of the card's 80 GB, 128 peaks at
+#: ~50 GiB); a peak rate at which the bf16 weights move within the
+#: warm-up's first steps (their updates at train_4k's 3e-4 round away)
+ENCDEC_TRAIN_B, ENCDEC_LR = 128, 1e-2
+GRAD_F32_REL = 1e-4          # each f32 gradient leaf, of its largest magnitude
 
 
 class CheckFailed(RuntimeError):
@@ -782,7 +841,10 @@ def launch_costs(fn, kernel_key: str, n: int = 200) -> dict:
     """Host us per call of a wrapper, and its kernel's own device us.
 
     CUDA events around one call of a tiny kernel time the wrapper's host
-    work as much as the kernel; these two numbers split that time.
+    work as much as the kernel; these two numbers split that time.  A
+    profiler session can come back with no device events (seen once on an
+    H100, the session after the serve phase's profiled graph replays): then
+    a fresh session runs, up to three (``profiler_sessions`` says how many).
     """
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -790,14 +852,18 @@ def launch_costs(fn, kernel_key: str, n: int = 200) -> dict:
     for _ in range(n):
         fn()
     host_us = (time.perf_counter() - t0) / n * 1e6
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
+    for sessions in range(1, 4):
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel_key in e.key and dev_us(e) > 0]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if kernel_key in e.key and dev_us(e) > 0]
+        if hits:
+            break
     return {"host_us_per_call": host_us,
-            "kernel_device_us": dev_us(hits[0]) / hits[0].count if hits else None}
+            "kernel_device_us": dev_us(hits[0]) / hits[0].count if hits else None,
+            "profiler_sessions": sessions}
 
 
 def device_profile(fn, watch: dict, top: int = 5) -> dict:
@@ -807,21 +873,26 @@ def device_profile(fn, watch: dict, top: int = 5) -> dict:
     start to last device-op end): the part of the device's own window in
     which no kernel, copy or fill ran.  Each top op's share is of the busy
     time.  ``watch`` maps a label to a substring of kernel names whose
-    device time is summed under that label (the port's own kernels).
+    device time is summed under that label (the port's own kernels).  A
+    session that comes back with no device events is taken again, fn run
+    once more, up to three sessions (``launch_costs`` says why).
     """
     from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for sessions in range(1, 4):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.time_range.end > e.time_range.start)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA
+                       and e.time_range.end > e.time_range.start)
+        if spans:
+            break
     if not spans:
         return {"profiled_wall_ms": wall_ms, "top_device_ops": None,
-                "device_idle_share": None,
+                "device_idle_share": None, "profiler_sessions": sessions,
                 "note": "the profiler recorded no device events: not measured"}
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s0, e0 in spans[1:]:
@@ -837,7 +908,8 @@ def device_profile(fn, watch: dict, top: int = 5) -> dict:
     ops_ = sorted((e for e in prof.key_averages()
                    if e.device_type == torch.autograd.DeviceType.CUDA),
                   key=dev_us, reverse=True)
-    return {"profiled_wall_ms": wall_ms, "device_window_ms": window_us / 1e3,
+    return {"profiled_wall_ms": wall_ms, "profiler_sessions": sessions,
+            "device_window_ms": window_us / 1e3,
             "device_busy_ms": busy / 1e3, "device_ops": len(spans),
             "device_idle_share": 1 - busy / window_us,
             "watched": {label: {
@@ -1020,41 +1092,48 @@ def phase_lm_init(dev) -> dict:
     return {"cfg": cfg, "rc": rc, "params": params}
 
 
-def prefill_run(dev, cfg, params, seed: int, watch: dict) -> tuple:
-    """A PREFILL_B x PREFILL_S prefill of seeded tokens: one warm-up (the
-    first use of the GEMM shapes), one timed, one profiled; flash launched
-    once a layer where the family has attention, else no kernel.
+def prefill_run(dev, cfg, params, seed: int, watch: dict,
+                batch: dict = None) -> tuple:
+    """A prefill of ``batch`` (the encoder-decoder's frames and tokens), by
+    default of PREFILL_B x PREFILL_S seeded tokens: one warm-up (the first
+    use of the GEMM shapes), one timed, one profiled; flash launched once an
+    attention call (``attention_calls``), else no kernel.
     -> (row, api, tokens)."""
-    rc = configs.RunConfig(seq_len=PREFILL_S, global_batch=PREFILL_B, kind="prefill")
+    if batch is None:
+        rng = np.random.default_rng(seed)
+        batch = {"tokens": torch.from_numpy(
+            rng.integers(0, cfg.vocab, (PREFILL_B, PREFILL_S))).to(dev)}
+    B, S = batch["tokens"].shape
+    rc = configs.RunConfig(seq_len=S, global_batch=B, kind="prefill")
     api = model_zoo.get_api(cfg, rc, dev)
-    rng = np.random.default_rng(seed)
-    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (PREFILL_B, PREFILL_S))).to(dev)
     t0 = time.perf_counter()
-    api.prefill(params, {"tokens": toks})
+    api.prefill(params, batch)
     torch.cuda.synchronize()
     warm_ms = (time.perf_counter() - t0) * 1e3
     torch.cuda.reset_peak_memory_stats(dev)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    lg = api.prefill(params, {"tokens": toks})
+    lg = api.prefill(params, batch)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     launches = ops.launch_counts()
     want = {k: 0 for k in launches}
-    if transformer._has_attn(cfg):
-        want["flash_attention.flash_fwd"] = cfg.n_layers
+    if attention_calls(cfg):
+        want["flash_attention.flash_fwd"] = attention_calls(cfg)
     check(launches == want, f"{cfg.name} prefill launched {launches}, want {want}")
-    check(tuple(lg.shape) == (PREFILL_B, cfg.vocab), f"logits {tuple(lg.shape)}")
+    check(tuple(lg.shape) == (B, cfg.vocab), f"logits {tuple(lg.shape)}")
     check(bool(torch.isfinite(lg).all()), f"{cfg.name}: non-finite prefill logits")
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    prof = device_profile(lambda: api.prefill(params, {"tokens": toks}), watch, top=8)
-    row = {"batch": PREFILL_B, "seq": PREFILL_S, "q_block": rc.q_block,
-           "kv_block": rc.kv_block,
-           "window": cfg.sliding_window if cfg.sliding_window < PREFILL_S else 0,
+    prof = device_profile(lambda: api.prefill(params, batch), watch, top=8)
+    row = {"batch": B, "seq": S, "q_block": rc.q_block, "kv_block": rc.kv_block,
+           "window": cfg.sliding_window if cfg.sliding_window < S else 0,
            "first_call_ms": warm_ms, "wall_ms": wall_ms,
-           "tokens_per_s": PREFILL_B * PREFILL_S / (wall_ms * 1e-3),
+           "tokens_per_s": B * S / (wall_ms * 1e-3),
            "launches": launches, "peak_GiB": peak, "logits": list(lg.shape), **prof}
-    return row, api, toks
+    if "frames" in batch:
+        row["frames"] = list(batch["frames"].shape)
+        row["frames_per_s"] = B * batch["frames"].shape[1] / (wall_ms * 1e-3)
+    return row, api, batch["tokens"]
 
 
 def phase_prefill(dev, lm: dict) -> dict:
@@ -1065,7 +1144,7 @@ def phase_prefill(dev, lm: dict) -> dict:
 
 
 def lockstep(engine: ServeEngine, prompts: list, max_new: int, dev,
-             skip: int = 0) -> dict:
+             skip: int = 0, fill=None) -> dict:
     """``generate``'s schedule run twice side by side from the same fresh
     state: the engine's CUDA graph replayed, and ``decode_step`` eagerly.
     The logits must be ``torch.equal`` at every step, the greedy tokens
@@ -1073,20 +1152,25 @@ def lockstep(engine: ServeEngine, prompts: list, max_new: int, dev,
     end.  Host ms a step (each ending in the argmax's copy to the host) for
     both.  With ``skip``, the graph runs the first ``skip`` steps alone and
     the eager state starts as a copy of the graph's there: the comparison
-    covers the steps from ``skip`` on (a ring's wrap, far into a sequence)."""
+    covers the steps from ``skip`` on (a ring's wrap, far into a sequence).
+    ``fill(state)``, where given, writes the same values into both fresh
+    states (the encoder-decoder's cross K/V)."""
     B, lens = len(prompts), [len(p) for p in prompts]
     total = max(lens) + max_new
     step = engine.graphed_step(B)
     step.reset()
     state = engine.api.init_decode_state(B)
+    leaves = engine.api.cache_leaves
+    if fill is not None:
+        fill(step.state)
+        fill(state)
     toks = {k: [[] for _ in range(B)] for k in ("graph", "eager")}
     cur = {k: np.array([p[0] for p in prompts], np.int64) for k in toks}
     ms = {k: [] for k in toks}
     equal = 0
     for t in range(total - 1):
         if t == skip and skip:
-            for a, b in zip(transformer.cache_leaves(state),
-                            transformer.cache_leaves(step.state)):
+            for a, b in zip(leaves(state), leaves(step.state)):
                 a.copy_(b)
             state.pos.copy_(step.state.pos)
             cur["eager"] = cur["graph"].copy()
@@ -1111,8 +1195,7 @@ def lockstep(engine: ServeEngine, prompts: list, max_new: int, dev,
                     if len(toks[k][i]) < max_new:
                         toks[k][i].append(int(model[k][i]))
     state_equal = torch.equal(step.state.pos, state.pos) and all(
-        torch.equal(a, b) for a, b in zip(transformer.cache_leaves(step.state),
-                                          transformer.cache_leaves(state)))
+        torch.equal(a, b) for a, b in zip(leaves(step.state), leaves(state)))
     compared = total - 1 - skip
     check(equal == compared, f"graph logits equal eager on {equal} of "
           f"{compared} steps")
@@ -1632,15 +1715,64 @@ def phase_attention(dev, prefill: dict, copy_rate: float) -> dict:
     return row
 
 
-def train_run(dev, arch: str) -> dict:
-    """One model at full size on train_4k's sequences, batch TRAIN_B, bf16
-    weights, f32 AdamW moments, remat: TRAIN_STEPS timed steps of
-    ``train.step.make_train_step`` (the step ``train.loop.train`` runs)
-    after a warm-up, launches checked exactly (flash forward twice a layer,
-    forward and remat recompute, and both backward kernels once, where the
-    family has attention), a profiled step."""
+def attention_calls(cfg) -> int:
+    """Flash attention calls in one forward: a layer's self-attention where
+    the family has attention; the encoder-decoder's encoder layers and its
+    decoder layers' self- and cross-attention."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers if transformer._has_attn(cfg) else 0
+
+
+def train_flops(cfg, params, batch: int, S: int) -> tuple:
+    """(model FLOPs a step, of which attention, the formula): 6 x weights x
+    the tokens each weight sees, plus 12 x H x D x keys scored a token.
+    Decoder-only: every weight sees the B x S tokens, a query scores k keys
+    (the mean under the window, (S + 1) / 2 causal).  Encoder-decoder: the
+    encoder's weights and the cross-attention's wk, wv see the B x enc_seq
+    frames, the rest the B x S tokens; the encoder scores enc_seq keys a
+    frame, the decoder (S + 1) / 2 causal and enc_seq across."""
+    HD = cfg.n_heads * cfg.hd
+    n = sum(p.numel() for p in params.parameters())
+    if cfg.family != "encdec":
+        attn = 0
+        if transformer._has_attn(cfg):
+            keys = band_pairs(S, cfg.sliding_window) / S
+            attn = int(12 * cfg.n_layers * HD * keys * batch * S)
+        return 6 * n * batch * S + attn, attn, (
+            "(6*N*tokens + 12*L*H*D*k*tokens) / step_s / 989e12, N the counted "
+            "parameters, k the mean keys a query scores (window-limited); the "
+            "SSD scan not counted")
+    E = cfg.enc_seq
+    n_frames = sum(p.numel() for p in params.enc_layers.parameters()) + \
+        params.enc_norm.numel() + sum(
+            lp.cross_attn.wk.numel() + lp.cross_attn.wv.numel()
+            for lp in params.dec_layers)
+    attn = int(12 * HD * (cfg.enc_layers * E * batch * E
+                          + cfg.n_layers * ((S + 1) / 2 + E) * batch * S))
+    return 6 * (n_frames * batch * E + (n - n_frames) * batch * S) + attn, attn, (
+        "(6*(N_f*frames + N_t*tokens) + 12*H*D*(L_enc*E*frames + "
+        "L_dec*((S+1)/2 + E)*tokens)) / step_s / 989e12, N_f the encoder's "
+        "weights and the cross wk, wv, N_t the rest, E = enc_seq")
+
+
+def train_run(dev, arch: str, batch: int = TRAIN_B, seq_len: int = 0,
+              lr: float = 0.0) -> dict:
+    """One model at full size, batch ``batch`` (cut from train_4k's 256),
+    on train_4k's sequences or ``seq_len``, bf16 weights, f32 AdamW
+    moments, remat: TRAIN_STEPS timed steps of ``train.step.make_train_step``
+    (the step ``train.loop.train`` runs) after a warm-up, launches checked
+    exactly (flash forward twice an attention call, forward and remat
+    recompute, and both backward kernels once), a profiled step.  With
+    ``lr`` (a peak rate over train_4k's), the loss on the warm-up's batch
+    after the steps must fall below the warm-up's loss."""
     cfg = configs.load_arch(arch)
-    rc = configs.run_config_for("train_4k", cfg, global_batch=TRAIN_B)
+    over = {"global_batch": batch}
+    if seq_len:
+        over["seq_len"] = seq_len
+    if lr:
+        over["lr"] = lr
+    rc = configs.run_config_for("train_4k", cfg, **over)
     check(rc.remat and rc.opt_dtype == "float32" and rc.param_dtype == "bfloat16",
           f"train config {rc}")
     api = model_zoo.get_api(cfg, rc, dev)
@@ -1652,6 +1784,7 @@ def train_run(dev, arch: str) -> dict:
     step_fn = train_step.make_train_step(api, cfg, rc)
     pipe = SyntheticPipeline(cfg, rc, seed=SEED)
     batches = [device_batch(pipe.next(), cfg, rc, dev) for _ in range(TRAIN_STEPS + 2)]
+    B = batch
     t0 = time.perf_counter()
     state, m = step_fn(state, batches[0])
     warm_loss = float(m["loss"])
@@ -1668,12 +1801,12 @@ def train_run(dev, arch: str) -> dict:
         gnorms.append(float(m["grad_norm"]))
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated(dev) / 2**30
-    L = cfg.n_layers
+    L, calls = cfg.n_layers, attention_calls(cfg)
     want = {k: 0 for k in launches}
-    if transformer._has_attn(cfg):
-        want.update({"flash_attention.flash_fwd": 2 * L * TRAIN_STEPS,
-                     "flash_attention.flash_bwd_dkv": L * TRAIN_STEPS,
-                     "flash_attention.flash_bwd_dq": L * TRAIN_STEPS})
+    if calls:
+        want.update({"flash_attention.flash_fwd": 2 * calls * TRAIN_STEPS,
+                     "flash_attention.flash_bwd_dkv": calls * TRAIN_STEPS,
+                     "flash_attention.flash_bwd_dq": calls * TRAIN_STEPS})
     check(launches == want, f"{arch} train launched {launches}, want {want}")
     check(all(np.isfinite(losses + gnorms)) and np.isfinite(warm_loss),
           f"{arch}: non-finite loss or grad norm: {losses}, {gnorms}")
@@ -1687,27 +1820,31 @@ def train_run(dev, arch: str) -> dict:
                                      "flash_bwd_dkv": "flash_bwd_dkv_sm90_kernel",
                                      "flash_bwd_dq": "flash_bwd_dq_sm90_kernel"}, top=8)
     step_ms = float(np.median(times))
-    tokens = TRAIN_B * rc.seq_len
-    attn_flops = 0
-    if transformer._has_attn(cfg):
-        mean_keys = band_pairs(rc.seq_len, cfg.sliding_window) / rc.seq_len
-        attn_flops = int(12 * L * cfg.n_heads * cfg.hd * mean_keys * tokens)
-    model_flops = 6 * n_params * tokens + attn_flops
+    tokens = B * rc.seq_len
+    model_flops, attn_flops, formula = train_flops(cfg, state.params, B, rc.seq_len)
+    extra = {}
+    if lr:
+        with torch.no_grad():
+            after = float(api.loss_fn(state.params, batches[0]))
+        check(np.isfinite(after) and after < warm_loss,
+              f"{arch}: the warm-up batch's loss went {warm_loss} -> {after}")
+        extra = {"lr": rc.lr, "warmup_batch_loss_after": after}
+    if cfg.family == "encdec":
+        extra.update(enc_layers=cfg.enc_layers, enc_seq=cfg.enc_seq,
+                     frames_per_step=B * cfg.enc_seq)
     del state, batches
     torch.cuda.empty_cache()
     return {"arch": arch, "n_layers": L, "d_model": cfg.d_model,
             "params": n_params, "param_count_formula": cfg.param_count(),
-            "batch": TRAIN_B, "seq": rc.seq_len,
+            "batch": B, "seq": rc.seq_len,
             "window": cfg.sliding_window, "tokens_per_step": tokens,
-            "reduced": {"global_batch": [256, TRAIN_B]},
+            "reduced": {"global_batch": [configs.SHAPES["train_4k"][1], B]},
             "remat": rc.remat, "param_dtype": rc.param_dtype,
             "opt_dtype": rc.opt_dtype, "init_s": init_s,
             "warmup_step_ms": warm_ms, "step_ms": times, "step_ms_median": step_ms,
             "tokens_per_s": tokens / (step_ms * 1e-3),
             "mfu": model_flops / (step_ms * 1e-3) / BF16_FLOPS_PER_S,
-            "mfu_formula": "(6*N*tokens + 12*L*H*D*k*tokens) / step_s / 989e12, "
-                           "N the counted parameters, k the mean keys a query "
-                           "scores (window-limited); the SSD scan not counted",
+            "mfu_formula": formula, **extra,
             "model_flops_per_step": model_flops, "attention_flops_per_step": attn_flops,
             "loss": [warm_loss] + losses, "grad_norm": gnorms, "peak_GiB": peak,
             "launches": launches,
@@ -2023,8 +2160,11 @@ def init_family(dev, cfg, rc) -> tuple:
     torch.cuda.synchronize()
     n = sum(p.numel() for p in params.parameters())
     nbytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    if cfg.family == "moe":
-        check(n == cfg.param_count(), f"{n} parameters, config says {cfg.param_count()}")
+    if cfg.family in ("moe", "encdec"):
+        # the encdec formula leaves out the encoder's final norm (d_model)
+        want = cfg.param_count() + (cfg.d_model if cfg.family == "encdec" else 0)
+        check(n == want, f"{n} parameters, want {want} (param_count() "
+              f"{cfg.param_count()})")
     return params, {"arch": cfg.name, "n_layers": cfg.n_layers,
                     "d_model": cfg.d_model, "params": n,
                     "param_count_formula": cfg.param_count(),
@@ -2074,30 +2214,33 @@ def band_pairs(S: int, window: int) -> int:
     return sum(min(q + 1, window) if window else q + 1 for q in range(S))
 
 
-def sdpa_band(q, k, v, window: int):
-    """SDPA with an explicit causal band mask on (B, S, KV, G, D) inputs,
-    heads expanded: (a function that runs it, the backend that ran)."""
+def sdpa_run(q, k, v, causal: bool, window: int = 0):
+    """SDPA on (B, S, KV, G, D) q and (B, Sk, KV, D) k, v, the kv heads
+    expanded to the query heads; a window as an explicit band mask, else
+    ``is_causal``: (a function that runs it, the backend that ran), the
+    first of cuDNN, flash, efficient, math that takes the shape."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     F = torch.nn.functional
     B, S, KV, G, D = q.shape
+    Sk = k.shape[1]
     qs = q.reshape(B, S, KV * G, D).transpose(1, 2)
-    ks = k[:, :, :, None].expand(B, S, KV, G, D).reshape(B, S, KV * G, D).transpose(1, 2)
-    vs = v[:, :, :, None].expand(B, S, KV, G, D).reshape(B, S, KV * G, D).transpose(1, 2)
-    mask = flash_attention._mask(S, S, True, window, q.device)
+    ks = k[:, :, :, None].expand(B, Sk, KV, G, D).reshape(B, Sk, KV * G, D).transpose(1, 2)
+    vs = v[:, :, :, None].expand(B, Sk, KV, G, D).reshape(B, Sk, KV * G, D).transpose(1, 2)
+    kw = ({"attn_mask": flash_attention._mask(S, Sk, causal, window, q.device)}
+          if window else {"is_causal": causal})
     for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
                     SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
         try:
             with sdpa_kernel([backend]):
-                F.scaled_dot_product_attention(qs[:1], ks[:1], vs[:1], attn_mask=mask)
+                F.scaled_dot_product_attention(qs[:1], ks[:1], vs[:1], **kw)
         except RuntimeError:
             continue
 
         def run(qs=qs, ks=ks, vs=vs, backend=backend):
             with sdpa_kernel([backend]):
-                return F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)
+                return F.scaled_dot_product_attention(qs, ks, vs, **kw)
         return run, backend.name
     return None, "none ran"
-
 
 def windowed_fwd(dev, shape: tuple, window: int, copy_rate: float) -> dict:
     """The bf16 flash forward with a sliding window at one layer's shape
@@ -2121,7 +2264,7 @@ def windowed_fwd(dev, shape: tuple, window: int, copy_rate: float) -> dict:
     plain_ms = time_ms(lambda: flash_attention.flash_attention_plain(
         q, k, v, True, window), reps=3)
     ms = time_ms(lambda: flash_attention.flash_fwd(q, k, v, True, window), reps=10)
-    lib, backend = sdpa_band(q, k, v, window)
+    lib, backend = sdpa_run(q, k, v, True, window)
     lib_ms = time_ms(lib, reps=10) if lib else None
     pairs = band_pairs(S, window)
     flops = 4 * B * KV * G * D * pairs
@@ -2248,7 +2391,7 @@ def windowed_bwd(dev, shape: tuple, window: int, copy_rate: float) -> dict:
     ms_dq = time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True, window), reps=5)
     qs = q.detach().requires_grad_()
     ks, vs = k.detach().requires_grad_(), v.detach().requires_grad_()
-    lib, backend = sdpa_band(qs, ks, vs, window)
+    lib, backend = sdpa_run(qs, ks, vs, True, window)
     lib_ms = None
     if lib:
         try:                                        # the yardstick only
@@ -2299,11 +2442,362 @@ def phase_families_train(dev, copy_rate: float) -> dict:
             "window_bwd": bwd["rows"]}
 
 
+# ---------------------------------------------------------------------------
+# The encoder-decoder family
+# ---------------------------------------------------------------------------
+
+def seeded_cross(seed: int):
+    """A fill for a fresh encoder-decoder decode state: its cross K/V set to
+    seeded N(0, 1) noise, drawn on the CPU, so every device gets the same
+    values (the serve path leaves them zero, as the reference does)."""
+    def fill(state):
+        g = torch.Generator().manual_seed(seed)
+        for t in (state.cross_k, state.cross_v):
+            t.copy_(torch.randn(t.shape, generator=g).to(t.dtype))
+    return fill
+
+
+def encdec_serve_parity(dev, cfg, dtype: str, bits: int, frames: np.ndarray,
+                        toks: np.ndarray, prompts: list) -> dict:
+    """The smoke config, the same weights on the card (kernels) and on the
+    CPU (plain paths): ``prefill`` and ``decoder_forward`` logits,
+    PARITY_STEPS decode steps from the zero state and again from seeded
+    cross K/V, and a generate.  serve_parity's rules: f32 within F32_TOL
+    (the CPU taking the card's cache code at a rounding tie, ``kv_ties``)
+    and identical tokens, bf16 within BF16_REL of the largest logit."""
+    B = toks.shape[0]
+    rc = configs.RunConfig(seq_len=PARITY_S, global_batch=B, kind="decode",
+                           param_dtype=dtype, kv_cache_bits=bits, q_block=16,
+                           kv_block=32)
+    order = ("cuda", "cpu")
+    apis = {d: model_zoo.get_api(cfg, rc, d) for d in order}
+    params = {"cpu": apis["cpu"].init(SEED)}
+    params["cuda"] = copy.deepcopy(params["cpu"]).to(dev)
+    fr = {d: torch.from_numpy(frames).to(d, rc.torch_dtype) for d in order}
+    t = {d: torch.from_numpy(toks).to(d) for d in order}
+    errs, scales = {}, {}
+
+    def record(key: str, out: dict) -> None:
+        errs[key] = float((out["cuda"] - out["cpu"]).abs().max())
+        scales[key] = float(out["cpu"].abs().max())
+
+    ties = kv_ties() if dtype == "float32" else contextlib.nullcontext()
+    with ties, torch.no_grad():
+        record("prefill", {d: apis[d].prefill(
+            params[d], {"frames": fr[d], "tokens": t[d]}).float().cpu() for d in order})
+        record("decoder_forward", {d: encdec.decoder_forward(
+            params[d], t[d], encdec.encode(params[d], fr[d], cfg, rc), cfg,
+            rc).float().cpu() for d in order})
+        for cross in ("zero", "seeded"):
+            states = {d: apis[d].init_decode_state(B) for d in order}
+            if cross == "seeded":
+                for d in order:
+                    seeded_cross(SEED + 16)(states[d])
+            for i in range(PARITY_STEPS):
+                lg = {}
+                for d in order:
+                    out, states[d] = apis[d].decode_step(params[d], states[d],
+                                                         t[d][:, i])
+                    lg[d] = out.float().cpu()
+                record(f"decode_{cross}_{i}", lg)
+    gen = {d: ServeEngine(cfg, rc, params=params[d], device=d).generate(
+        prompts, max_new=PARITY_NEW) for d in order}
+    rule = {k: F32_TOL if dtype == "float32" else BF16_REL * scales[k] for k in errs}
+    past = [k for k in errs if errs[k] > rule[k]]
+    ok = not past and (dtype != "float32" or gen["cuda"] == gen["cpu"])
+    row = {"dtype": dtype, "kv_cache_bits": bits, "prefill_err": errs["prefill"],
+           "decoder_forward_err": errs["decoder_forward"],
+           "decode_zero_cross_max_err": max(errs[f"decode_zero_{i}"]
+                                            for i in range(PARITY_STEPS)),
+           "decode_seeded_cross_max_err": max(errs[f"decode_seeded_{i}"]
+                                              for i in range(PARITY_STEPS)),
+           "max_rel_err": max(errs[k] / scales[k] for k in errs),
+           "past_rule": past,
+           "kv_code_ties_followed": ties.ties if dtype == "float32" else None,
+           "tokens_equal": gen["cuda"] == gen["cpu"], "ok": ok}
+    check(ok, f"encdec serve parity {row}")
+    return row
+
+
+def encdec_grad_parity(dev, cfg, dtype: str, remat: bool, B: int, S: int,
+                       seed: int) -> dict:
+    """``prefill`` logits, ``loss_fn`` and every gradient on the card (the
+    flash kernels forward and backward) against the CPU (plain paths), the
+    same weights and seeded inputs.  f32: logits and loss within F32_TOL,
+    each gradient leaf within GRAD_F32_REL of its largest magnitude; bf16:
+    the logits within BF16_REL of the largest, train_parity's rules on the
+    loss (TRAIN_BF16_REL) and the gradient norm (TRAIN_BF16_GN_REL), each
+    leaf's error reported.  The card launches the forward once an attention
+    call (twice with remat) and each backward kernel once."""
+    rc = configs.RunConfig(seq_len=S, global_batch=B, kind="train",
+                           param_dtype=dtype, q_block=16, kv_block=32, remat=remat)
+    order = ("cuda", "cpu")
+    apis = {d: model_zoo.get_api(cfg, rc, d) for d in order}
+    params = {"cpu": apis["cpu"].init(SEED)}
+    params["cuda"] = copy.deepcopy(params["cpu"]).to(dev)
+    rng = np.random.default_rng(seed)
+    frames = (rng.standard_normal((B, cfg.enc_seq, cfg.d_model)) * 0.5).astype(np.float32)
+    toks, labels = rng.integers(0, cfg.vocab, (2, B, S))
+    logits, loss, grads = {}, {}, {}
+    for d in order:
+        batch = {"frames": torch.from_numpy(frames).to(d, rc.torch_dtype),
+                 "tokens": torch.from_numpy(toks).to(d),
+                 "labels": torch.from_numpy(labels).to(d)}
+        logits[d] = apis[d].prefill(params[d], batch).float().cpu()
+        ops.reset_launch_counts()
+        out = apis[d].loss_fn(params[d], batch)
+        out.backward()
+        if d == "cuda":
+            launches = ops.launch_counts()
+        loss[d] = float(out.detach())
+        grads[d] = {n: p.grad.float().cpu() for n, p in params[d].named_parameters()}
+    calls = attention_calls(cfg)
+    want = {k: 0 for k in launches}
+    want.update({"flash_attention.flash_fwd": calls * (2 if remat else 1),
+                 "flash_attention.flash_bwd_dkv": calls,
+                 "flash_attention.flash_bwd_dq": calls})
+    check(launches == want, f"encdec loss/grad launched {launches}, want {want}")
+    lg_err = float((logits["cuda"] - logits["cpu"]).abs().max())
+    lg_scale = float(logits["cpu"].abs().max())
+    leaf = {n: float((grads["cuda"][n] - g).abs().max() / g.abs().max().clamp_min(1e-30))
+            for n, g in grads["cpu"].items()}
+    gn = {d: float(torch.sqrt(sum((g * g).sum() for g in grads[d].values())))
+          for d in order}
+    gn_rel = abs(gn["cuda"] - gn["cpu"]) / gn["cpu"]
+    loss_err = abs(loss["cuda"] - loss["cpu"])
+    if dtype == "float32":
+        ok = lg_err <= F32_TOL and loss_err <= F32_TOL and max(leaf.values()) <= GRAD_F32_REL
+    else:
+        ok = (lg_err <= BF16_REL * lg_scale and loss_err / abs(loss["cpu"]) <= TRAIN_BF16_REL
+              and gn_rel <= TRAIN_BF16_GN_REL)
+    worst = max(leaf, key=leaf.get)
+    row = {"config": cfg.name, "enc_layers": cfg.enc_layers, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "batch": B, "dec_seq": S, "enc_seq": cfg.enc_seq,
+           "dtype": dtype, "remat": remat, "prefill_err": lg_err,
+           "prefill_rel_err": lg_err / lg_scale, "loss_cuda": loss["cuda"],
+           "loss_cpu": loss["cpu"], "loss_err": loss_err, "grad_norm_rel_err": gn_rel,
+           "grad_leaves": len(leaf), "grad_leaf_max_rel_err": leaf[worst],
+           "grad_leaf_worst": worst, "launches": launches, "ok": ok}
+    check(ok, f"encdec loss/grad parity {row}")
+    return row
+
+
+def phase_encdec_parity(dev) -> None:
+    """whisper-tiny's smoke config on the card against the CPU: serving at
+    bits 16, 8 and 4 (zero and seeded cross K/V), loss and every gradient
+    with and without remat, train_parity's 3 steps, in f32 and bf16; and one
+    full-width f32 layer each side at enc_seq 1500 and a 447-token decoder,
+    so the ragged key and query tiles are held end to end."""
+    cfg = configs.load_smoke(ENCDEC_ARCH)
+    rng = np.random.default_rng(SEED + 22)
+    frames = (rng.standard_normal((PARITY_B, cfg.enc_seq, cfg.d_model)) * 0.5).astype(
+        np.float32)
+    toks = rng.integers(0, cfg.vocab, (PARITY_B, PARITY_S))
+    prompts = [toks[i, :n].tolist() for i, n in enumerate((5, 17, 24, 9))]
+    serve = [encdec_serve_parity(dev, cfg, dtype, bits, frames, toks, prompts)
+             for dtype in ("float32", "bfloat16") for bits in (16, 8, 4)]
+    grads = [encdec_grad_parity(dev, cfg, dtype, remat, PARITY_B, PARITY_S - 1, SEED + 23)
+             for dtype in ("float32", "bfloat16") for remat in (False, True)]
+    trained = [train_parity(dev, cfg, dtype) for dtype in ("float32", "bfloat16")]
+    wide = dataclasses.replace(configs.load_arch(ENCDEC_ARCH), n_layers=1, enc_layers=1)
+    full = encdec_grad_parity(dev, wide, "float32", False, 2, ENCDEC_SEQ - 1, SEED + 24)
+    emit({"phase": "encdec_parity", "config": cfg.name, "batch": PARITY_B,
+          "seq": PARITY_S, "decode_steps": PARITY_STEPS, "max_new": PARITY_NEW,
+          "f32_tol": F32_TOL, "bf16_rel_tol": BF16_REL, "grad_f32_rel_tol": GRAD_F32_REL,
+          "serve": serve, "loss_and_grads": grads,
+          "train": {"steps": 3, "f32_tol": TRAIN_F32_TOL, "bf16_rel_tol": TRAIN_BF16_REL,
+                    "bf16_grad_norm_rel_tol": TRAIN_BF16_GN_REL, "results": trained},
+          "full_width_one_layer": full})
+
+
+def phase_encdec_flash(dev, copy_rate: float) -> dict:
+    """The flash forward, dK/dV and dQ at whisper-tiny's three attention
+    shapes (ENCDEC_SHAPES), f32 and bf16, against their plain versions on the
+    whole batch (f32: o and lse within FLASH_F32_TOL, gradients within
+    BWD_REL_TOL of their largest magnitude; bf16: o within FLASH_BF16_TOL and
+    its tiles within FLASH_BF16_REL, lse within FLASH_LSE_TOL, gradients
+    within BWD_BF16_TOL); the bf16 kernels timed beside their plain versions
+    and SDPA forward and backward.  -> {shape label: {kernel: timed row}}."""
+    fa = flash_attention
+    cfg = configs.load_arch(ENCDEC_ARCH)
+    check((cfg.enc_seq, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.hd)
+          == (1500, 6, 1, 64), "whisper-tiny's attention shape")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 18)
+    out, lines = {}, {}
+    for label, ((B, S, Sk, KV, G, D), causal) in ENCDEC_SHAPES.items():
+        line = {"shape": [B, S, Sk, KV, G, D], "causal": causal}
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, do = [torch.randn(sh, generator=gen, device=dev).to(dt) for sh in
+                           ((B, S, KV, G, D), (B, Sk, KV, D), (B, Sk, KV, D),
+                            (B, S, KV, G, D))]
+            o, lse = fa.flash_fwd(q, k, v, causal, 0)
+            op, lp = fa.flash_attention_plain(q, k, v, causal, 0)
+            e_o, e_l = max_abs_diff(o.float(), op.float()), max_abs_diff(lse, lp)
+            e_r = tile_rel_err(o, op)
+            del op, lp
+            got = fa.flash_bwd(q, k, v, o, lse, do, causal, 0)
+            want = fa.flash_bwd_plain(q, k, v, o, lse, do, causal, 0)
+            rel = [max_abs_diff(g.float(), w.float()) / float(w.float().abs().max())
+                   for g, w in zip(got, want)]
+            del got, want
+            bf16 = dt == torch.bfloat16
+            name = "bfloat16" if bf16 else "float32"
+            line[name] = {"o_err": e_o, "lse_err": e_l, "o_tile_rel_err": e_r,
+                          "rel_err_dq_dk_dv": rel}
+            if bf16:
+                ok = (e_o < FLASH_BF16_TOL and e_l < FLASH_LSE_TOL
+                      and e_r < FLASH_BF16_REL and max(rel) < BWD_BF16_TOL)
+            else:
+                ok = e_o < FLASH_F32_TOL and e_l < FLASH_F32_TOL and max(rel) < BWD_REL_TOL
+            check(ok, f"flash at whisper's {label} shape {line['shape']} {name}: "
+                  f"{line[name]}")
+            if not bf16:
+                continue
+            delta = fa.bwd_delta(o, do)
+            ms = {"flash_attention.flash_fwd": time_ms(
+                      lambda: fa.flash_fwd(q, k, v, causal, 0), reps=10),
+                  "flash_attention.flash_bwd_dkv": time_ms(
+                      lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, 0), reps=10),
+                  "flash_attention.flash_bwd_dq": time_ms(
+                      lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, 0), reps=10)}
+            plain_fwd = time_ms(lambda: fa.flash_attention_plain(q, k, v, causal, 0), reps=3)
+            plain_bwd = time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, causal, 0),
+                                reps=3)
+            qs = q.detach().requires_grad_()
+            ks, vs = k.detach().requires_grad_(), v.detach().requires_grad_()
+            lib, backend = sdpa_run(qs, ks, vs, causal)
+            lib_fwd = lib_bwd = None
+            if lib:
+                lib_fwd = time_ms(lib, reps=10)
+                try:                                # the yardstick only
+                    os_ = lib()
+                    dos = do.reshape(B, S, KV * G, D).transpose(1, 2)
+                    lib_bwd = time_ms(lambda: torch.autograd.grad(
+                        os_, (qs, ks, vs), dos, retain_graph=True), reps=10)
+                    del os_, dos
+                except RuntimeError as e:
+                    backend = f"{backend}: backward failed: {e}"[:300]
+            del qs, ks, vs
+            pairs = band_pairs(S, 0) if causal else S * Sk
+            H = KV * G
+            io = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + \
+                4 * (lse.numel() + delta.numel())
+            rows = {}
+            for kname, nbytes, nflops, plain_ms, lib_ms in (
+                    ("flash_attention.flash_fwd",
+                     2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel(),
+                     4 * B * H * D * pairs, plain_fwd, lib_fwd),
+                    ("flash_attention.flash_bwd_dkv", io + 2 * 2 * k.numel(),
+                     8 * B * H * D * pairs, plain_bwd, lib_bwd),
+                    ("flash_attention.flash_bwd_dq", io + 2 * q.numel(),
+                     6 * B * H * D * pairs, plain_bwd, lib_bwd)):
+                r = {"shape": line["shape"], "causal": causal, "ms": ms[kname],
+                     "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "library_backend": backend,
+                     **bound(nbytes, nflops, copy_rate, BF16_FLOPS_PER_S),
+                     "tflops_per_s": nflops / (ms[kname] * 1e-3) / 1e12}
+                r["share_of_bound"] = r["bound_ms"] / ms[kname]
+                rows[kname] = r
+            line["timed_bf16"] = rows
+            out[label] = rows
+            del q, k, v, do, o, lse, delta
+            torch.cuda.empty_cache()
+        lines[label] = line
+    emit({"phase": "encdec_flash", "tol": {"f32": FLASH_F32_TOL, "f32_bwd_rel": BWD_REL_TOL,
+                                           "bf16_o": FLASH_BF16_TOL, "lse": FLASH_LSE_TOL,
+                                           "bf16_o_tile_rel": FLASH_BF16_REL,
+                                           "bf16_bwd_rel": BWD_BF16_TOL},
+          "plain_note": "the plain backward computes dq, dk, dv together; the "
+                        "library's backward likewise (SDPA, heads as they are: G = 1)",
+          "shapes": lines})
+    return out
+
+
+def phase_encdec_serve(dev) -> dict:
+    """whisper-tiny at full size, bf16: a prefill of ENCDEC_SERVE_B clips
+    (frames and ENCDEC_SEQ tokens); a generate through the graphed step at
+    int8 (prompts of ENCDEC_PROMPT tokens, ENCDEC_NEW new, the cache full at
+    the end) and a short one at int4; the graph held to eager
+    ``decode_step`` from the zero state and from seeded cross K/V."""
+    cfg = configs.load_arch(ENCDEC_ARCH)
+    B = ENCDEC_SERVE_B
+    rc = configs.RunConfig(seq_len=ENCDEC_SEQ, global_batch=B, kind="decode",
+                           kv_cache_bits=8)
+    params, facts = init_family(dev, cfg, rc)
+    gen_ = torch.Generator(device=dev)
+    gen_.manual_seed(SEED + 19)
+    batch = {"frames": (torch.randn((B, cfg.enc_seq, cfg.d_model), generator=gen_,
+                                    device=dev) * 0.02).to(rc.torch_dtype),
+             "tokens": torch.randint(0, cfg.vocab, (B, ENCDEC_SEQ), generator=gen_,
+                                     device=dev)}
+    pre, _, _ = prefill_run(dev, cfg, params, SEED, {"flash": "flash_fwd_sm90_kernel"},
+                            batch)
+    del batch
+    rng = np.random.default_rng(SEED + 20)
+    prompts = serve_prompts(rng, cfg, [ENCDEC_PROMPT] * B)
+    gen, engine = generate_run(dev, cfg, rc, params, prompts, ENCDEC_NEW)
+    check(gen["decode_steps"] == ENCDEC_SEQ - 1, f"{gen['decode_steps']} steps")
+    # a step reads the decoder's weights and the tied table, not the
+    # encoder's, and the cross K/V (besides the self-attention cache)
+    state = engine.graphed_step(B).state
+    read = {"decode_weights": sum(p.numel() * p.element_size() for n, p in
+                                  params.named_parameters()
+                                  if not n.startswith(("enc_layers.", "enc_norm"))),
+            "cross_kv": sum(t.numel() * t.element_size()
+                            for t in (state.cross_k, state.cross_v))}
+    read_bytes = sum(read.values())
+    gen.update(read_bytes=read, weights_cross_kv_bound_ms=read_bytes / HBM_BYTES_PER_S * 1e3)
+    gen["share_of_read_bound"] = gen["weights_cross_kv_bound_ms"] / gen["step_ms"]
+
+    rc4 = dataclasses.replace(rc, kv_cache_bits=4)
+    engine4 = ServeEngine(cfg, rc4, params=params, device=str(dev))
+    short = prompts[:ENCDEC_INT4_B]
+    capture4_ms = captured(engine4, ENCDEC_INT4_B)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    out4 = engine4.generate(short, max_new=ENCDEC_INT4_NEW)
+    torch.cuda.synchronize()
+    wall4_ms = (time.perf_counter() - t0) * 1e3
+    launches4 = ops.launch_counts()
+    steps4 = ENCDEC_PROMPT + ENCDEC_INT4_NEW - 1
+    check_serve_launches(launches4, cfg.n_layers, steps4)
+    check([len(t) for t in out4] == [ENCDEC_INT4_NEW] * ENCDEC_INT4_B,
+          "int4 generated lengths")
+
+    ls = {"int8_zero_cross": lockstep(engine, prompts, 12, dev),
+          "int8_seeded_cross": lockstep(engine, prompts, 12, dev,
+                                        fill=seeded_cross(SEED + 21)),
+          "int4_seeded_cross": lockstep(engine4, short, 12, dev,
+                                        fill=seeded_cross(SEED + 21))}
+    check(all(r["steps"] == ENCDEC_PROMPT + 11 for r in ls.values()),
+          f"lockstep steps {[r['steps'] for r in ls.values()]}")
+    emit({"phase": "encdec_serve", **facts, "enc_layers": cfg.enc_layers,
+          "enc_seq": cfg.enc_seq, "prefill": pre, "generate": gen,
+          "kv_cache_bytes_int4": engine4.kv_cache_bytes(ENCDEC_INT4_B),
+          "int4": {"batch": ENCDEC_INT4_B, "decode_steps": steps4,
+                   "wall_ms": wall4_ms, "step_ms": wall4_ms / steps4,
+                   "capture_ms": capture4_ms, "launches": launches4},
+          "graph_vs_eager": {k: {kk: vv for kk, vv in v.items() if kk != "tokens"}
+                             for k, v in ls.items()}})
+    return {"prefill": pre["launches"], "generate": gen["launches"]}
+
+
+def phase_encdec_train(dev) -> dict:
+    """whisper-tiny at full size: ENCDEC_TRAIN_B clips of enc_seq frames and
+    ENCDEC_SEQ tokens, bf16 weights, f32 AdamW moments, remat; train_run's
+    warm-up, timed steps and profile, the loss falling."""
+    row = train_run(dev, ENCDEC_ARCH, batch=ENCDEC_TRAIN_B, seq_len=ENCDEC_SEQ,
+                    lr=ENCDEC_LR)
+    emit({"phase": "encdec_train", **row})
+    return {"launches": row["launches"]}
+
+
 def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
                      paths: dict) -> None:
     """The kv and flash rows of the kernels line: their launches on every LM
     path run (``launches`` stays the first path's), and the flash rows'
-    windowed times at hymba's shapes."""
+    windowed times at hymba's shapes and times at whisper-tiny's three."""
     by_path = {
         "granite8b_prefill": prefill["launches"],
         "granite8b_generate": serve["launches"],
@@ -2315,7 +2809,10 @@ def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
         "mamba2_prefill": paths["ssm_serve"]["prefill"],
         "mamba2_generate": paths["ssm_serve"]["generate"],
         "hymba_train_3_steps": paths["families_train"]["hybrid"],
-        "mamba2_train_3_steps": paths["families_train"]["ssm"]}
+        "mamba2_train_3_steps": paths["families_train"]["ssm"],
+        "whisper_prefill": paths["encdec_serve"]["prefill"],
+        "whisper_generate": paths["encdec_serve"]["generate"],
+        "whisper_train_3_steps": paths["encdec_train"]["launches"]}
     windowed = {"flash_attention.flash_fwd": paths["hybrid_serve"]["window_fwd"],
                 **paths["families_train"]["window_bwd"]}
     keep = ("shape", "window", "ms", "plain_ms", "library_ms", "library_backend",
@@ -2325,6 +2822,11 @@ def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
             r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
         if r["name"] in windowed:
             r["at_hymba_window"] = {k: windowed[r["name"]][k] for k in keep}
+        if r["name"].startswith("flash_attention."):
+            r["at_whisper_shapes"] = {
+                label: {k: v for k, v in rows_[r["name"]].items()
+                        if k in keep + ("causal",)}
+                for label, rows_ in paths["encdec_flash"].items()}
 
 
 def main() -> int:
@@ -2369,6 +2871,14 @@ def main() -> int:
     paths["ssm_serve"] = phase_ssm_serve(dev)
     torch.cuda.empty_cache()
     paths["families_train"] = phase_families_train(dev, copy_rate)
+    torch.cuda.empty_cache()
+
+    phase_encdec_parity(dev)
+    paths["encdec_flash"] = phase_encdec_flash(dev, copy_rate)
+    torch.cuda.empty_cache()
+    paths["encdec_serve"] = phase_encdec_serve(dev)
+    torch.cuda.empty_cache()
+    paths["encdec_train"] = phase_encdec_train(dev)
     add_family_paths(rows, prefill, serve, trained, paths)
     emit({"kernels": [{k: v for k, v in r.items()
                        if k != "copy_bound_ms"}

@@ -7,7 +7,7 @@
 * ``codec_config``: a port ``BlockCodecConfig`` from any object with the
   reference config's fields (``bits``, ``block``, ``delta``);
 * ``params_from_jax``: the port's model parameters from the reference's
-  ``DenseParams`` tree with numpy leaves;
+  ``DenseParams`` or ``EncDecParams`` tree with numpy leaves;
 * ``state_from_jax``: the port's ``TrainState`` from the reference's
   (params, AdamW moments and count, step) with numpy leaves.
 
@@ -47,21 +47,24 @@ def codec_config(cfg) -> BlockCodecConfig:
 
 
 def params_from_jax(tree, cfg, device: str | torch.device = "cuda"):
-    """The port's ``DenseParams`` from the reference's, leaf for leaf.
+    """The port's ``DenseParams`` (or ``EncDecParams``) from the reference's,
+    leaf for leaf.
 
-    ``tree`` is the reference's ``transformer.DenseParams`` after
-    ``np.asarray`` on every leaf (``jax.tree.map(np.asarray, params)``); it
-    is read by field name.  Its stacked ``[n_layers, ...]`` leaves are split
-    per layer; a field the family has not (``None``) stays ``None``.
-    Weights keep the ``(in, out)`` orientation, so ``x @ wq`` is the same
-    product.  The decoder-only families (dense, vlm, moe, ssm, hybrid).
+    ``tree`` is the reference's ``transformer.DenseParams`` or
+    ``encdec.EncDecParams`` after ``np.asarray`` on every leaf
+    (``jax.tree.map(np.asarray, params)``); it is read by field name.  Its
+    stacked ``[n_layers, ...]`` leaves (``enc_layers`` and ``dec_layers``
+    for the encoder-decoder family) are split per layer; a field the family
+    has not (``None``) stays ``None``.  Weights keep the ``(in, out)``
+    orientation, so ``x @ wq`` is the same product.  Every family.
     """
+    from repro_torch.models import encdec
     from repro_torch.models import layers as L
     from repro_torch.models import moe as M
     from repro_torch.models import ssm as S
     from repro_torch.models import transformer
 
-    transformer.check_family(cfg)
+    transformer.check_family(cfg, decoder_only=False)
 
     def t(a):
         return None if a is None else to_torch(a, device)
@@ -73,9 +76,23 @@ def params_from_jax(tree, cfg, device: str | torch.device = "cuda"):
         return None if node is None else cls(
             **{f: at(getattr(node, f), i) for f in node._fields})
 
-    e, ly = tree.embed, tree.layers
+    e = tree.embed
     embed = L.EmbedParams(table=t(e.table), unembed=t(e.unembed),
                           final_norm=t(e.final_norm))
+    if cfg.family == "encdec":
+        attn = {"attn", "self_attn", "cross_attn"}
+
+        def layer(cls, node, i):
+            return cls(**{f: module(L.AttnParams, getattr(node, f), i) if f in attn
+                          else module(L.MlpParams, node.mlp, i) if f == "mlp"
+                          else at(getattr(node, f), i) for f in cls.FIELDS})
+        return encdec.EncDecParams(
+            embed, [layer(encdec.EncLayer, tree.enc_layers, i)
+                    for i in range(cfg.enc_layers)],
+            t(tree.enc_norm),
+            [layer(encdec.DecLayer, tree.dec_layers, i)
+             for i in range(cfg.n_layers)])
+    ly = tree.layers
     layers = [transformer.LayerParams(
         ln1=at(ly.ln1, i), attn=module(L.AttnParams, ly.attn, i),
         ssm=module(S.SsmParams, ly.ssm, i), ln_attn_out=at(ly.ln_attn_out, i),

@@ -18,9 +18,14 @@ so ``x @ wq`` is the same product.
 * ``fused_ce_loss`` checkpoints each sequence chunk
   (``torch.utils.checkpoint``), as the reference's ``@jax.checkpoint``.
 
+* ``cross_attention`` (the encoder-decoder family) dispatches as
+  ``attention`` does: the non-causal flash kernels on a CUDA tensor, at a
+  key length (the encoder's) other than the query length; the blockwise
+  path on a CPU tensor, with the reference's single-block rule for ragged
+  shapes.  The reference runs it blockwise on every backend.
+
 The reference's sharding hooks (``shd.act``, ``checkpoint_name``, the
-``tp_scatter`` out-projection) have no counterpart yet; ``cross_attention``
-comes with the encoder-decoder family, which is not ported yet.
+``tp_scatter`` out-projection) have no counterpart yet.
 """
 from __future__ import annotations
 
@@ -224,6 +229,28 @@ def attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
         o = og.reshape(B, S, -1, cfg.hd)
     else:
         o = blockwise_attention(q, k, v, causal=causal, window=window,
+                                q_block=qb, kv_block=kb)
+    return o.reshape(B, S, -1) @ p.wo
+
+
+def cross_attention(x: torch.Tensor, memory: torch.Tensor, p: AttnParams,
+                    cfg: ModelConfig, q_block: int, kv_block: int) -> torch.Tensor:
+    """Encoder-decoder cross attention: q from x (B, S, d), k and v from the
+    encoder's ``memory`` (B, M, d); no RoPE on either side, no mask, and no
+    bias (the reference reads only the four weights)."""
+    B, S, _ = x.shape
+    M = memory.shape[1]
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = (x @ p.wq).reshape(B, S, H, hd)
+    k = (memory @ p.wk).reshape(B, M, KV, hd)
+    v = (memory @ p.wv).reshape(B, M, KV, hd)
+    if x.device.type == "cuda":
+        o = fa.flash_attention(_grouped(q, KV), k, v, causal=False, window=0)
+    else:
+        qb, kb = min(q_block, S), min(kv_block, M)
+        if S % qb or M % kb:
+            qb, kb = S, M  # tiny shapes: single block
+        o = blockwise_attention(q, k, v, causal=False, window=0,
                                 q_block=qb, kv_block=kb)
     return o.reshape(B, S, -1) @ p.wo
 

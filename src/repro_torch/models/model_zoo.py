@@ -1,9 +1,11 @@
 """Unified model API: config -> init / loss / prefill / decode / input specs.
 
-Port of ``repro.models.model_zoo`` for the decoder-only families (dense,
-vlm, moe, ssm, hybrid); the encoder-decoder family raises
-``NotImplementedError``.  The reference's ``abstract_params``, ``param_specs`` and ``decode_state_specs``
+Port of ``repro.models.model_zoo`` for every family: the encoder-decoder
+family runs in ``encdec``, the decoder-only ones in ``transformer``.  The
+reference's ``abstract_params``, ``param_specs`` and ``decode_state_specs``
 serve its sharding and dry-run tooling, which the port does not have yet.
+The port adds ``cache_leaves`` and ``reset_decode_state``, which the
+serving engine's CUDA graph needs (the reference rebuilds its state).
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import Callable, Dict, NamedTuple, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from . import transformer
+from . import encdec, transformer
 
 
 class ModelApi(NamedTuple):
@@ -21,6 +23,8 @@ class ModelApi(NamedTuple):
     prefill: Callable            # (params, batch) -> logits (B, V)
     decode_step: Callable        # (params, state, tokens) -> (logits, state)
     init_decode_state: Callable  # (batch) -> state
+    cache_leaves: Callable       # (state) -> every tensor of it but pos
+    reset_decode_state: Callable  # (state) -> the state, zeroed in place
 
 
 def get_api(cfg: ModelConfig, rc: RunConfig, device="cuda") -> ModelApi:
@@ -30,30 +34,35 @@ def get_api(cfg: ModelConfig, rc: RunConfig, device="cuda") -> ModelApi:
     with ``seed``.  ``loss_fn`` is differentiable; ``prefill`` and
     ``decode_step`` run without autograd.
     """
-    transformer.check_family(cfg)
+    transformer.check_family(cfg, decoder_only=False)
     dtype = rc.torch_dtype
+    m = encdec if cfg.family == "encdec" else transformer
 
     def init(seed: int):
         gen = torch.Generator(device=device)
         gen.manual_seed(seed)
-        return transformer.init(gen, cfg, dtype)
+        return m.init(gen, cfg, dtype)
 
     @torch.no_grad()
     def prefill(params, batch):
+        if m is encdec:
+            return encdec.prefill(params, batch, cfg, rc)
         return transformer.prefill(params, batch["tokens"], cfg, rc,
                                    vis_embeds=batch.get("vis_embeds"))
 
     @torch.no_grad()
     def decode_step(params, state, tokens):
-        return transformer.decode_step(params, state, tokens, cfg, rc)
+        return m.decode_step(params, state, tokens, cfg, rc)
 
     return ModelApi(
         init=init,
-        loss_fn=lambda params, batch: transformer.loss_fn(params, batch, cfg, rc),
+        loss_fn=lambda params, batch: m.loss_fn(params, batch, cfg, rc),
         prefill=prefill,
         decode_step=decode_step,
-        init_decode_state=lambda batch: transformer.init_decode_state(
-            cfg, rc, batch, device),
+        init_decode_state=lambda batch: m.init_decode_state(cfg, rc, batch,
+                                                            device),
+        cache_leaves=m.cache_leaves,
+        reset_decode_state=m.reset_decode_state,
     )
 
 

@@ -9,8 +9,8 @@ hybrid; hybrid averages the two branches after a norm each), an MLP
 ``None``.  With ``rc.remat`` each layer runs under
 ``torch.utils.checkpoint`` while autograd records (the reference's
 ``"full"`` policy: nothing saved, all recomputed).  The encoder-decoder
-family (``models/encdec.py`` in the reference) is not ported yet and raises
-``NotImplementedError``.
+family is ``models/encdec.py``; the functions here refuse its configs
+(``check_family``), and ``model_zoo.get_api`` dispatches to either module.
 """
 from __future__ import annotations
 
@@ -25,16 +25,23 @@ from . import layers as L
 from . import moe as M
 from . import ssm as S
 
-#: families whose model this slice of the port runs
-PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
+#: the reference's model families, all ported; the last runs in
+#: ``models/encdec.py``, the others here
+PORTED_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
 
 
-def check_family(cfg: ModelConfig) -> None:
+def check_family(cfg: ModelConfig, decoder_only: bool = True) -> None:
+    """Raise on a family the port does not know, and (``decoder_only``) on
+    the encoder-decoder family, whose model is ``models/encdec.py``."""
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet (the "
-            f"encoder-decoder family comes with models/encdec.py); ported: "
+            f"{cfg.name}: unknown family {cfg.family!r}; ported: "
             f"{', '.join(PORTED_FAMILIES)}")
+    if decoder_only and cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name} is an encoder-decoder model: models.transformer runs "
+            f"the decoder-only families; use models.encdec (model_zoo.get_api "
+            f"picks the module by family)")
 
 
 def _has_attn(cfg: ModelConfig) -> bool:

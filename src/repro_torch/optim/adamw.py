@@ -77,9 +77,15 @@ def global_norm(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(torch.sum(torch.square(x.to(F32))) for x in leaves))
 
 
+#: the name prefixes of the per-layer lists, stacked in the reference
+STACKED_PREFIXES = ("layers.", "enc_layers.", "dec_layers.")
+
+
 def stacked_rank(name: str, p: torch.Tensor) -> int:
-    """The rank of ``p``'s leaf in the reference, whose layers are stacked."""
-    return p.dim() + (1 if name.startswith("layers.") else 0)
+    """The rank of ``p``'s leaf in the reference, whose layers are stacked
+    (the decoder-only ``layers``, the encoder-decoder's ``enc_layers`` and
+    ``dec_layers``)."""
+    return p.dim() + (1 if name.startswith(STACKED_PREFIXES) else 0)
 
 
 @torch.no_grad()

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import ops
-from repro_torch.models import model_zoo, transformer
+from repro_torch.models import model_zoo
 from repro_torch.obs import instrument as obs
 
 
@@ -35,9 +35,10 @@ class GraphedDecodeStep:
     """``decode_step`` for one batch size, captured as a CUDA graph.
 
     The static buffers live as long as the object: the tokens (B,) int64,
-    a ``DecodeState`` whose kv caches, SSM state (h, conv) and ``pos`` the
-    graph advances in place, the logits (B, V) and their argmax.  The weights are read in place, so
-    an in-place update of them shows in the next replay.
+    the model's decode state (kv caches, SSM state (h, conv) or the
+    encoder-decoder's cross K/V, and ``pos``), which the graph advances in
+    place, the logits (B, V) and their argmax.  The weights are read in
+    place, so an in-place update of them shows in the next replay.
 
     Capture records the kernel wrappers' Python once, so each wrapper's
     ``launches`` counts the kernels it put in the graph once more at every
@@ -48,6 +49,7 @@ class GraphedDecodeStep:
     def __init__(self, api: model_zoo.ModelApi, params, batch: int, device):
         dev = torch.device(device)
         self.params = params
+        self._reset_state = api.reset_decode_state
         with torch.cuda.device(dev):
             self.tokens = torch.zeros((batch,), dtype=torch.int64, device=dev)
             self.state = api.init_decode_state(batch)
@@ -79,7 +81,7 @@ class GraphedDecodeStep:
 
     def reset(self) -> None:
         """Back to a fresh ``init_decode_state``, in place."""
-        transformer.reset_decode_state(self.state)
+        self._reset_state(self.state)
 
     def __call__(self, tokens: torch.Tensor):
         """One step on (B,) tokens: the static (logits, argmax) buffers."""
@@ -120,16 +122,16 @@ class ServeEngine:
 
     def kv_cache_bytes(self, batch: int) -> int:
         """Bytes of the decode state's caches for ``batch`` sequences: every
-        leaf, the kv caches and their scales and the SSM state (h, conv).
+        leaf, the kv caches and their scales, the SSM state (h, conv), the
+        encoder-decoder's cross K/V (two tensors).
 
         Counted on PyTorch's meta device: shapes and dtypes, no allocation.
         """
         cached = self._kv_bytes.get(batch)
         if cached is None:
-            state = transformer.init_decode_state(self.cfg, self.rc, batch,
-                                                  device="meta")
+            api = model_zoo.get_api(self.cfg, self.rc, "meta")
             cached = sum(t.numel() * t.element_size()
-                         for t in transformer.cache_leaves(state))
+                         for t in api.cache_leaves(api.init_decode_state(batch)))
             self._kv_bytes[batch] = cached
         return cached
 

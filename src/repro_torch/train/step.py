@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.checkpoint.ckpt import Attrs, Stacked
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.models.encdec import DecLayer, EncDecParams, EncLayer
 from repro_torch.models.model_zoo import ModelApi
 from repro_torch.models.transformer import LayerParams
 from repro_torch.optim import adamw
@@ -91,40 +92,59 @@ def _put(tree: Attrs, path: List[str], leaf: Any) -> None:
     tree[path[-1]] = leaf
 
 
+#: each per-layer list of the port, stacked in the reference, with the
+#: reference's field order of one layer
+STACKED = {"layers": LayerParams.FIELDS, "enc_layers": EncLayer.FIELDS,
+           "dec_layers": DecLayer.FIELDS}
+#: the reference's order of the top-level fields of every family's tree
+#: (``DenseParams``: embed, layers; ``EncDecParams``: its FIELDS)
+TOP_FIELDS = ("embed", "layers") + EncDecParams.FIELDS[1:]
+
+
+def _ordered(node: Attrs, fields) -> Attrs:
+    """``node`` with ``fields`` first, in their order, then the rest."""
+    return Attrs([(f, node[f]) for f in fields if f in node]
+                 + [(k, v) for k, v in node.items() if k not in fields])
+
+
 def reference_tree(named: Mapping[str, torch.Tensor]) -> Attrs:
     """Tensors keyed by the port's parameter names, as the reference's
-    ``DenseParams`` tree: the ``layers.<i>.<path>`` tensors become one
-    ``Stacked`` leaf at ``layers.<path>``, other names nest on their dots.
+    ``DenseParams`` or ``EncDecParams`` tree: the ``<list>.<i>.<path>``
+    tensors of each per-layer list (``layers``, ``enc_layers``,
+    ``dec_layers``) become one ``Stacked`` leaf at ``<list>.<path>``, other
+    names nest on their dots.
 
     ``named`` must be in ``named_parameters()`` order: a Stacked leaf takes
     its parts in the order the layers come, and the modules register their
-    fields in the reference's order, but for a layer's, which
-    ``LayerParams.FIELDS`` puts back.  Absent fields (tied unembedding, no
-    qkv bias, gelu's w_gate, a sublayer the family has not) are not
-    parameters, so they are not leaves, as ``None`` is none in the
-    reference's tree.
+    fields in the reference's order, but for a module's own parameters (a
+    layer's norms, ``enc_norm``), which ``named_parameters`` lists first:
+    ``STACKED`` and ``TOP_FIELDS`` put the reference's order back.  Absent
+    fields (tied unembedding, no qkv bias, gelu's w_gate, a sublayer the
+    family has not) are not parameters, so they are not leaves, as ``None``
+    is none in the reference's tree.
     """
     tree, stacks = Attrs(), {}
     for name, t in named.items():
         path = name.split(".")
-        if path[0] != "layers":
+        if path[0] not in STACKED:
             _put(tree, path, t)
             continue
-        key = ".".join(path[2:])
+        key = (path[0], *path[2:])
         if key not in stacks:
             stacks[key] = Stacked([])
-            _put(tree, ["layers", *path[2:]], stacks[key])
+            _put(tree, list(key), stacks[key])
         stacks[key].parts.append(t)
-    if "layers" in tree:
-        tree["layers"] = Attrs((f, tree["layers"][f]) for f in LayerParams.FIELDS
-                               if f in tree["layers"])
-    return tree
+    for node, fields in STACKED.items():
+        if node in tree:
+            tree[node] = _ordered(tree[node], fields)
+    return _ordered(tree, TOP_FIELDS)
 
 
 def checkpoint_tree(state: TrainState) -> Attrs:
     """The state as the reference's ``TrainState`` tree, for
     ``CheckpointManager.save`` and ``restore`` (leaf paths such as
-    ``.params.layers.attn.wq`` and ``.opt.count``)."""
+    ``.params.layers.attn.wq``, ``.params.dec_layers.cross_attn.wq`` and
+    ``.opt.count``)."""
     if state.resid is not None:
         raise NotImplementedError("error-feedback residuals come with the "
                                   "distributed slice, not ported yet")

@@ -81,12 +81,22 @@ def test_configs_equal_reference(arch):
     assert tbase.ARCH_IDS == jbase.ARCH_IDS and tbase.SHAPES == jbase.SHAPES
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny"])
-def test_unported_families_raise(arch):
-    cfg = tbase.load_smoke(arch)
+@pytest.mark.parametrize("load", ["load_arch", "load_smoke"])
+def test_get_api_builds_encdec_and_transformer_refuses_it(load):
+    """``get_api`` builds whisper-tiny on the CPU (the encoder-decoder
+    module); the decoder-only functions of ``transformer`` refuse its config."""
+    cfg = getattr(tbase, load)("whisper-tiny")
     rc = tbase.RunConfig(seq_len=16, global_batch=1, kind="decode")
-    with pytest.raises(NotImplementedError, match="encoder-decoder family"):
-        model_zoo.get_api(cfg, rc, "cpu")
+    api = model_zoo.get_api(cfg, rc, "cpu")
+    state = api.init_decode_state(1)
+    assert tuple(state.cross_k.shape) == (cfg.n_layers, 1, cfg.enc_seq,
+                                          cfg.n_kv_heads, cfg.hd)
+    gen = torch.Generator().manual_seed(0)
+    for call in (lambda: transformer.init(gen, cfg),
+                 lambda: transformer.init_decode_state(cfg, rc, 1, "cpu"),
+                 lambda: transformer.check_family(cfg)):
+        with pytest.raises(ValueError, match="encoder-decoder model"):
+            call()
 
 
 # -- layers --------------------------------------------------------------------
