@@ -6,7 +6,7 @@ Run from the repository root, on a machine with an NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-Nine paths, each driven with the launch counts set to 0 just before it and
+Ten paths, each driven with the launch counts set to 0 just before it and
 read just after:
 
 * stencil and codec: a 2^26-cell f32 field (256 MiB, seeded with numpy)
@@ -55,7 +55,15 @@ read just after:
 * training whisper-tiny at full size, 128 clips of 1500 frames and 448
   tokens (the batch cut from Whisper's 256 by memory): the flash forward
   twice and both backward kernels once per attention call (4 encoder, 4
-  decoder self, 4 cross).
+  decoder self, 4 cross);
+* training tinyllama-1.1b at full size on two ranks of the one card (two
+  processes, a gloo group: NCCL refuses two ranks on one GPU), the mesh
+  (2, 1, 1) over (pod, data, model), a global batch of 4 x 4096 tokens
+  (2 a pod), 3 steps each at ``grad_compress_bits`` 0, 8 and 16 through
+  ``train.step.make_train_step(..., mesh)``: at 8 and 16 the paper's
+  compressed cross-pod exchange (quantize, bitplane-pack, gather the packed
+  planes and scales, dequantize the pods' mean) with error feedback; the
+  flash forward twice and both backward kernels once per layer and step.
 
 Phases, one JSON line each:
 
@@ -242,11 +250,32 @@ Phases, one JSON line each:
 25. encdec_train — train_run at whisper-tiny's size (flash launches 24 / 12
                / 12 a step, checked exactly), and the warm-up batch's loss
                lower after the steps than before;
-26. the ``{"kernels": [...]}`` line, then the card line, then the result line.
+26. dist_codec — ``distributed.collectives.quantize_tree`` and
+               ``dequant_mean_tree`` on a full-size tinyllama gradient tree
+               (bf16 gradients and f32 residuals of seeded noise, the
+               reference-view stacked leaves) at bits 4, 8 and 16: ms of the
+               whole tree's quantize-and-pack and unpack-and-dequantize,
+               ``exchange_stats`` (leaves, raw and wire bytes, reduction)
+               and the bytes' bound; the same on the CPU (in a thread beside
+               the next phase's ranks) bit-equal: planes, scales, residuals;
+27. dist     — the two ranks above (each process is this script run as
+               ``--dist-rank <r> <dir>``): every rank's losses equal, the
+               flash launches exact, the bytes each compressed step sent
+               equal to ``ExchangeStats.wire_bytes``, the last loss at bits
+               16 within 0.1 of bits 0's and at 8 within 0.35
+               (tests/_distributed_main.py); after the bits-8 steps each
+               rank's parameters and residuals ``torch.equal`` to a
+               one-process emulation on the card (each pod's backward in
+               turn, ``quantize_tree``, ``dequant_mean_tree``, AdamW); step
+               ms, the exchange's pieces timed one at a time (quantize-and-
+               pack, wire, dequant-mean; at bits 0 the f32 all-reduce),
+               peak memory per rank; a failing rank fails the run;
+28. the ``{"kernels": [...]}`` line, then the card line, then the result line.
                The kv and flash rows add ``launches_by_path`` (their
                launches on every LM path run), the flash rows
                ``at_hymba_window`` (the windowed times and bounds) and
-               ``at_whisper_shapes`` (times and bounds at whisper's three).
+               ``at_whisper_shapes`` (times and bounds at whisper's three);
+               ``launches_by_path`` counts both ranks of the dist path.
 
 The three tensor-core rows (flash forward, dK/dV, dQ), the jacobi row, the
 two codec rows and the fused KV store's row also carry ``design``; the
@@ -267,9 +296,11 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -279,15 +310,19 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import obs  # noqa: E402
+from repro_torch.checkpoint.ckpt import Stacked, flatten, map_tree  # noqa: E402
 from repro_torch.configs import base as configs  # noqa: E402
 from repro_torch.core import (blockcodec, executor, layout, mars,  # noqa: E402
                               stencil, transfer)
 from repro_torch.kernels import (_build, bitplane, flash_attention,  # noqa: E402
                                  jacobi_mars, kvpack, ops, ref)
 from repro_torch.data.pipeline import SyntheticPipeline, device_batch  # noqa: E402
+from repro_torch.distributed import collectives  # noqa: E402
+from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import encdec, model_zoo, moe, transformer  # noqa: E402
 from repro_torch.obs import report  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.train import step as train_step  # noqa: E402
 from repro_torch.train.loop import LoopConfig, train  # noqa: E402
 
@@ -414,6 +449,23 @@ ENCDEC_INT4_B, ENCDEC_INT4_NEW = 8, 60
 #: warm-up's first steps (their updates at train_4k's 3e-4 round away)
 ENCDEC_TRAIN_B, ENCDEC_LR = 128, 1e-2
 GRAD_F32_REL = 1e-4          # each f32 gradient leaf, of its largest magnitude
+
+#: the distributed path: tinyllama-1.1b at full size on two ranks of the
+#: one card, the mesh (2, 1, 1) over (pod, data, model), gloo (NCCL refuses
+#: two ranks on one GPU); train_4k's sequences, the global batch cut from
+#: 256 to 4 (2 a pod) by time; 3 steps at each bits
+DIST_ARCH, DIST_SHAPE = TRAIN_ARCH, (2, 1, 1)
+DIST_NAMES = ("pod", "data", "model")
+DIST_B, DIST_STEPS, DIST_BITS = 4, 3, (0, 8, 16)
+DIST_EQUAL_BITS = 8          # held torch.equal to the one-process emulation
+#: the last loss within these of bits 0's (tests/_distributed_main.py: 0.1
+#: at 16 bits, 0.35 at 8)
+DIST_TRACK = {16: 0.1, 8: 0.35}
+DIST_CODEC_BITS = (4, 8, 16)
+#: CPU threads of the codec's CPU run, beside the two ranks, and of each
+#: rank (which only stages the exchange through host memory): 8 cores
+DIST_CPU_THREADS, DIST_RANK_THREADS = 6, 1
+DIST_TIMEOUT_S = 600
 
 
 class CheckFailed(RuntimeError):
@@ -2793,6 +2845,393 @@ def phase_encdec_train(dev) -> dict:
     return {"launches": row["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# The distributed path: the compressed cross-pod exchange on two ranks
+# ---------------------------------------------------------------------------
+
+def dist_config(bits: int = 0) -> tuple:
+    cfg = configs.load_arch(DIST_ARCH)
+    return cfg, configs.run_config_for("train_4k", cfg, global_batch=DIST_B,
+                                       grad_compress_bits=bits)
+
+
+def full_size_shapes(cfg, rc) -> list:
+    """(name, shape, dtype) of every parameter at full size, from fake
+    tensors (nothing allocated)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    api = model_zoo.get_api(cfg, rc, "cpu")
+    with FakeTensorMode():
+        params = api.init(SEED)
+    return [(n, tuple(p.shape), p.dtype) for n, p in params.named_parameters()]
+
+
+def parts(tree) -> list:
+    """Every tensor of a reference-view tree, in leaf order."""
+    return [p for _, leaf in flatten(tree)
+            for p in (leaf.parts if isinstance(leaf, Stacked) else [leaf])]
+
+
+def on_pods(*trees):
+    """Trees of one pod each -> one tree with a leading pod dimension, as
+    ``collectives.exchange`` returns them."""
+    def stack(*ts):
+        if isinstance(ts[0], Stacked):
+            return Stacked([torch.stack([t.parts[k] for t in ts])
+                            for k in range(len(ts[0].parts))], ts[0].axis)
+        return torch.stack(ts)
+    return map_tree(stack, *trees)
+
+
+def codec_outputs(grads: dict, resid: dict, bits: int) -> tuple:
+    """``quantize_tree`` of the whole tree (one pod): the planes, scales and
+    raw-leaf trees; the new residuals are written into ``resid``."""
+    planes, scales, raw, _ = collectives.quantize_tree(
+        train_step.reference_tree(grads), train_step.reference_tree(resid), bits)
+    return planes, scales, raw
+
+
+def phase_dist_codec(dev, smi: str) -> tuple:
+    """The exchange's codec on a full-size tinyllama gradient tree (bf16
+    gradients, f32 residuals of seeded noise) on the card at each bits;
+    returns the inputs and the card's outputs on the host, for the CPU run."""
+    cfg, rc = dist_config()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    grads, resid = {}, {}
+    for n, shape, dt in full_size_shapes(cfg, rc):
+        grads[n] = (torch.randn(shape, generator=gen, device=dev) * 1e-3).to(dt)
+        resid[n] = torch.randn(shape, generator=gen, device=dev) * 1e-5
+    host_in = ({n: t.cpu() for n, t in grads.items()},
+               {n: t.cpu() for n, t in resid.items()})
+    g_tree = train_step.reference_tree(grads)
+    n_values = sum(t.numel() for t in grads.values())
+    rows, outputs = {}, {}
+    for bits in DIST_CODEC_BITS:
+        stats = collectives.exchange_stats(g_tree, bits)
+        codec_outputs(grads, {n: t.clone() for n, t in resid.items()}, bits)
+        r = {n: t.clone() for n, t in resid.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        planes, scales, raw = codec_outputs(grads, r, bits)
+        torch.cuda.synchronize()
+        q_ms = (time.perf_counter() - t0) * 1e3
+        one_pod = (on_pods(planes), on_pods(scales))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean = collectives.dequant_mean_tree(g_tree, *one_pod, raw, bits, 1)
+        torch.cuda.synchronize()
+        d_ms = (time.perf_counter() - t0) * 1e3
+        check(all(bool(torch.isfinite(t).all()) for t in parts(mean)),
+              f"bits {bits}: non-finite dequantized gradients")
+        # bytes: read g (bf16) and resid, write planes, scales and resid;
+        # dequant: read planes and scales, write the gradients (bf16)
+        packed = stats.wire_bytes - 4 * sum(
+            t.numel() for t in parts(raw) if t is not None)
+        q_bytes = n_values * (2 + 4 + 4) + packed
+        d_bytes = packed + 2 * n_values
+        outputs[bits] = {
+            "planes": [t.view(torch.int32).cpu() for t in parts(planes)],
+            "scales": [t.cpu() for t in parts(scales)],
+            "resid": {n: t.cpu() for n, t in r.items()}}
+        rows[bits] = {
+            "quantize_pack_ms": q_ms, "unpack_dequant_ms": d_ms,
+            "quantize_bound_ms": q_bytes / HBM_BYTES_PER_S * 1e3,
+            "dequant_bound_ms": d_bytes / HBM_BYTES_PER_S * 1e3,
+            "stats": {**dataclasses.asdict(stats), "reduction": stats.reduction}}
+        del planes, scales, raw, mean, one_pod, r
+    del grads, resid, g_tree
+    torch.cuda.empty_cache()
+    emit({"phase": "dist_codec", "arch": DIST_ARCH, "values": n_values,
+          "bits": rows, "bound": "bytes over 3.35 TB/s (data sheet)",
+          "nvidia_smi": smi})
+    return host_in, outputs
+
+
+def dist_codec_cpu(host_in: tuple, outputs: dict, result: dict) -> None:
+    """The same codec on the CPU, held bit-equal to the card's outputs
+    (planes, scales, new residuals); runs beside the two ranks."""
+    try:
+        grads, resid = host_in
+        for bits in DIST_CODEC_BITS:
+            r = {n: t.clone() for n, t in resid.items()}
+            t0 = time.perf_counter()
+            planes, scales, _ = codec_outputs(grads, r, bits)
+            want = outputs[bits]
+            result[bits] = {
+                "cpu_s": time.perf_counter() - t0,
+                "planes_equal": all(torch.equal(a.view(torch.int32), b) for a, b in
+                                    zip(parts(planes), want["planes"], strict=True)),
+                "scales_equal": all(torch.equal(a, b) for a, b in
+                                    zip(parts(scales), want["scales"], strict=True)),
+                "resid_equal": all(torch.equal(r[n], want["resid"][n]) for n in r)}
+            del planes, scales, r
+    except Exception as e:  # reported, and failed, by the phase
+        result["error"] = repr(e)
+
+
+def dist_exchange_split(api, state, batch, bits: int, mesh) -> dict:
+    """One more backward, then the exchange's pieces one at a time (device
+    synchronised between): quantize-and-pack, wire, dequant-mean; at bits 0
+    the f32 all-reduce of the gradients."""
+    params = dict(state.params.named_parameters())
+    for p in params.values():
+        p.grad = None
+    api.loss_fn(state.params, batch).backward()
+    grads = {n: p.grad for n, p in params.items()}
+    out = {}
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize()
+        out[label] = (time.perf_counter() - t0) * 1e3
+        return value
+
+    if bits == 0:
+        timed("allreduce_ms", lambda: train_step._average(
+            list(grads.values()), mesh.get_group(("pod", "data")), mesh.size(("pod", "data"))))
+    else:
+        group = mesh.get_group("pod")
+        r = {n: t[0].clone() for n, t in state.resid.items()}
+        planes, scales, raw, _ = timed("quantize_pack_ms", lambda: collectives.quantize_tree(
+            train_step.reference_tree(grads), train_step.reference_tree(r), bits, group))
+        planes, scales = timed("wire_ms", lambda: collectives.exchange(planes, scales, group))
+        timed("dequant_mean_ms", lambda: collectives.dequant_mean_tree(
+            train_step.reference_tree(params), planes, scales, raw, bits,
+            mesh.shape["pod"]))
+    for p in params.values():
+        p.grad = None
+    return out
+
+
+def dist_emulate(cfg, rc, api, dev) -> tuple:
+    """The two ranks' compressed steps in one process: each pod's backward
+    on its rows in turn, then ``quantize_tree``, the pods' planes stacked
+    as the exchange stacks them, ``dequant_mean_tree`` and AdamW.  Returns
+    the parameters and the residuals (n_pods, ...) by name."""
+    n_pods, bits = DIST_SHAPE[0], rc.grad_compress_bits
+    state = train_step.init_state(api, rc, SEED)
+    params = dict(state.params.named_parameters())
+    resid = collectives.init_residuals(params, n_pods)
+    names = train_step.reference_tree({n: n for n in params})
+    acfg, opt = train_step.adam_config(rc), state.opt
+    pipe = SyntheticPipeline(cfg, rc, seed=SEED)
+    rows = rc.global_batch // n_pods
+    for _ in range(DIST_STEPS):
+        batch_np = pipe.next()
+        planes, scales, raws = [], [], []
+        for i in range(n_pods):
+            batch = device_batch({k: v[i * rows:(i + 1) * rows] for k, v in batch_np.items()},
+                                 cfg, rc, dev)
+            for p in params.values():
+                p.grad = None
+            api.loss_fn(state.params, batch).backward()
+            grads = {n: p.grad for n, p in params.items()}
+            p_, s_, raw, _ = collectives.quantize_tree(
+                train_step.reference_tree(grads),
+                train_step.reference_tree({n: r[i] for n, r in resid.items()}), bits)
+            planes.append(p_)
+            scales.append(s_)
+            raws.append(map_tree(lambda t: Stacked([x.float() for x in t.parts], t.axis)
+                                 if isinstance(t, Stacked) else t.float(), raw))
+        for p in params.values():
+            p.grad = None
+
+        def pod_mean(*ts):
+            if isinstance(ts[0], Stacked):
+                return Stacked([collectives.pod_mean(torch.stack([t.parts[k] for t in ts]),
+                                                     rc.torch_dtype)
+                                for k in range(len(ts[0].parts))], ts[0].axis)
+            return collectives.pod_mean(torch.stack(ts), rc.torch_dtype)
+        mean = collectives.dequant_mean_tree(
+            train_step.reference_tree(params), on_pods(*planes), on_pods(*scales),
+            map_tree(pod_mean, *raws), bits, n_pods)
+        grads = dict(train_step._by_name(names, mean))
+        _, opt = adamw.update(grads, opt, params, acfg, adamw.global_norm(grads.values()))
+    return params, resid
+
+
+def dist_compare(cfg, rc, api, state, mesh, dev) -> dict:
+    """Each rank's parameters and residuals after the steps against the
+    one-process emulation (rank 0 runs it): ``torch.equal``, leaf by leaf."""
+    import torch.distributed as dist
+    state.opt.mu.clear()              # the moments are not compared: room
+    state.opt.nu.clear()
+    torch.cuda.empty_cache()
+    emu = None
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        emu = dist_emulate(cfg, rc, api, dev)
+    emulate_s = time.perf_counter() - t0
+    dist.barrier()
+    mismatched = []
+    params = dict(state.params.named_parameters())
+    for n, p in params.items():
+        both = (collectives.all_gather(p.detach(), None),
+                collectives.all_gather(state.resid[n][0], None))
+        if emu is not None:
+            for r in range(both[0].shape[0]):
+                if not torch.equal(both[0][r], emu[0][n].detach()):
+                    mismatched.append(f"param {n} rank {r}")
+                if not torch.equal(both[1][r], emu[1][n][r]):
+                    mismatched.append(f"resid {n} rank {r}")
+    del emu
+    torch.cuda.empty_cache()
+    return {"emulate_s": emulate_s, "leaves": len(params),
+            "mismatched": mismatched if mesh.rank == 0 else None}
+
+
+def dist_run(dev, mesh, bits: int) -> dict:
+    """DIST_STEPS steps of ``make_train_step`` on this rank's rows at
+    ``bits``; at DIST_EQUAL_BITS the comparison with the emulation; then
+    the exchange's pieces timed."""
+    cfg, rc = dist_config(bits)
+    check(rc.remat and rc.opt_dtype == "float32" and rc.param_dtype == "bfloat16",
+          f"dist config {rc}")
+    api = model_zoo.get_api(cfg, rc, dev)
+    state = train_step.init_state(api, rc, SEED, mesh)
+    step = train_step.make_train_step(api, cfg, rc, mesh)
+    pipe = SyntheticPipeline(cfg, rc, seed=SEED)
+    batches = [device_batch(pipe.next(), cfg, rc, dev, mesh) for _ in range(DIST_STEPS)]
+    stats = collectives.exchange_stats(
+        train_step.reference_tree(dict(state.params.named_parameters())), bits)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    losses, times, wire = [], [], []
+    for b in batches:
+        collectives.reset_wire_bytes()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        wire.append(collectives.wire_bytes_sent())
+    out = {"loss": losses, "step_ms": times, "wire_bytes": wire,
+           "stats_wire_bytes": stats.wire_bytes if bits else 0,
+           "stats": {**dataclasses.asdict(stats), "reduction": stats.reduction},
+           "launches": ops.launch_counts(),
+           "peak_GiB": torch.cuda.max_memory_allocated(dev) / 2**30,
+           "rows": list(batches[0]["tokens"].shape),
+           "resid_shape": None if state.resid is None else
+           list(state.resid["layers.0.attn.wq"].shape)}
+    if bits == DIST_EQUAL_BITS:
+        out["equal"] = dist_compare(cfg, rc, api, state, mesh, dev)
+    out["split"] = dist_exchange_split(api, state, batches[0], bits, mesh)
+    del state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_child(rank: int, workdir: str) -> int:
+    """One rank of the two: the mesh over a gloo group, the runs at each
+    bits; its result in ``workdir``."""
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(DIST_RANK_THREADS)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
+                            rank=rank, world_size=DIST_SHAPE[0])
+    try:
+        mesh = make_mesh(DIST_SHAPE, DIST_NAMES, dev)
+        out = {"rank": rank, "coords": mesh.coords,
+               "backend": dist.get_backend(mesh.get_group("pod")),
+               "runs": {bits: dist_run(dev, mesh, bits) for bits in DIST_BITS}}
+        Path(workdir, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_dist(dev, smi: str) -> dict:
+    """The codec at full size on the card, held to the CPU; two ranks of
+    tinyllama-1.1b on the one card; the bits-8 run held ``torch.equal`` to
+    the one-process emulation."""
+    host_in, outputs = phase_dist_codec(dev, smi)
+    cpu = {}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(DIST_CPU_THREADS)
+    checker = threading.Thread(target=dist_codec_cpu, args=(host_in, outputs, cpu))
+    checker.start()
+    torch.cuda.empty_cache()
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as d:
+            env = dict(os.environ, PYTHONUNBUFFERED="1")
+            procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                       "--dist-rank", str(r), d], env=env)
+                     for r in range(DIST_SHAPE[0])]
+            deadline = time.monotonic() + DIST_TIMEOUT_S
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            codes = [p.returncode for p in procs]
+            check(codes == [0] * len(procs), f"dist ranks exited {codes}")
+            ranks = [json.loads(Path(d, f"rank{r}.json").read_text())
+                     for r in range(len(procs))]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        checker.join()
+        torch.set_num_threads(threads)
+    ranks_s = time.perf_counter() - t0
+    check("error" not in cpu, f"the codec's CPU run failed: {cpu.get('error')}")
+    for bits in DIST_CODEC_BITS:
+        c = cpu[bits]
+        check(c["planes_equal"] and c["scales_equal"] and c["resid_equal"],
+              f"bits {bits}: the card's codec differs from the CPU's: {c}")
+    cfg, _ = dist_config()
+    calls = attention_calls(cfg)
+    want = {"flash_attention.flash_fwd": 2 * calls * DIST_STEPS,
+            "flash_attention.flash_bwd_dkv": calls * DIST_STEPS,
+            "flash_attention.flash_bwd_dq": calls * DIST_STEPS}
+    runs = {int(b): [r["runs"][b] for r in ranks] for b in ranks[0]["runs"]}
+    for bits, rs in runs.items():
+        for rank, r in enumerate(rs):
+            got = {k: v for k, v in r["launches"].items() if v}
+            check(got == want, f"bits {bits} rank {rank} launched {got}, want {want}")
+            check(all(np.isfinite(r["loss"])), f"bits {bits}: loss {r['loss']}")
+            check(r["loss"] == rs[0]["loss"], f"bits {bits}: ranks' losses differ")
+            check(r["rows"] == [DIST_B // DIST_SHAPE[0], configs.SHAPES["train_4k"][0]],
+                  f"rank rows {r['rows']}")
+            if bits:
+                check(r["wire_bytes"] == [r["stats_wire_bytes"]] * DIST_STEPS,
+                      f"bits {bits}: sent {r['wire_bytes']}, ExchangeStats "
+                      f"{r['stats_wire_bytes']}")
+                check(r["resid_shape"][0] == 1, f"residual shape {r['resid_shape']}")
+            else:
+                check(r["wire_bytes"] == [0] * DIST_STEPS, "bits 0 sent codec bytes")
+    equal = runs[DIST_EQUAL_BITS][0]["equal"]
+    check(equal["mismatched"] == [],
+          f"the two ranks differ from the one-process emulation: {equal['mismatched'][:8]}")
+    track = {b: abs(runs[b][0]["loss"][-1] - runs[0][0]["loss"][-1]) for b in DIST_TRACK}
+    for b, tol in DIST_TRACK.items():
+        check(track[b] < tol, f"bits {b} ends {track[b]} from bits 0's loss (< {tol})")
+    emit({"phase": "dist", "arch": DIST_ARCH, "mesh": dict(zip(DIST_NAMES, DIST_SHAPE)),
+          "backend": ranks[0]["backend"], "batch": DIST_B,
+          "seq": configs.SHAPES["train_4k"][0],
+          "reduced": {"global_batch": [configs.SHAPES["train_4k"][1], DIST_B]},
+          "ranks_s": ranks_s, "codec_cpu": cpu,
+          "equal_to_emulation": {"bits": DIST_EQUAL_BITS, **equal},
+          "last_loss_from_bits0": track,
+          "runs": {b: {"loss": rs[0]["loss"],
+                       "step_ms": [r["step_ms"] for r in rs],
+                       "step_ms_median": float(np.median([t for r in rs for t in r["step_ms"]])),
+                       "exchange_split_ms": [r["split"] for r in rs],
+                       "wire_bytes_per_step": rs[0]["wire_bytes"],
+                       "stats": rs[0]["stats"],
+                       "peak_GiB": [r["peak_GiB"] for r in rs]}
+                   for b, rs in runs.items()},
+          "nvidia_smi": smi})
+    return {f"tinyllama_2ranks_3_steps_bits{b}": {
+        k: sum(r["launches"].get(k, 0) for r in rs) for k in ops.launch_counts()}
+        for b, rs in runs.items()}
+
+
 def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
                      paths: dict) -> None:
     """The kv and flash rows of the kernels line: their launches on every LM
@@ -2812,7 +3251,8 @@ def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
         "mamba2_train_3_steps": paths["families_train"]["ssm"],
         "whisper_prefill": paths["encdec_serve"]["prefill"],
         "whisper_generate": paths["encdec_serve"]["generate"],
-        "whisper_train_3_steps": paths["encdec_train"]["launches"]}
+        "whisper_train_3_steps": paths["encdec_train"]["launches"],
+        **paths["dist"]}
     windowed = {"flash_attention.flash_fwd": paths["hybrid_serve"]["window_fwd"],
                 **paths["families_train"]["window_bwd"]}
     keep = ("shape", "window", "ms", "plain_ms", "library_ms", "library_backend",
@@ -2833,6 +3273,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--dist-rank"]:       # one of phase_dist's ranks
+        return dist_child(int(sys.argv[2]), sys.argv[3])
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 parity: full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -2879,6 +3321,8 @@ def main() -> int:
     paths["encdec_serve"] = phase_encdec_serve(dev)
     torch.cuda.empty_cache()
     paths["encdec_train"] = phase_encdec_train(dev)
+    torch.cuda.empty_cache()
+    paths["dist"] = phase_dist(dev, smi)
     add_family_paths(rows, prefill, serve, trained, paths)
     emit({"kernels": [{k: v for k, v in r.items()
                        if k != "copy_bound_ms"}

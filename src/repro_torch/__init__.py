@@ -22,6 +22,10 @@ Laid out module for module like ``repro``.  Ported so far:
 * the obs exporters (``obs.sink``, ``python -m repro_torch.obs.report`` and
   ``python -m repro_torch.obs.regress``) with ``launch.report``'s table
   helpers;
+* training on a mesh of torch.distributed ranks (``launch.mesh``): the
+  sharding rules (``distributed.sharding``), the ``pod`` and ``data`` axes
+  as data parallelism, and the paper's compressed cross-pod gradient
+  exchange with error feedback (``distributed.collectives``);
 
 with hand-written CUDA kernels for Hopper (sm_90a) in ``kernels/csrc``.
 
@@ -29,8 +33,8 @@ The package imports ``torch`` and numpy, never ``jax`` or ``repro``.  It
 imports without a GPU; kernels are built with ``nvcc`` at first launch.
 ``python3 chip_smoke.py`` at the repository root drives it on a card.
 """
-from . import (checkpoint, configs, convert, core, data, kernels, launch,
-               models, obs, optim, serve, train)
+from . import (checkpoint, configs, convert, core, data, distributed, kernels,
+               launch, models, obs, optim, serve, train)
 
-__all__ = ["checkpoint", "configs", "convert", "core", "data", "kernels",
-           "launch", "models", "obs", "optim", "serve", "train"]
+__all__ = ["checkpoint", "configs", "convert", "core", "data", "distributed",
+           "kernels", "launch", "models", "obs", "optim", "serve", "train"]

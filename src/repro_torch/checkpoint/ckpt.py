@@ -40,8 +40,11 @@ class Attrs(dict):
 
 
 class Stacked(NamedTuple):
-    """One leaf of the reference held as per-layer tensors of equal shape."""
+    """One leaf of the reference held as per-layer tensors of equal shape,
+    stacked along ``axis`` (1 for the error-feedback residuals, whose leaves
+    are ``(n_pods, n_layers, ...)``)."""
     parts: List[torch.Tensor]
+    axis: int = 0
 
 
 def flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
@@ -59,9 +62,36 @@ def flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     return [leaf for key, v in items for leaf in flatten(v, prefix + key)]
 
 
+def map_tree(fn, tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest`` (trees of the same structure): dict and ``Attrs`` nodes keep
+    their keys, lists their order, ``None`` stays ``None`` (as in a JAX
+    tree map); anything else is a leaf, ``Stacked`` and tuples included."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return type(tree)((k, None if v is None else
+                           map_tree(fn, v, *(r[k] for r in rest)))
+                          for k, v in tree.items())
+    if isinstance(tree, list):
+        return [map_tree(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def leaf_shape(leaf) -> Tuple[int, ...]:
+    """The reference's shape of a leaf: a ``Stacked`` one has its parts'
+    count at its axis."""
+    if isinstance(leaf, Stacked):
+        shape = list(leaf.parts[0].shape)
+        shape.insert(leaf.axis, len(leaf.parts))
+        return tuple(shape)
+    return tuple(leaf.shape)
+
+
 def _host(leaf) -> np.ndarray:
     """A leaf as a numpy array in storable form (bf16 as uint16 words)."""
-    t = torch.stack(leaf.parts) if isinstance(leaf, Stacked) else leaf
+    t = torch.stack(leaf.parts, leaf.axis) if isinstance(leaf, Stacked) else leaf
     t = t.detach().to("cpu", copy=True).contiguous()   # never a view of a live tensor
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16)
@@ -71,12 +101,6 @@ def _host(leaf) -> np.ndarray:
 def _dtype_name(leaf) -> str:
     t = leaf.parts[0] if isinstance(leaf, Stacked) else leaf
     return str(t.dtype).split(".")[-1]
-
-
-def _shape(leaf) -> list:
-    if isinstance(leaf, Stacked):
-        return [len(leaf.parts), *leaf.parts[0].shape]
-    return list(leaf.shape)
 
 
 def _from_storable(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
@@ -189,16 +213,16 @@ class CheckpointManager:
                     f"{[p for p, _ in flat]}")
             for path, leaf in flat:
                 want = manifest["leaves"][index[path]]
-                if want["shape"] != _shape(leaf) or \
+                if want["shape"] != list(leaf_shape(leaf)) or \
                         want["dtype"] != _dtype_name(leaf):
                     raise ValueError(
                         f"{path}: checkpoint has {want['dtype']} {want['shape']}, "
-                        f"expected {_dtype_name(leaf)} {_shape(leaf)}")
+                        f"expected {_dtype_name(leaf)} {list(leaf_shape(leaf))}")
                 arr = np.load(os.path.join(d, f"leaf_{index[path]}.npy"))
                 nbytes += arr.nbytes
                 t = _from_storable(arr, want["dtype"])
                 if isinstance(leaf, Stacked):
-                    for part, src in zip(leaf.parts, t):
+                    for part, src in zip(leaf.parts, t.unbind(leaf.axis)):
                         part.copy_(src)
                 else:
                     leaf.copy_(t)

@@ -9,7 +9,8 @@
 * ``params_from_jax``: the port's model parameters from the reference's
   ``DenseParams`` or ``EncDecParams`` tree with numpy leaves;
 * ``state_from_jax``: the port's ``TrainState`` from the reference's
-  (params, AdamW moments and count, step) with numpy leaves.
+  (params, AdamW moments and count, error-feedback residuals, step) with
+  numpy leaves.
 
 ``bfloat16`` numpy arrays (as JAX hands them over) travel exactly, as the
 same 16-bit words.  Nothing here imports JAX: the caller hands over numpy
@@ -102,26 +103,40 @@ def params_from_jax(tree, cfg, device: str | torch.device = "cuda"):
     return transformer.DenseParams(embed, layers)
 
 
-def state_from_jax(tree, cfg, device: str | torch.device = "cuda"):
+def state_from_jax(tree, cfg, device: str | torch.device = "cuda",
+                   pod: int | None = None):
     """The port's ``train.step.TrainState`` from the reference's, leaf for leaf.
 
     ``tree`` is the reference's ``TrainState`` after ``np.asarray`` on every
     leaf.  The moments keep their dtype and are keyed by the port's
     parameter names; ``count`` and ``step`` stay int32 scalars.  The
-    reference's error-feedback residuals (several pods) are not ported.
+    error-feedback residuals (``(n_pods, ...)`` leaves, ``(n_pods,
+    n_layers, ...)`` where stacked) become f32 ``(n_pods, *shape)`` tensors
+    keyed by parameter name; with ``pod``, only that pod's, ``(1,
+    *shape)``, as a rank of that pod holds them.
     """
     from repro_torch.optim.adamw import AdamState
-    from repro_torch.train.step import TrainState
+    from repro_torch.train.step import STACKED, TrainState
 
-    if tree.resid is not None:
-        raise NotImplementedError("error-feedback residuals come with the "
-                                  "distributed slice, not ported yet")
-
-    def moments(t):
+    def named(t):
         return {n: p.detach() for n, p in
                 params_from_jax(t, cfg, device).named_parameters()}
 
-    opt = AdamState(mu=moments(tree.opt.mu), nu=moments(tree.opt.nu),
+    def pods_first(node, stacked=False):
+        """The residual tree with each stacked leaf's layer axis first, so
+        ``params_from_jax`` splits it per layer."""
+        if node is None or not hasattr(node, "_fields"):
+            return None if node is None else (
+                np.swapaxes(node, 0, 1) if stacked else node)
+        return type(node)(*(pods_first(getattr(node, f), stacked or f in STACKED)
+                            for f in node._fields))
+
+    resid = None
+    if tree.resid is not None:
+        resid = named(pods_first(tree.resid))
+        if pod is not None:
+            resid = {n: r[pod:pod + 1].clone() for n, r in resid.items()}
+    opt = AdamState(mu=named(tree.opt.mu), nu=named(tree.opt.nu),
                     count=to_torch(tree.opt.count, device))
     return TrainState(params=params_from_jax(tree.params, cfg, device), opt=opt,
-                      resid=None, step=to_torch(tree.step, device))
+                      resid=resid, step=to_torch(tree.step, device))

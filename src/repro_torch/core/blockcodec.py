@@ -10,11 +10,14 @@ Same functions, same shapes, same bits as the reference:
   a group of 32 words becomes ``b`` 32-bit planes, word i -> bit i;
 * a per-block scale plays the role of the paper's §4.2.2 markers.
 
-Integer arithmetic is done in int64 and wrapped to 32 bits explicitly, so
-every result is defined and equal bit for bit to the reference's uint32 /
-int32 wrap arithmetic (PyTorch has no shift, add or sum for ``uint32`` on
-the CPU).  ``uint32`` appears only at the API edge, as a view of int32
-storage.
+PyTorch has no shift, add or sum for ``uint32`` on the CPU, so ``uint32``
+appears only at the API edge, as a view of int32 storage.  The delta
+transform adds in int64 and wraps to 32 bits explicitly; the bitplane
+transpose works on the int32 words themselves: ``>>`` is arithmetic, which
+leaves bits 0..31 where they are, and ``<<`` shifts the two's-complement
+pattern (``1 << 31`` is the sign bit), so each plane is a sum of distinct
+powers of two that never overflows int32.  Either way every result equals
+the reference's uint32 / int32 wrap arithmetic bit for bit.
 
 These functions are the plain oracle of ``repro_torch.kernels.bitplane``.
 ``min_bitwidth`` and ``encode_varwidth`` are host-side numpy, copied from
@@ -33,21 +36,9 @@ GROUP = 32  # words per bitplane group (one 32-bit plane word per bit)
 _U32 = 0xFFFFFFFF
 
 
-def _u32_bits(x: torch.Tensor) -> torch.Tensor:
-    """The 32-bit pattern of an int32 / uint32 tensor as int64 in [0, 2^32)."""
-    if x.dtype == torch.uint32:
-        x = x.view(torch.int32)
-    return x.to(torch.int64) & _U32
-
-
 def _wrap_i32(x: torch.Tensor) -> torch.Tensor:
     """int64 -> int32 keeping the low 32 bits (two's-complement wrap)."""
     return (((x + (1 << 31)) & _U32) - (1 << 31)).to(torch.int32)
-
-
-def _as_u32(x: torch.Tensor) -> torch.Tensor:
-    """int64 holding a 32-bit pattern -> uint32 tensor of that pattern."""
-    return _wrap_i32(x).view(torch.uint32)
 
 
 def _f32_to_i32_sat(x: torch.Tensor) -> torch.Tensor:
@@ -65,24 +56,25 @@ def bitplane_pack(v: torch.Tensor, b: int) -> torch.Tensor:
     plane[..., g, j] holds bit j of the 32 words of group g (word i -> bit i).
     """
     assert 1 <= b <= 32
-    u = _u32_bits(v)
-    i = torch.arange(GROUP, dtype=torch.int64, device=v.device)
-    planes = [(((u >> j) & 1) << i).sum(dim=-1) for j in range(b)]
-    return _as_u32(torch.stack(planes, dim=-1))
+    u = v.view(torch.int32) if v.dtype == torch.uint32 else v.to(torch.int32)
+    i = torch.arange(GROUP, dtype=torch.int32, device=v.device)
+    planes = [(((u >> j) & 1) << i).sum(dim=-1, dtype=torch.int32)
+              for j in range(b)]
+    return torch.stack(planes, dim=-1).view(torch.uint32)
 
 
 def bitplane_unpack(planes: torch.Tensor, b: int) -> torch.Tensor:
     """Inverse of bitplane_pack; sign-extends from b bits to int32."""
-    p = _u32_bits(planes)
-    i = torch.arange(GROUP, dtype=torch.int64, device=planes.device)
-    vals = torch.zeros(p.shape[:-1] + (GROUP,), dtype=torch.int64,
+    p = planes.view(torch.int32) if planes.dtype == torch.uint32 else planes
+    i = torch.arange(GROUP, dtype=torch.int32, device=planes.device)
+    vals = torch.zeros(p.shape[:-1] + (GROUP,), dtype=torch.int32,
                        device=planes.device)
     for j in range(b):
         vals |= ((p[..., j, None] >> i) & 1) << j
     if b < 32:
         h = 1 << (b - 1)
         vals = (vals ^ h) - h
-    return _wrap_i32(vals)
+    return vals
 
 
 # ---------------------------------------------------------------------------

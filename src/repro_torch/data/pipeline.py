@@ -100,9 +100,26 @@ class SyntheticPipeline:
 
 
 def device_batch(batch: Dict[str, Any], cfg: ModelConfig, rc: RunConfig,
-                 device="cuda") -> Dict[str, torch.Tensor]:
-    """Cast to the cell's input dtypes (``model_zoo.input_specs``) on ``device``."""
+                 device="cuda", mesh=None) -> Dict[str, torch.Tensor]:
+    """Cast to the cell's input dtypes (``model_zoo.input_specs``) on ``device``.
+
+    On a ``mesh`` each rank takes its rows of the global batch: the batch
+    axis split over ``("pod", "data")`` row-major, as the reference's
+    ``P(("pod", "data"))`` lays it out, so that pod ``i`` holds the rows the
+    reference's per-pod split gives it.  A batch the split does not divide
+    is split over the pods alone, or else stays whole on every rank, as the
+    reference's rules replicate it.
+    """
     specs = model_zoo.input_specs(cfg, rc)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(
+    rows = slice(None)
+    B = len(next(iter(batch.values())))
+    for axes in ((("pod", "data"), ("pod",)) if mesh is not None else ()):
+        axes = tuple(a for a in axes if a in mesh.axis_names)
+        n = mesh.size(axes)
+        if axes and B % n == 0:
+            i = mesh.index(axes)
+            rows = slice(i * B // n, (i + 1) * B // n)
+            break
+    return {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(
                 device=device, dtype=specs[k].dtype)
             for k, v in batch.items()}

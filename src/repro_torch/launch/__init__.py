@@ -1,1 +1,2 @@
-"""Reporting helpers of the port (counterpart of ``repro.launch``)."""
+"""The port's counterpart of ``repro.launch``: device meshes over
+torch.distributed ranks (``mesh``) and reporting helpers (``report``)."""

@@ -25,6 +25,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.checkpoint.ckpt import Attrs, map_tree
 from repro_torch.configs.base import ModelConfig, RunConfig
 from . import layers as L
 
@@ -97,6 +98,20 @@ def init(gen: torch.Generator, cfg: ModelConfig,
                     ln_x=norm(), cross_attn=L.init_attn(gen, cfg, dtype),
                     ln2=norm(), mlp=mlp()) for _ in range(cfg.n_layers)]
     return EncDecParams(emb, enc, norm(), dec)
+
+
+def param_specs(cfg: ModelConfig) -> Attrs:
+    """Logical axes of every parameter, in the reference's
+    ``EncDecParams`` tree (the layer lists stacked)."""
+    def stack(t):
+        return map_tree(lambda x: (None,) + x, t)
+    enc = Attrs(ln1=(None,), attn=L.attn_specs(cfg), ln2=(None,),
+                mlp=L.mlp_specs(cfg.mlp_act))
+    dec = Attrs(ln1=(None,), self_attn=L.attn_specs(cfg), ln_x=(None,),
+                cross_attn=L.attn_specs(cfg), ln2=(None,),
+                mlp=L.mlp_specs(cfg.mlp_act))
+    return Attrs(embed=L.embed_specs(cfg), enc_layers=stack(enc),
+                 enc_norm=(None,), dec_layers=stack(dec))
 
 
 # ---------------------------------------------------------------------------

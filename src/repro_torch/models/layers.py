@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.checkpoint.ckpt import Attrs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
@@ -120,6 +121,13 @@ def init_attn(gen: torch.Generator, cfg: ModelConfig, dtype) -> AttnParams:
 # ---------------------------------------------------------------------------
 # Blockwise attention (prefill)
 # ---------------------------------------------------------------------------
+
+def attn_specs(cfg: ModelConfig) -> Attrs:
+    """Logical axes of ``AttnParams``, the reference's tree."""
+    b = ("heads",) if cfg.qkv_bias else None
+    return Attrs(wq=("fsdp", "heads"), wk=("fsdp", "heads"),
+                 wv=("fsdp", "heads"), wo=("heads", "fsdp"), bq=b, bk=b, bv=b)
+
 
 def _qkv(x: torch.Tensor, p: AttnParams, cfg: ModelConfig, pos: torch.Tensor):
     B, S, _ = x.shape
@@ -383,6 +391,11 @@ def init_mlp(gen: torch.Generator, d: int, ff: int, act: str,
     )
 
 
+def mlp_specs(act: str) -> Attrs:
+    return Attrs(w_gate=("fsdp", "ff") if act == "swiglu" else None,
+                 w_up=("fsdp", "ff"), w_down=("ff", "fsdp"))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu``: x * sigmoid(x), two rounded operations."""
     return x * torch.sigmoid(x)
@@ -418,6 +431,12 @@ def init_embed(gen: torch.Generator, cfg: ModelConfig, dtype) -> EmbedParams:
         _normal(gen, (cfg.d_model, cfg.vocab), cfg.d_model ** -0.5, dtype),
         final_norm=init_rmsnorm(cfg.d_model, dtype, gen.device),
     )
+
+
+def embed_specs(cfg: ModelConfig) -> Attrs:
+    return Attrs(table=("vocab", "fsdp"),
+                 unembed=None if cfg.tie_embeddings else ("fsdp", "vocab"),
+                 final_norm=(None,))
 
 
 def embed(tokens: torch.Tensor, p: EmbedParams) -> torch.Tensor:

@@ -1,11 +1,13 @@
 """Unified model API: config -> init / loss / prefill / decode / input specs.
 
 Port of ``repro.models.model_zoo`` for every family: the encoder-decoder
-family runs in ``encdec``, the decoder-only ones in ``transformer``.  The
-reference's ``abstract_params``, ``param_specs`` and ``decode_state_specs``
-serve its sharding and dry-run tooling, which the port does not have yet.
-The port adds ``cache_leaves`` and ``reset_decode_state``, which the
-serving engine's CUDA graph needs (the reference rebuilds its state).
+family runs in ``encdec``, the decoder-only ones in ``transformer``.
+``param_specs`` gives the logical axes of the parameters in the
+reference's tree (``distributed.sharding`` resolves them).  The reference's
+``abstract_params`` and ``decode_state_specs`` serve its dry-run tooling,
+which the port does not have yet.  The port adds ``cache_leaves`` and
+``reset_decode_state``, which the serving engine's CUDA graph needs (the
+reference rebuilds its state).
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from . import encdec, transformer
 
 class ModelApi(NamedTuple):
     init: Callable               # (seed) -> params on the device
+    param_specs: Callable        # () -> logical axes, the reference's tree
     loss_fn: Callable            # (params, batch) -> scalar f32 loss
     prefill: Callable            # (params, batch) -> logits (B, V)
     decode_step: Callable        # (params, state, tokens) -> (logits, state)
@@ -56,6 +59,7 @@ def get_api(cfg: ModelConfig, rc: RunConfig, device="cuda") -> ModelApi:
 
     return ModelApi(
         init=init,
+        param_specs=lambda: m.param_specs(cfg),
         loss_fn=lambda params, batch: m.loss_fn(params, batch, cfg, rc),
         prefill=prefill,
         decode_step=decode_step,
@@ -98,3 +102,15 @@ def input_specs(cfg: ModelConfig, rc: RunConfig) -> Dict[str, TensorSpec]:
                 "labels": TensorSpec((B, S - nv), i32),
                 "vis_embeds": TensorSpec((B, nv, cfg.d_model), rc.torch_dtype)}
     return {"tokens": TensorSpec((B, S), i32), "labels": TensorSpec((B, S), i32)}
+
+
+def batch_logical_specs(cfg: ModelConfig, rc: RunConfig) -> Dict[str, tuple]:
+    """Logical sharding names for the batch dict."""
+    if rc.kind == "decode":
+        return {"tokens": ("batch",)}
+    out = {"tokens": ("batch", "seq"), "labels": ("batch", "seq")}
+    if cfg.family == "encdec":
+        out["frames"] = ("batch", None, None)
+    if cfg.family == "vlm":
+        out["vis_embeds"] = ("batch", None, None)
+    return out

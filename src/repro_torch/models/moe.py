@@ -24,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.checkpoint.ckpt import Attrs
 from repro_torch.configs.base import ModelConfig
 from . import layers as L
 
@@ -48,6 +49,12 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype) -> MoeParams:
         w_up=L._normal(gen, (E, d, ff), s, dtype),
         w_down=L._normal(gen, (E, ff, d), ff ** -0.5, dtype),
     )
+
+
+def moe_specs() -> Attrs:
+    return Attrs(router=("fsdp", None), w_gate=("experts", "fsdp", "ff"),
+                 w_up=("experts", "fsdp", "ff"),
+                 w_down=("experts", "ff", "fsdp"))
 
 
 class Route(NamedTuple):

@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
+from repro_torch.checkpoint.ckpt import Attrs
 from repro_torch.configs.base import ModelConfig
 from . import layers as L
 
@@ -58,6 +59,12 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig, dtype) -> SsmParams:
         gate_norm=full(di, 1.0, dtype),
         out_proj=L._normal(gen, (di, d), di ** -0.5, dtype),
     )
+
+
+def ssm_specs() -> Attrs:
+    return Attrs(in_proj=("fsdp", "tp"), conv_w=(None, "tp"), conv_b=("tp",),
+                 a_log=(None,), dt_bias=(None,), d_skip=(None,),
+                 gate_norm=("tp",), out_proj=("tp", "fsdp"))
 
 
 def softplus(x: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.checkpoint.ckpt import Attrs, map_tree
 from repro_torch.configs.base import ModelConfig, RunConfig
 from . import layers as L
 from . import moe as M
@@ -116,6 +117,29 @@ def init(gen: torch.Generator, cfg: ModelConfig,
                              for _ in range(cfg.n_layers)])
 
 
+def layer_specs(cfg: ModelConfig) -> Attrs:
+    """Logical axes of one layer, the reference's ``LayerParams`` tree."""
+    hybrid = cfg.family == "hybrid"
+    return Attrs(
+        ln1=(None,),
+        attn=L.attn_specs(cfg) if _has_attn(cfg) else None,
+        ssm=S.ssm_specs() if _has_ssm(cfg) else None,
+        ln_attn_out=(None,) if hybrid else None,
+        ln_ssm_out=(None,) if hybrid else None,
+        ln2=(None,) if _has_mlp(cfg) or cfg.family == "moe" else None,
+        mlp=L.mlp_specs(cfg.mlp_act) if _has_mlp(cfg) else None,
+        moe=M.moe_specs() if cfg.family == "moe" else None,
+    )
+
+
+def param_specs(cfg: ModelConfig) -> Attrs:
+    """Logical axes of every parameter, in the reference's tree
+    (``DenseParams``: ``layers`` stacked, a leading ``None`` for the layer
+    axis)."""
+    return Attrs(embed=L.embed_specs(cfg),
+                 layers=map_tree(lambda t: (None,) + t, layer_specs(cfg)))
+
+
 # ---------------------------------------------------------------------------
 # Forward
 # ---------------------------------------------------------------------------
@@ -171,9 +195,9 @@ def backbone(params: DenseParams, tokens: torch.Tensor, cfg: ModelConfig,
     remat = rc.remat and torch.is_grad_enabled()
     if remat and rc.remat_policy == "save_collectives":
         raise NotImplementedError(
-            "remat_policy='save_collectives' saves the outputs of sharding "
-            "collectives, which come with the distributed slice of the port, "
-            "not ported yet; use 'full'")
+            "remat_policy='save_collectives' saves the outputs of the "
+            "tensor-parallel collectives, which come with the distributed "
+            "slice that brings the 'model' axis, not ported yet; use 'full'")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params.layers:
         if remat:

@@ -1,7 +1,7 @@
 """Fault-tolerant training loop: checkpoint/restart, failure injection,
-straggler watchdog.
+straggler watchdog, elastic re-mesh on restore.
 
-Port of ``repro.train.loop`` on one device:
+Port of ``repro.train.loop``:
 
 * every step runs under a deadline watchdog: a straggling step is logged
   and counted;
@@ -11,10 +11,12 @@ Port of ``repro.train.loop`` on one device:
   pipeline's step counter is restored from the checkpoint's extra dict, so
   the batch sequence is bit-identical;
 * checkpoints use the reference's layout (``checkpoint.ckpt``), so a run can
-  resume from the reference's checkpoints and the reverse.
-
-The reference's elastic re-mesh on restore needs the distributed slice,
-which is not ported yet.
+  resume from the reference's checkpoints and the reverse;
+* on a ``mesh`` (``launch.mesh``) every rank runs the loop on its rows of
+  each batch; rank 0 alone writes a checkpoint (the residuals of every pod
+  gathered first) and every rank restores it onto the *current* mesh, so a
+  run checkpointed on one size of the ``data`` axis resumes on another
+  (elastic re-mesh).
 """
 from __future__ import annotations
 
@@ -24,10 +26,12 @@ import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch.checkpoint.ckpt import CheckpointManager
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.data.pipeline import SyntheticPipeline, device_batch
+from repro_torch.distributed import collectives, sharding as shd
 from repro_torch.models import model_zoo
 from repro_torch.obs import instrument as obs
 from repro_torch.train import step as train_step_mod
@@ -45,23 +49,55 @@ class LoopConfig:
     max_restarts: int = 3
 
 
-def train(cfg: ModelConfig, rc: RunConfig, loop: LoopConfig,
+def train(cfg: ModelConfig, rc: RunConfig, loop: LoopConfig, mesh=None,
           device="cuda", failure_hook: Optional[Callable[[int], None]] = None,
           log_every: int = 10) -> Dict[str, list]:
-    """Run the loop on ``device`` (the card by default); returns the metric
-    history: ``loss`` and ``step_time`` per step run (a rolled-back step
-    counts each time it runs), ``stragglers`` and ``restarts``."""
+    """Run the loop on ``device`` (the card by default), on one device or on
+    every rank of ``mesh``; returns the metric history: ``loss`` and
+    ``step_time`` per step run (a rolled-back step counts each time it
+    runs), ``stragglers`` and ``restarts``."""
+    shd.check_model_axis(mesh)
+    rules = shd.Rules(mesh=mesh, seq_shard=rc.seq_shard, fsdp=rc.fsdp,
+                      shard_vocab=rc.shard_vocab)
+    with shd.use_rules(rules):
+        return _run(cfg, rc, loop, mesh, device, failure_hook, log_every)
+
+
+def _run(cfg, rc, loop, mesh, device, failure_hook, log_every):
     api = model_zoo.get_api(cfg, rc, device)
-    mgr = CheckpointManager(loop.ckpt_dir, keep=loop.keep)
+    writer = mesh is None or mesh.rank == 0
+    # on a mesh every rank reads what rank 0 wrote: write synchronously
+    mgr = CheckpointManager(loop.ckpt_dir, keep=loop.keep,
+                            async_save=mesh is None)
     pipeline = SyntheticPipeline(cfg, rc)
-    step_fn = train_step_mod.make_train_step(api, cfg, rc)
+    step_fn = train_step_mod.make_train_step(api, cfg, rc, mesh)
+    n_pods = train_step_mod._n_pods(mesh)
+
+    def save(state):
+        resid = state.resid
+        if resid is not None:
+            resid = train_step_mod.gather_residuals(resid, mesh)
+        if writer:
+            mgr.save(int(state.step), train_step_mod.checkpoint_tree(state, resid),
+                     extra=pipeline.state())
+        if mesh is not None:
+            dist.barrier()
 
     def restore_latest():
-        state = train_step_mod.init_state(api, rc, 0)
+        state = train_step_mod.init_state(api, rc, 0, mesh)
         step_num = mgr.latest_step()
         if step_num is None:
             return state
-        _, extra = mgr.restore(step_num, train_step_mod.checkpoint_tree(state))
+        full = None
+        if state.resid is not None:
+            full = collectives.init_residuals(
+                dict(state.params.named_parameters()), n_pods)
+        _, extra = mgr.restore(step_num,
+                               train_step_mod.checkpoint_tree(state, full))
+        if full is not None:
+            pod = mesh.coords["pod"]
+            for n, r in state.resid.items():
+                r.copy_(full[n][pod:pod + 1])
         pipeline.restore(extra)
         log.info("restored checkpoint at step %d", step_num)
         return state
@@ -77,7 +113,7 @@ def train(cfg: ModelConfig, rc: RunConfig, loop: LoopConfig,
                 if failure_hook is not None:
                     failure_hook(step_num)
                 batch_np = pipeline.next()
-                batch = device_batch(batch_np, cfg, rc, device)
+                batch = device_batch(batch_np, cfg, rc, device, mesh)
                 t0 = time.monotonic()
                 with obs.span("train/step", step=step_num, arch=cfg.name):
                     state, metrics = step_fn(state, batch)
@@ -102,8 +138,7 @@ def train(cfg: ModelConfig, rc: RunConfig, loop: LoopConfig,
                 if log_every and step_num % log_every == 0:
                     log.info("step %d loss %.4f (%.2fs)", step_num, loss, dt)
                 if (step_num + 1) % loop.ckpt_every == 0:
-                    mgr.save(step_num + 1, train_step_mod.checkpoint_tree(state),
-                             extra=pipeline.state())
+                    save(state)
             except (FloatingPointError, RuntimeError, ValueError) as e:
                 restarts += 1
                 history["restarts"] = restarts
@@ -112,8 +147,7 @@ def train(cfg: ModelConfig, rc: RunConfig, loop: LoopConfig,
                 if restarts > loop.max_restarts:
                     raise
                 state = restore_latest()
-        mgr.save(int(state.step), train_step_mod.checkpoint_tree(state),
-                 extra=pipeline.state())
+        save(state)
         return history
     finally:
         mgr.close()

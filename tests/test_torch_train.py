@@ -166,10 +166,13 @@ def test_save_collectives_policy_raises():
 
 
 def test_mesh_raises():
+    """A mesh with a 'model' axis above 1 (tensor parallelism) raises."""
+    from repro_torch.launch.mesh import abstract_mesh
     (_, _), (ct, rt) = _configs("tinyllama-1.1b")
     api = model_zoo.get_api(ct, rt, "cpu")
     with pytest.raises(NotImplementedError, match="distributed slice"):
-        tstep_mod.make_train_step(api, ct, rt, mesh=object())
+        tstep_mod.make_train_step(api, ct, rt,
+                                  mesh=abstract_mesh((1, 2), ("data", "model")))
 
 
 # -- the train step ---------------------------------------------------------------
