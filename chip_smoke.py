@@ -6,8 +6,8 @@ Run from the repository root, on a machine with an NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-Ten paths, each driven with the launch counts set to 0 just before it and
-read just after:
+Eleven paths, each driven with the launch counts set to 0 just before it
+and read just after:
 
 * stencil and codec: a 2^26-cell f32 field (256 MiB, seeded with numpy)
   through ``ops.jacobi1d_tiled`` (T = 64, W = 512), quantized by
@@ -63,7 +63,16 @@ read just after:
   ``train.step.make_train_step(..., mesh)``: at 8 and 16 the paper's
   compressed cross-pod exchange (quantize, bitplane-pack, gather the packed
   planes and scales, dequantize the pods' mean) with error feedback; the
-  flash forward twice and both backward kernels once per layer and step.
+  flash forward twice and both backward kernels once per layer and step;
+* training tinyllama-1.1b at full width and depth on four ranks of the one
+  card (four processes, gloo), the mesh (2, 2) over (data, model): tensor
+  parallelism over heads, ff and vocab (16 query heads, 2 KV heads, ff
+  2816 and vocab 16000 a rank), the residual stream split over the
+  sequence between layers, ZeRO-3 over data, remat; a global batch of
+  4 x 4096 tokens (2 a data rank), 3 steps through
+  ``train.step.make_train_step(..., mesh)``, then one more under each remat
+  policy; the flash forward twice and both backward kernels once per layer
+  and step on every rank, at its local heads.
 
 Phases, one JSON line each:
 
@@ -270,12 +279,27 @@ Phases, one JSON line each:
                ms, the exchange's pieces timed one at a time (quantize-and-
                pack, wire, dequant-mean; at bits 0 the f32 all-reduce),
                peak memory per rank; a failing rank fails the run;
-28. the ``{"kernels": [...]}`` line, then the card line, then the result line.
+28. tp       — the four ranks above (each ``--tp-rank <r> <dir>``): each
+               rank's losses within 5e-3 of a one-process run of the same
+               global batch from the same weights (the reference's
+               dist_equivalence rule); the weights and moments each rank
+               holds equal to its share (275,081,216 and twice that at 22
+               layers); its flash launches equal to the one-process run's;
+               the bytes each collective is handed a step equal to
+               ``tp_bytes``' formula from the shapes; one more step from the
+               same state under ``remat_policy="save_collectives"`` and
+               ``tp_scatter`` ``torch.equal`` (loss and every parameter) to
+               the same step under ``"full"``; step ms, peak memory per
+               rank; then the flash forward and backward at a rank's shape
+               (2, 4096, 2, 8, 64) against their plain versions, timed
+               beside SDPA;
+29. the ``{"kernels": [...]}`` line, then the card line, then the result line.
                The kv and flash rows add ``launches_by_path`` (their
                launches on every LM path run), the flash rows
-               ``at_hymba_window`` (the windowed times and bounds) and
-               ``at_whisper_shapes`` (times and bounds at whisper's three);
-               ``launches_by_path`` counts both ranks of the dist path.
+               ``at_hymba_window`` (the windowed times and bounds),
+               ``at_whisper_shapes`` (times and bounds at whisper's three)
+               and ``at_tp_rank_shape``; ``launches_by_path`` counts every
+               rank of the dist and tp paths.
 
 The three tensor-core rows (flash forward, dK/dV, dQ), the jacobi row, the
 two codec rows and the fused KV store's row also carry ``design``; the
@@ -375,6 +399,8 @@ SERVE_B, SERVE_SEQ, SERVE_NEW = 8, 256, 32
 #: of granite-8b at batch 8, seq 256), and two small ones
 STORE_SHAPES = ((SERVE_B, SERVE_SEQ, 8, 128), (3, 16, 2, 8), (1, 4, 1, 128))
 PROFILE_STEPS = 8
+#: idle host time at each end of a profiling session (``device_profile``)
+PROFILE_PAD_S = 0.05
 PARITY_B, PARITY_S, PARITY_STEPS, PARITY_NEW = 4, 64, 24, 8
 F32_TOL, BF16_REL = 1e-4, 3e-2          # bf16: relative to the largest logit
 #: a MoE routing flip between the card and the CPU in bf16 is a near-tie
@@ -466,6 +492,20 @@ DIST_CODEC_BITS = (4, 8, 16)
 #: rank (which only stages the exchange through host memory): 8 cores
 DIST_CPU_THREADS, DIST_RANK_THREADS = 6, 1
 DIST_TIMEOUT_S = 600
+
+#: tensor parallelism: tinyllama-1.1b at full width on four ranks of the one
+#: card, the mesh (2, 2) over (data, model), gloo: tensor and sequence
+#: parallelism over ``model`` (16 query heads, 2 KV heads, ff 2816 and vocab
+#: 16000 a rank), ZeRO-3 over ``data``; train_4k's sequences, the global
+#: batch cut from 256 to 4 by time; remat, bf16 weights, f32 moments
+TP_ARCH, TP_SHAPE, TP_NAMES = TRAIN_ARCH, (2, 2), ("data", "model")
+TP_B, TP_STEPS, TP_LAYERS = 4, 3, 22
+TP_LOSS_TOL = 5e-3           # tests/_distributed_main.py's dist_equivalence
+#: weights a rank holds at 22 layers: a quarter of every sharded leaf and
+#: the 92,160 norm weights, which every rank holds whole
+TP_HELD_22 = 275_081_216
+TP_RANK_THREADS = 2
+TP_TIMEOUT_S = 700
 
 
 class CheckFailed(RuntimeError):
@@ -928,15 +968,26 @@ def device_profile(fn, watch: dict, top: int = 5) -> dict:
     device time is summed under that label (the port's own kernels).  A
     session that comes back with no device events is taken again, fn run
     once more, up to three sessions (``launch_costs`` says why).
+
+    The session opens PROFILE_PAD_S before fn and closes PROFILE_PAD_S
+    after the device is idle: the profiler keeps only the device records
+    that lie inside its window, whose ends it reads on the host's clock,
+    and a kernel that ends microseconds before the session stops can fall
+    outside it by the skew between the card's clock and the host's (seen
+    once on an H100: a profile of 8 replayed decode steps kept 122 of 128
+    ``kv_quant_store`` and 244 of 256 ``kv_dequant`` records, the last
+    six layers of the last step, while the launch counts were exact).
     """
     from torch.profiler import ProfilerActivity, profile
     for sessions in range(1, 4):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_PAD_S)
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            time.sleep(PROFILE_PAD_S)
         spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                        if e.device_type == torch.autograd.DeviceType.CUDA
                        and e.time_range.end > e.time_range.start)
@@ -1402,10 +1453,10 @@ class moe_routes:
     def __enter__(self) -> "moe_routes":
         self.orig = moe.route
 
-        def recording(xf, router, cfg):
-            r = self.orig(xf, router, cfg)
+        def recording(xf, router, cfg, *batch):
+            r = self.orig(xf, router, cfg, *batch)
             if self.follow and xf.device.type == "cpu":
-                r = self._follow(r, cfg)
+                r = self._follow(r, cfg, *batch)
             self.calls.append((xf.device.type, r))
             return r
         moe.route = recording
@@ -1414,7 +1465,7 @@ class moe_routes:
     def __exit__(self, *exc) -> None:
         moe.route = self.orig
 
-    def _follow(self, r, cfg):
+    def _follow(self, r, cfg, *batch):
         j = sum(d == "cpu" for d, _ in self.calls)
         card = [g for d, g in self.calls if d == "cuda"]
         check(j < len(card), "the CPU routed before the card")
@@ -1425,7 +1476,7 @@ class moe_routes:
         gap = (torch.gather(r.probs, 1, r.top_e) - torch.gather(r.probs, 1, want))[rows]
         self.flips.append({"call": j, "rows": rows.tolist()[:8], "n_rows": len(rows),
                            "margin": float(gap.abs().max())})
-        return moe.assign(r.probs, want, cfg)
+        return moe.assign(r.probs, want, cfg, *batch)
 
 
 class kv_ties:
@@ -3232,6 +3283,243 @@ def phase_dist(dev, smi: str) -> dict:
         for b, rs in runs.items()}
 
 
+def tp_config(**kw) -> tuple:
+    cfg = configs.load_arch(TP_ARCH)
+    cfg = dataclasses.replace(cfg, n_layers=TP_LAYERS)
+    return cfg, configs.run_config_for("train_4k", cfg, global_batch=TP_B, **kw)
+
+
+def tp_bytes(cfg, rc, B: int, tp: int, data: int) -> dict:
+    """The bytes each differentiable collective moves a rank and step of the
+    tp phase, from the shapes (``collectives.collective_bytes``: a gather
+    counts the block it sends, in its dtype; a reduction the f32 tensor it
+    reduces).  Per layer, with remat: the forward gathers the normed stream
+    before the attention and the MLP (a bf16 block of B x S/tp x d each)
+    and the layer's weights over ``data`` (this rank's bf16 block of its tp
+    block), and reduce-scatters the two f32 partial outputs (B x S x d);
+    the recompute does the same but for the MLP's reduce-scatter (the
+    checkpoint stops at the last tensor the backward needs); the backward
+    gathers the f32 gradients of the two reduce-scatters' outputs and
+    reduce-scatters those of the two gathered streams and of the weights
+    (f32).  Outside: the table and the unembedding gathered over ``data``
+    and their gradients reduce-scattered; the vocab-parallel embedding's
+    all-reduce (B x S x d) and its adjoint; the stream gathered after the
+    last layer (and its adjoint); the loss's max, sum of exponentials and
+    gold logit (B x S each, again in each chunk's recompute, the last two
+    with their adjoints); the grad norm's scalar."""
+    S, d, V, L = rc.seq_len, cfg.d_model, cfg.vocab, cfg.n_layers
+    hd, H, KV, ff = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    block, stream = B * (S // tp) * d, B * S * d
+    w_tp = (d * H * hd + 2 * d * KV * hd + H * hd * d + 3 * d * ff) // tp
+    table_tp = 2 * V * d // tp                       # table and unembedding
+    return {"all_gather": L * (4 * block * 2 + 2 * (w_tp // data) * 2
+                               + 2 * block * 4) + (table_tp // data) * 2 + block * 2,
+            "reduce_scatter": L * (5 * stream * 4 + w_tp * 4) + table_tp * 4
+            + stream * 4,
+            "all_reduce": 2 * stream * 4 + 8 * B * S * 4 + 4}
+
+
+def tp_child(rank: int, workdir: str) -> int:
+    """One rank of the four: the mesh over a gloo group, TP_STEPS steps,
+    then one more from the same state under each remat policy."""
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(TP_RANK_THREADS)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
+                            rank=rank, world_size=int(np.prod(TP_SHAPE)))
+    try:
+        mesh = make_mesh(TP_SHAPE, TP_NAMES, dev)
+        cfg, rc = tp_config()
+        check(rc.remat and rc.fsdp and rc.seq_shard and rc.opt_dtype == "float32"
+              and rc.param_dtype == "bfloat16", f"tp config {rc}")
+        api = model_zoo.get_api(cfg, rc, dev)
+        t0 = time.perf_counter()
+        state = train_step.init_state(api, rc, SEED, mesh)
+        init_s = time.perf_counter() - t0
+        specs = train_step.param_partition(api, rc, mesh)
+        params = dict(state.params.named_parameters())
+        held = sum(p.numel() for p in params.values())
+        moments = sum(t.numel() for t in (*state.opt.mu.values(), *state.opt.nu.values()))
+        step = train_step.make_train_step(api, cfg, rc, mesh)
+        pipe = SyntheticPipeline(cfg, rc, seed=SEED)
+        batches = [device_batch(pipe.next(), cfg, rc, dev, mesh)
+                   for _ in range(TP_STEPS + 1)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ops.reset_launch_counts()
+        losses, times, moved = [], [], []
+        for b in batches[:TP_STEPS]:
+            collectives.reset_collective_bytes()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            moved.append(collectives.collective_bytes())
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 2**30
+        # one more step from the same state under each remat policy
+        snap = {n: p.detach().clone() for n, p in params.items()}
+        snap_mu = {n: t.clone() for n, t in state.opt.mu.items()}
+        snap_nu = {n: t.clone() for n, t in state.opt.nu.items()}
+        count, step_num = state.opt.count.clone(), state.step.clone()
+        policy_out, after = {}, None
+        for policy in ("save_collectives", "full"):
+            with torch.no_grad():
+                for n, p in params.items():
+                    p.copy_(snap[n])
+                    state.opt.mu[n].copy_(snap_mu[n])
+                    state.opt.nu[n].copy_(snap_nu[n])
+                state.opt.count.copy_(count)
+                state.step.copy_(step_num)
+            rc_p = dataclasses.replace(rc, remat_policy=policy, tp_scatter=True)
+            step_p = train_step.make_train_step(model_zoo.get_api(cfg, rc_p, dev),
+                                                cfg, rc_p, mesh)
+            collectives.reset_collective_bytes()
+            t0 = time.perf_counter()
+            state, m = step_p(state, batches[TP_STEPS])
+            loss = float(m["loss"])
+            torch.cuda.synchronize()
+            policy_out[policy] = {"loss": loss, "step_ms": (time.perf_counter() - t0) * 1e3,
+                                  "moved": collectives.collective_bytes()}
+            if after is None:
+                after = {n: p.detach().clone() for n, p in params.items()}
+            else:
+                policy_out["equal"] = policy_out["save_collectives"]["loss"] == loss \
+                    and all(torch.equal(after[n], p) for n, p in params.items())
+        del snap, snap_mu, snap_nu, after
+        out = {"rank": rank, "coords": mesh.coords,
+               "backend": dist.get_backend(mesh.get_group("model")),
+               "init_s": init_s, "held": held, "moments": moments,
+               "sharded_leaves": sum(1 for sp in specs.values() if any(sp)),
+               "loss": losses, "step_ms": times, "moved": moved,
+               "launches": launches, "peak_GiB": peak, "policies": policy_out,
+               "rows": list(batches[0]["tokens"].shape),
+               "local_wq": list(params["layers.0.attn.wq"].shape),
+               "local_wk": list(params["layers.0.attn.wk"].shape),
+               "spec_wq": list(map(str, specs["layers.0.attn.wq"]))}
+        Path(workdir, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tp_expected_held(cfg, rc) -> int:
+    """Weights a rank holds on the (2, 2) mesh, from the rules: each leaf's
+    whole size over the sizes of the axes its spec names."""
+    from repro_torch.launch.mesh import abstract_mesh
+    api = model_zoo.get_api(cfg, rc, "cpu")
+    sizes = dict(zip(TP_NAMES, TP_SHAPE))
+    specs = train_step.param_partition(api, rc, abstract_mesh(TP_SHAPE, TP_NAMES))
+    held = 0
+    for n, shape in train_step.full_shapes(api).items():
+        div = int(np.prod([sizes[a] for part in specs[n]
+                           for a in ((part,) if isinstance(part, str) else part or ())]))
+        held += int(np.prod(shape)) // div
+    return held
+
+
+def phase_tp(dev, smi: str, copy_rate: float) -> dict:
+    """Four ranks of tinyllama-1.1b on (2, 2) data x model on the one card
+    against a one-process run of the same global batch from the same
+    weights; the flash kernels at a rank's shape."""
+    torch.cuda.empty_cache()
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tp_") as d:
+            env = dict(os.environ, PYTHONUNBUFFERED="1")
+            procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                       "--tp-rank", str(r), d], env=env)
+                     for r in range(int(np.prod(TP_SHAPE)))]
+            deadline = time.monotonic() + TP_TIMEOUT_S
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            codes = [p.returncode for p in procs]
+            check(codes == [0] * len(procs), f"tp ranks exited {codes}")
+            ranks = [json.loads(Path(d, f"rank{r}.json").read_text())
+                     for r in range(len(procs))]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    # the one-process run: the whole global batch from the same weights
+    cfg, rc = tp_config()
+    api = model_zoo.get_api(cfg, rc, dev)
+    state = train_step.init_state(api, rc, SEED)
+    step = train_step.make_train_step(api, cfg, rc)
+    pipe = SyntheticPipeline(cfg, rc, seed=SEED)
+    ops.reset_launch_counts()
+    single, single_ms = [], []
+    for _ in range(TP_STEPS):
+        b = device_batch(pipe.next(), cfg, rc, dev)
+        t1 = time.perf_counter()
+        state, m = step(state, b)
+        single.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        single_ms.append((time.perf_counter() - t1) * 1e3)
+    single_launches = ops.launch_counts()
+    del state, step, b
+    torch.cuda.empty_cache()
+    want_held = tp_expected_held(cfg, rc)
+    check(TP_LAYERS != 22 or want_held == TP_HELD_22,
+          f"held {want_held}, want {TP_HELD_22}")
+    want_bytes = tp_bytes(cfg, rc, TP_B // TP_SHAPE[0], TP_SHAPE[1], TP_SHAPE[0])
+    for r in ranks:
+        check(all(np.isfinite(r["loss"])), f"rank {r['rank']} loss {r['loss']}")
+        gap = max(abs(a - b) for a, b in zip(r["loss"], single))
+        check(gap < TP_LOSS_TOL, f"rank {r['rank']} losses {r['loss']} against "
+              f"the one-process run's {single} (< {TP_LOSS_TOL})")
+        check(r["held"] == want_held and r["moments"] == 2 * want_held,
+              f"rank {r['rank']} holds {r['held']} weights, {r['moments']} "
+              f"moments; want {want_held}, {2 * want_held}")
+        got = {k: v for k, v in r["launches"].items() if v}
+        want = {k: v for k, v in single_launches.items() if v}
+        check(got == want, f"rank {r['rank']} launched {got}, the one-process "
+              f"run {want}")
+        check(all(m == want_bytes for m in r["moved"]),
+              f"rank {r['rank']} moved {r['moved']}, want {want_bytes}")
+        check(r["policies"]["equal"], f"rank {r['rank']}: save_collectives differs "
+              f"from full: {r['policies']}")
+        check(r["rows"] == [TP_B // TP_SHAPE[0], rc.seq_len], f"rows {r['rows']}")
+    fwd = windowed_fwd(dev, (TP_B // TP_SHAPE[0], rc.seq_len, cfg.n_kv_heads // TP_SHAPE[1],
+                             cfg.n_heads // cfg.n_kv_heads, cfg.hd), 0, copy_rate)
+    bwd = windowed_bwd(dev, (TP_B // TP_SHAPE[0], rc.seq_len, cfg.n_kv_heads // TP_SHAPE[1],
+                             cfg.n_heads // cfg.n_kv_heads, cfg.hd), 0, copy_rate)
+    torch.cuda.empty_cache()
+    emit({"phase": "tp", "arch": TP_ARCH, "mesh": dict(zip(TP_NAMES, TP_SHAPE)),
+          "backend": ranks[0]["backend"], "n_layers": cfg.n_layers,
+          "batch": TP_B, "seq": rc.seq_len,
+          "reduced": {"global_batch": [configs.SHAPES["train_4k"][1], TP_B]},
+          "ranks_s": ranks_s, "held": [r["held"] for r in ranks],
+          "held_want": want_held, "whole_weights": sum(
+              int(np.prod(s)) for s in train_step.full_shapes(
+                  model_zoo.get_api(cfg, rc, "cpu")).values()),
+          "local_wq_wk": [ranks[0]["local_wq"], ranks[0]["local_wk"]],
+          "spec_wq": ranks[0]["spec_wq"],
+          "loss": [r["loss"] for r in ranks], "single_loss": single,
+          "single_step_ms": single_ms,
+          "step_ms": [r["step_ms"] for r in ranks],
+          "step_ms_median": float(np.median([t for r in ranks for t in r["step_ms"]])),
+          "moved_per_step": ranks[0]["moved"][0], "moved_formula": want_bytes,
+          "init_s": [r["init_s"] for r in ranks],
+          "peak_GiB": [r["peak_GiB"] for r in ranks],
+          "policies": [r["policies"] for r in ranks],
+          "launches_per_rank": ranks[0]["launches"],
+          "flash_at_rank_shape": {"fwd": fwd, "bwd": {k: v for k, v in bwd.items()
+                                                      if k != "rows"},
+                                  "bwd_rows": bwd["rows"]},
+          "nvidia_smi": smi})
+    return {"launches": {f"tinyllama_tp_2x2_{TP_STEPS}_steps": {
+        k: sum(r["launches"].get(k, 0) for r in ranks) for k in ops.launch_counts()}},
+        "fwd": fwd, "bwd": bwd["rows"]}
+
+
+
 def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
                      paths: dict) -> None:
     """The kv and flash rows of the kernels line: their launches on every LM
@@ -3252,7 +3540,7 @@ def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
         "whisper_prefill": paths["encdec_serve"]["prefill"],
         "whisper_generate": paths["encdec_serve"]["generate"],
         "whisper_train_3_steps": paths["encdec_train"]["launches"],
-        **paths["dist"]}
+        **paths["dist"], **paths["tp"]["launches"]}
     windowed = {"flash_attention.flash_fwd": paths["hybrid_serve"]["window_fwd"],
                 **paths["families_train"]["window_bwd"]}
     keep = ("shape", "window", "ms", "plain_ms", "library_ms", "library_backend",
@@ -3262,6 +3550,9 @@ def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
             r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
         if r["name"] in windowed:
             r["at_hymba_window"] = {k: windowed[r["name"]][k] for k in keep}
+        tp = {"flash_attention.flash_fwd": paths["tp"]["fwd"], **paths["tp"]["bwd"]}
+        if r["name"] in tp:
+            r["at_tp_rank_shape"] = {k: tp[r["name"]][k] for k in keep}
         if r["name"].startswith("flash_attention."):
             r["at_whisper_shapes"] = {
                 label: {k: v for k, v in rows_[r["name"]].items()
@@ -3275,6 +3566,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--dist-rank"]:       # one of phase_dist's ranks
         return dist_child(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--tp-rank"]:         # one of phase_tp's ranks
+        return tp_child(int(sys.argv[2]), sys.argv[3])
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 parity: full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -3323,6 +3616,8 @@ def main() -> int:
     paths["encdec_train"] = phase_encdec_train(dev)
     torch.cuda.empty_cache()
     paths["dist"] = phase_dist(dev, smi)
+    torch.cuda.empty_cache()
+    paths["tp"] = phase_tp(dev, smi, copy_rate)
     add_family_paths(rows, prefill, serve, trained, paths)
     emit({"kernels": [{k: v for k, v in r.items()
                        if k != "copy_bound_ms"}

@@ -26,7 +26,7 @@ import json
 import os
 import shutil
 import time
-from typing import Any, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -192,12 +192,18 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     @torch.no_grad()
-    def restore(self, step: int, like: Any) -> Tuple[Any, dict]:
+    def restore(self, step: int, like: Any,
+                blocks: Optional[Dict[str, Tuple[tuple, Callable]]] = None
+                ) -> Tuple[Any, dict]:
         """Copy checkpoint ``step`` into the tensors of ``like``, in place.
 
         Every leaf of ``like`` must be in the manifest under its path, with
         the same shape and dtype, and the manifest may hold no other leaf.
-        Returns ``(like, extra dict)``.
+        ``blocks`` maps a leaf path to ``(whole shape, cut)`` where ``like``
+        holds a block of the checkpoint's leaf (a rank's share on a mesh):
+        the manifest must hold the whole shape, each whole part (a
+        ``Stacked`` leaf's, or the leaf) is read on the host and only
+        ``cut(part)`` is copied in.  Returns ``(like, extra dict)``.
         """
         t0 = time.perf_counter()
         nbytes = 0
@@ -213,19 +219,19 @@ class CheckpointManager:
                     f"{[p for p, _ in flat]}")
             for path, leaf in flat:
                 want = manifest["leaves"][index[path]]
-                if want["shape"] != list(leaf_shape(leaf)) or \
+                shape, cut = (blocks or {}).get(path, (leaf_shape(leaf), None))
+                if want["shape"] != list(shape) or \
                         want["dtype"] != _dtype_name(leaf):
                     raise ValueError(
                         f"{path}: checkpoint has {want['dtype']} {want['shape']}, "
-                        f"expected {_dtype_name(leaf)} {list(leaf_shape(leaf))}")
+                        f"expected {_dtype_name(leaf)} {list(shape)}")
                 arr = np.load(os.path.join(d, f"leaf_{index[path]}.npy"))
                 nbytes += arr.nbytes
                 t = _from_storable(arr, want["dtype"])
-                if isinstance(leaf, Stacked):
-                    for part, src in zip(leaf.parts, t.unbind(leaf.axis)):
-                        part.copy_(src)
-                else:
-                    leaf.copy_(t)
+                stacked = isinstance(leaf, Stacked)
+                for part, src in zip(leaf.parts if stacked else [leaf],
+                                     t.unbind(leaf.axis) if stacked else [t]):
+                    part.copy_(src if cut is None else cut(src))
         obs.hist_observe("ckpt/restore_ms", (time.perf_counter() - t0) * 1e3)
         obs.counter_inc("ckpt/restores", 1)
         obs.counter_inc("ckpt/bytes_read", nbytes)

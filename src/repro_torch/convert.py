@@ -10,7 +10,7 @@
   ``DenseParams`` or ``EncDecParams`` tree with numpy leaves;
 * ``state_from_jax``: the port's ``TrainState`` from the reference's
   (params, AdamW moments and count, error-feedback residuals, step) with
-  numpy leaves.
+  numpy leaves, whole or (``mesh``) as one rank's blocks.
 
 ``bfloat16`` numpy arrays (as JAX hands them over) travel exactly, as the
 same 16-bit words.  Nothing here imports JAX: the caller hands over numpy
@@ -104,7 +104,7 @@ def params_from_jax(tree, cfg, device: str | torch.device = "cuda"):
 
 
 def state_from_jax(tree, cfg, device: str | torch.device = "cuda",
-                   pod: int | None = None):
+                   pod: int | None = None, mesh=None, rc=None):
     """The port's ``train.step.TrainState`` from the reference's, leaf for leaf.
 
     ``tree`` is the reference's ``TrainState`` after ``np.asarray`` on every
@@ -113,7 +113,10 @@ def state_from_jax(tree, cfg, device: str | torch.device = "cuda",
     error-feedback residuals (``(n_pods, ...)`` leaves, ``(n_pods,
     n_layers, ...)`` where stacked) become f32 ``(n_pods, *shape)`` tensors
     keyed by parameter name; with ``pod``, only that pod's, ``(1,
-    *shape)``, as a rank of that pod holds them.
+    *shape)``, as a rank of that pod holds them.  With ``mesh`` (and the
+    run config ``rc`` whose rules place the leaves) every leaf is this
+    rank's block of it, as ``train.step.init_state(..., mesh)`` holds them,
+    and the residuals are this rank's pod's.
     """
     from repro_torch.optim.adamw import AdamState
     from repro_torch.train.step import STACKED, TrainState
@@ -131,6 +134,8 @@ def state_from_jax(tree, cfg, device: str | torch.device = "cuda",
         return type(node)(*(pods_first(getattr(node, f), stacked or f in STACKED)
                             for f in node._fields))
 
+    if mesh is not None and "pod" in mesh.axis_names:
+        pod = mesh.coords["pod"] if tree.resid is not None else pod
     resid = None
     if tree.resid is not None:
         resid = named(pods_first(tree.resid))
@@ -138,5 +143,25 @@ def state_from_jax(tree, cfg, device: str | torch.device = "cuda",
             resid = {n: r[pod:pod + 1].clone() for n, r in resid.items()}
     opt = AdamState(mu=named(tree.opt.mu), nu=named(tree.opt.nu),
                     count=to_torch(tree.opt.count, device))
-    return TrainState(params=params_from_jax(tree.params, cfg, device), opt=opt,
-                      resid=resid, step=to_torch(tree.step, device))
+    state = TrainState(params=params_from_jax(tree.params, cfg, device), opt=opt,
+                       resid=resid, step=to_torch(tree.step, device))
+    return state if mesh is None else _blocks(state, cfg, rc, mesh)
+
+
+def _blocks(state, cfg, rc, mesh):
+    """``state`` cut to this rank's blocks on ``mesh``."""
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.models import model_zoo
+    from repro_torch.train import step as train_step
+
+    api = model_zoo.get_api(cfg, rc, "cpu")
+    specs = train_step.param_partition(api, rc, mesh)
+    for n, p in state.params.named_parameters():
+        shd.shard_parameter(p, specs[n], mesh)
+    cut = {n: shd.P(*s) for n, s in specs.items()}
+    mu = {n: shd.local_slice(t, cut[n], mesh).clone() for n, t in state.opt.mu.items()}
+    nu = {n: shd.local_slice(t, cut[n], mesh).clone() for n, t in state.opt.nu.items()}
+    resid = None if state.resid is None else {
+        n: shd.local_slice(r, shd.P(None, *cut[n]), mesh).clone()
+        for n, r in state.resid.items()}
+    return state._replace(opt=state.opt._replace(mu=mu, nu=nu), resid=resid)

@@ -106,9 +106,11 @@ def device_batch(batch: Dict[str, Any], cfg: ModelConfig, rc: RunConfig,
     On a ``mesh`` each rank takes its rows of the global batch: the batch
     axis split over ``("pod", "data")`` row-major, as the reference's
     ``P(("pod", "data"))`` lays it out, so that pod ``i`` holds the rows the
-    reference's per-pod split gives it.  A batch the split does not divide
-    is split over the pods alone, or else stays whole on every rank, as the
-    reference's rules replicate it.
+    reference's per-pod split gives it.  The ranks along ``model`` of one
+    ``(pod, data)`` coordinate take the same rows (the batch is not split
+    over ``model``).  A batch the split does not divide is split over the
+    pods alone, or else stays whole on every rank, as the reference's rules
+    replicate it.
     """
     specs = model_zoo.input_specs(cfg, rc)
     rows = slice(None)

@@ -24,11 +24,18 @@ What crosses between pods is only what ``exchange`` gathers (the packed
 planes and scales) and what ``quantize_tree`` gathers for the raw leaves
 (f32); ``wire_bytes_sent`` counts both, as this rank's contribution, and
 equals ``exchange_stats(...).wire_bytes`` a step.
+
+The module also holds the differentiable collectives that tensor
+parallelism and ZeRO-3 issue by hand (``gather``, ``reduce_scatter``,
+``all_reduce``; ``collective_bytes`` counts what each is handed) and the
+``save_collectives`` remat policy (``SavePolicy``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import List, Tuple
 
 import torch
@@ -97,16 +104,212 @@ def _like(leaf, parts: List[torch.Tensor]):
     return Stacked(parts, leaf.axis) if isinstance(leaf, Stacked) else parts[0]
 
 
+def _staged(t: torch.Tensor, group) -> bool:
+    """Gloo takes no CUDA tensor: such a tensor goes through host memory."""
+    return t.is_cuda and dist.get_backend(group) != "nccl"
+
+
 def all_gather(t: torch.Tensor, group) -> torch.Tensor:
     """(n, *t.shape): each member's ``t`` in group-rank order, ``n`` the
     group's size.  Gloo gathers no CUDA tensor, so on a gloo group a CUDA
     ``t`` goes through host memory."""
-    if t.is_cuda and dist.get_backend(group) != "nccl":
+    if _staged(t, group):
         return all_gather(t.cpu(), group).to(t.device)
     out = torch.empty((dist.get_world_size(group), *t.shape), dtype=t.dtype,
                       device=t.device)
     dist.all_gather(list(out.unbind(0)), t.contiguous(), group=group)
     return out
+
+
+def gather_to_first(t: torch.Tensor):
+    """Every rank's ``t`` (one shape and dtype on all), on rank 0 as a list
+    of host tensors in rank order; ``None`` on the other ranks.  A
+    collective over the default group (a CUDA ``t`` goes through host
+    memory on gloo)."""
+    src = t.contiguous()
+    if _staged(src, None):
+        src = src.cpu()
+    if dist.get_rank() != 0:
+        dist.gather(src, None, dst=0)
+        return None
+    out = [torch.empty_like(src) for _ in range(dist.get_world_size())]
+    dist.gather(src, out, dst=0)
+    return [o.cpu() for o in out]
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives over a mesh axis (tensor parallelism, ZeRO-3)
+# ---------------------------------------------------------------------------
+#
+# Each rank differentiates its own copy of the loss, and the gradient the
+# step wants is that of the sum of the ranks' losses: every collective's
+# backward is the adjoint of its forward under that sum (gather <->
+# reduce-scatter, all-reduce <-> all-reduce), a tensor copied on several
+# ranks gets the sum of its copies' gradients (``train.step``), and the step
+# divides by the number of ranks whose losses were summed.  Reductions run
+# in f32 and give every rank the same bits.
+
+#: bytes this process has handed to the differentiable collectives, by kind
+#: (a gather counts its own block, a reduction the whole tensor it reduces)
+_moved = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+_save = threading.local()
+
+
+def collective_bytes() -> dict:
+    return dict(_moved)
+
+
+def reset_collective_bytes() -> None:
+    for k in _moved:
+        _moved[k] = 0
+
+
+def _reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``t`` reduced over ``group`` in f32 (a new tensor, ``t``'s dtype)."""
+    buf = t.to(F32, copy=True).contiguous()
+    host = buf.cpu() if _staged(buf, group) else buf
+    dist.all_reduce(host, op=op, group=group)
+    return host.to(device=t.device, dtype=t.dtype)
+
+
+def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    _moved["all_gather"] += x.numel() * x.element_size()
+    return torch.cat(all_gather(x, group).unbind(0), dim=dim)
+
+
+def _scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The sum over ``group`` of ``x`` in f32, this rank's block of it
+    along ``dim`` (``x``'s dtype): a reduce-scatter on NCCL; on gloo an
+    all-reduce, then the block (gloo's reduce-scatter of host tensors is
+    the slower of the two)."""
+    _moved["reduce_scatter"] += x.numel() * 4
+    n, i = dist.get_world_size(group), dist.get_rank(group)
+    size = x.shape[dim] // n
+    if dist.get_backend(group) != "nccl":
+        return _reduce(x, group).narrow(dim, i * size, size).contiguous()
+    buf = x.to(F32).movedim(dim, 0).contiguous()
+    out = torch.empty((size, *buf.shape[1:]), dtype=F32, device=x.device)
+    dist.reduce_scatter_tensor(out, buf, group=group)
+    return out.movedim(0, dim).to(x.dtype).contiguous()
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    _moved["all_reduce"] += x.numel() * 4
+    return _reduce(x, group)
+
+
+def _recorded(name, fn):
+    """``fn()``, or under ``save_collectives``' recompute the output this
+    call gave in the forward: the collectives named in the policy are not
+    run again (``SavePolicy``)."""
+    policy = getattr(_save, "policy", None)
+    if policy is None or name not in policy.names:
+        return fn()
+    if policy.replay:
+        return policy.store[policy.take()].detach()
+    out = fn()
+    policy.store.append(out.detach())
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, name):
+        ctx.dim, ctx.group = dim, group
+        return _recorded(name, lambda: _gather_dim(x, dim, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _scatter_dim(g, ctx.dim, ctx.group), None, None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group, name):
+        ctx.dim, ctx.group = dim, group
+        return _recorded(name, lambda: _scatter_dim(x, dim, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.dim, ctx.group), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, name):
+        ctx.group = group
+        return _recorded(name, lambda: _sum(x, group))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None, None
+
+
+def _one(group) -> bool:
+    return group is None or dist.get_world_size(group) == 1
+
+
+def gather(x: torch.Tensor, dim: int, group, name: str = None) -> torch.Tensor:
+    """Every member's ``x`` concatenated along ``dim`` in group-rank order;
+    backward: the gradient summed over the group, this rank's block."""
+    return x if _one(group) else _Gather.apply(x, dim, group, name)
+
+
+def reduce_scatter(x: torch.Tensor, dim: int, group,
+                   name: str = None) -> torch.Tensor:
+    """The sum of the members' ``x`` (in f32), this rank's block along
+    ``dim``; backward: the gradient's blocks gathered."""
+    return x if _one(group) else _Scatter.apply(x, dim, group, name)
+
+
+def all_reduce(x: torch.Tensor, group, name: str = None) -> torch.Tensor:
+    """The sum of the members' ``x`` (in f32); backward: the gradient
+    summed the same way."""
+    return x if _one(group) else _AllReduce.apply(x, group, name)
+
+
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over the group, outside autograd."""
+    if _one(group):
+        return x
+    _moved["all_reduce"] += x.numel() * 4
+    return _reduce(x.detach(), group, dist.ReduceOp.MAX)
+
+
+class SavePolicy:
+    """The reference's ``save_collectives`` remat policy for
+    ``torch.utils.checkpoint``: the outputs of the collectives called with a
+    name in ``names`` ("proj_out", "kv_gathered") are kept from the forward
+    and handed back, in call order, when backward recomputes the segment;
+    everything else is recomputed.  ``context_fn`` gives checkpoint its two
+    contexts (forward, recompute) for one segment."""
+
+    def __init__(self, names):
+        self.names = frozenset(names)
+        self.store: list = []
+        self.replay = False
+        self._next = 0
+
+    def take(self) -> int:
+        self._next += 1
+        return self._next - 1
+
+    @contextlib.contextmanager
+    def _active(self, replay: bool):
+        prev = getattr(_save, "policy", None)
+        self.replay, self._next = replay, 0
+        _save.policy = self
+        try:
+            yield
+        finally:
+            _save.policy = prev
+
+    @classmethod
+    def context_fn(cls, names):
+        def make():
+            policy = cls(names)
+            return policy._active(False), policy._active(True)
+        return make
 
 
 def _gather_words(tensors: List[torch.Tensor], group) -> List[torch.Tensor]:
@@ -147,10 +350,12 @@ def _quantize_part(g: torch.Tensor, r: torch.Tensor, bits: int):
             scales.reshape(*g.shape[:-1], nb))
 
 
-def quantize_tree(grads, resids, bits: int, group=None):
+def quantize_tree(grads, resids, bits: int, group=None, whole=None):
     """The pod-local half of the exchange.
 
-    Compressible leaves -> (planes, scale, new residual); the others are
+    Compressible leaves (decided on ``whole``'s leaf where given: the
+    reference's whole leaf, of which ``grads`` holds this rank's block)
+    -> (planes, scale, new residual); the others are
     averaged in f32 over ``group`` (the ranks of the other pods; ``None``:
     this pod alone), in group order, and cast back to their dtype.  The new
     residuals ``x - dequant(quant(x))``, ``x = g + resid`` (zero for a raw
@@ -160,8 +365,8 @@ def quantize_tree(grads, resids, bits: int, group=None):
     """
     raw = []
 
-    def one(g, r):
-        if not compressible(g):
+    def one(g, r, w=None):
+        if not compressible(g if w is None else w):
             for part in _parts(r):
                 part.zero_()
             raw.append(g)
@@ -170,7 +375,7 @@ def quantize_tree(grads, resids, bits: int, group=None):
                                 for gp, rp in zip(_parts(g), _parts(r))))
         return _like(g, list(planes)), _like(g, list(scales)), None, r
 
-    out = map_tree(one, grads, resids)
+    out = map_tree(one, grads, resids, *(() if whole is None else (whole,)))
     means = _raw_means(raw, group)
     pick = lambda i: map_tree(lambda t: t[i], out)  # noqa: E731
     raw_means = map_tree(lambda t, g: means.get(id(g)) if t[0] is None else None,

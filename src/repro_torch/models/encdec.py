@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.ckpt import Attrs, map_tree
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.distributed import sharding as shd
 from . import layers as L
 
 F32 = torch.float32
@@ -124,11 +125,18 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 def _layers(body, layers, x: torch.Tensor, rc: RunConfig, *args) -> torch.Tensor:
     """x through ``body(x, *args, lp)`` for each layer, each checkpointed
-    with ``rc.remat`` while autograd records."""
+    with ``rc.remat`` while autograd records; ``lp`` as the layer reads it
+    (``sharding.gathered``: ZeRO-3's blocks gathered over ``data``)."""
     remat = rc.remat and torch.is_grad_enabled()
+    rules = shd.get_rules()
+
+    def run(x, *rest):
+        *a, lp = rest
+        return body(x, *a, shd.gathered(lp))
+
     for lp in layers:
-        x = checkpoint(body, x, *args, lp, use_reentrant=False) if remat \
-            else body(x, *args, lp)
+        x = checkpoint(shd.under, rules, run, x, *args, lp, use_reentrant=False) \
+            if remat else run(x, *args, lp)
     return x
 
 
@@ -166,7 +174,8 @@ def decoder_backbone(params: EncDecParams, tokens: torch.Tensor,
         h = L.rmsnorm(x, lp.ln2, cfg.norm_eps)
         return x + L.mlp(h, lp.mlp, cfg.mlp_act)
 
-    return _layers(body, params.dec_layers, L.embed(tokens, params.embed), rc,
+    return _layers(body, params.dec_layers,
+                   L.embed(tokens, shd.gathered(params.embed)), rc,
                    memory)
 
 
@@ -175,14 +184,14 @@ def decoder_forward(params: EncDecParams, tokens: torch.Tensor,
                     rc: RunConfig) -> torch.Tensor:
     """Full logits (tests); serving uses last-position prefill below."""
     x = decoder_backbone(params, tokens, memory, cfg, rc)
-    return L.logits(x, params.embed, cfg)
+    return L.logits(x, shd.gathered(params.embed), cfg)
 
 
 def prefill(params: EncDecParams, batch, cfg: ModelConfig,
             rc: RunConfig) -> torch.Tensor:
     memory = encode(params, batch["frames"], cfg, rc)
     x = decoder_backbone(params, batch["tokens"], memory, cfg, rc)
-    return L.logits(x[:, -1:], params.embed, cfg)[:, 0]
+    return L.logits(x[:, -1:], shd.gathered(params.embed), cfg)[:, 0]
 
 
 def loss_fn(params: EncDecParams, batch, cfg: ModelConfig,
@@ -190,7 +199,7 @@ def loss_fn(params: EncDecParams, batch, cfg: ModelConfig,
     """batch: dict(frames (B,enc_seq,d), tokens (B,S), labels (B,S) [, mask])."""
     memory = encode(params, batch["frames"], cfg, rc)
     x = decoder_backbone(params, batch["tokens"], memory, cfg, rc)
-    return L.fused_ce_loss(x, params.embed, cfg, batch["labels"],
+    return L.fused_ce_loss(x, shd.gathered(params.embed), cfg, batch["labels"],
                            batch.get("mask"))
 
 

@@ -24,11 +24,19 @@ so ``x @ wq`` is the same product.
   path on a CPU tensor, with the reference's single-block rule for ragged
   shapes.  The reference runs it blockwise on every backend.
 
-The reference's sharding hooks (``shd.act``, ``checkpoint_name``, the
-``tp_scatter`` out-projection) have no counterpart yet.
+Under rules whose mesh has a ``model`` axis above 1 (``train.step``) the
+layers run tensor-parallel, as the reference's logical specs place them
+(``distributed.sharding``): ``attention`` on this rank's query heads with
+the KV heads they read, ``mlp`` and the MoE on its block of ff, ``embed``
+and ``fused_ce_loss`` on its block of the vocabulary; each takes its input
+whole over the sequence and returns its output where the residual stream
+lives (``shd.reduce_partial``).  The reference's ``checkpoint_name`` labels
+become names on the collectives (``"kv_gathered"``, ``"proj_out"``), which
+the ``save_collectives`` remat policy keeps.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -38,6 +46,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.ckpt import Attrs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 
@@ -129,22 +139,6 @@ def attn_specs(cfg: ModelConfig) -> Attrs:
                  wv=("fsdp", "heads"), wo=("heads", "fsdp"), bq=b, bk=b, bv=b)
 
 
-def _qkv(x: torch.Tensor, p: AttnParams, cfg: ModelConfig, pos: torch.Tensor):
-    B, S, _ = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
-    if p.bq is not None:
-        q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
-    q = rope(q, pos, cfg.rope_theta)
-    k = rope(k, pos, cfg.rope_theta)
-    return q, k, v
-
-
 def _grouped(q: torch.Tensor, KV: int) -> torch.Tensor:
     """(B, S, H, D) -> (B, S, KV, G, D)."""
     B, S, H, D = q.shape
@@ -210,6 +204,79 @@ def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1).reshape(B, S, H, D).to(q.dtype)
 
 
+class _Heads(NamedTuple):
+    """Which heads this rank computes and how they read the KV heads."""
+    rows: Optional[Tuple[int, int]]  # wo's rows this rank holds (None: all)
+    q: Tuple[int, int]           # query heads [start, stop)
+    q_gather: bool               # q's columns gathered (a block cut mid-head)
+    kv_gather: bool              # k / v gathered over ``model``
+    kv_local: Tuple[int, int]    # KV heads in the (local or gathered) k / v
+    kv_index: Optional[list]     # per query head when groups do not line up
+
+
+def _heads(cfg: ModelConfig) -> _Heads:
+    """This rank's share of attention under the rules: every head where
+    there is no ``model`` axis or ``heads`` is left whole.
+
+    ``wq``'s H*hd columns and ``wk``'s KV*hd columns are each sharded
+    wherever tp divides them.  A query block that cuts a head is gathered
+    (every head is computed and o is cut back to wo's rows).  The KV heads
+    that the local query heads read (head h reads h // G) are the local
+    ones where the blocks line up; otherwise k and v are gathered whole,
+    as the reference does (its ``kv_gathered``), and the needed heads are
+    picked.
+    """
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    qb = shd.tp_block("heads", H * hd)
+    if qb is None:
+        return _Heads(None, (0, H), False, False, (0, KV), None)
+    G = H // KV
+    q_gather = qb[0] % hd != 0 or qb[1] % hd != 0
+    q = (0, H) if q_gather else (qb[0] // hd, (qb[0] + qb[1]) // hd)
+    need = (q[0] // G, (q[1] - 1) // G + 1)
+    kb = shd.tp_block("heads", KV * hd)
+    base, kv_gather = 0, False
+    if kb is not None:
+        lo, hi = kb[0] // hd, (kb[0] + kb[1]) // hd
+        kv_gather = (kb[0] % hd or kb[1] % hd or need[0] < lo or need[1] > hi)
+        base = 0 if kv_gather else lo
+    n_q = q[1] - q[0]
+    aligned = (q[0] % G == 0 and n_q % G == 0) or need[1] - need[0] == 1
+    index = None if aligned else [h // G - base for h in range(*q)]
+    return _Heads(qb, q, q_gather, bool(kv_gather),
+                  (need[0] - base, need[1] - base), index)
+
+
+def _qkv(x: torch.Tensor, p: AttnParams, cfg: ModelConfig, pos: torch.Tensor,
+         plan: _Heads):
+    """q on the plan's query heads, k and v on the KV heads those read
+    (grouped as ``_grouped`` expects, or one KV head a query head where
+    the groups do not line up), q and k roped."""
+    B, S, _ = x.shape
+    hd = cfg.hd
+    q = x @ p.wq
+    k = x @ p.wk
+    v = x @ p.wv
+    if p.bq is not None:
+        q, k, v = q + p.bq, k + p.bk, v + p.bv
+    if plan.q_gather:
+        q = shd.act(q, "batch", None, None, src=("batch", None, "heads"))
+    if plan.kv_gather:
+        k, v = (shd.act(t, "batch", None, None, src=("batch", None, "heads"),
+                        name="kv_gathered") for t in (k, v))
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, S, -1, hd)
+    v = v.reshape(B, S, -1, hd)
+    if plan.kv_index is not None:
+        idx = torch.tensor(plan.kv_index, device=x.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    else:
+        k, v = (t[:, :, plan.kv_local[0]:plan.kv_local[1]] for t in (k, v))
+    q = rope(q, pos, cfg.rope_theta)
+    k = rope(k, pos, cfg.rope_theta)
+    return q, k, v
+
+
 def attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
               pos: torch.Tensor, q_block: int, kv_block: int,
               window_override: Optional[int] = None,
@@ -218,10 +285,15 @@ def attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
 
     On a CUDA tensor the inner loops run as the flash kernel; on a CPU
     tensor the blockwise path runs (same math, held equal in the tests), as
-    the reference dispatches on TPU / not TPU.
+    the reference dispatches on TPU / not TPU.  Under tensor parallelism
+    (``_heads``) both run on this rank's heads, and the out-projection's
+    partial products are summed by ``shd.tp_out_proj`` (the output is
+    where the residual stream lives: this rank's block of the sequence, or
+    whole).
     """
     B, S, _ = x.shape
-    q, k, v = _qkv(x, p, cfg, pos)
+    plan = _heads(cfg)
+    q, k, v = _qkv(x, p, cfg, pos, plan)
     window = cfg.sliding_window if window_override is None else window_override
     if window >= S:
         window = 0  # band covers everything: plain causal
@@ -232,13 +304,18 @@ def attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
     if S % kb:
         kb = S
     if x.device.type == "cuda":
-        og = fa.flash_attention(_grouped(q, cfg.n_kv_heads), k, v, causal,
+        og = fa.flash_attention(_grouped(q, k.shape[2]), k, v, causal,
                                 window, qb, kb)
         o = og.reshape(B, S, -1, cfg.hd)
     else:
         o = blockwise_attention(q, k, v, causal=causal, window=window,
                                 q_block=qb, kv_block=kb)
-    return o.reshape(B, S, -1) @ p.wo
+    of = o.reshape(B, S, -1)
+    if plan.rows is None:
+        return shd.act(of @ p.wo, "batch", "seq", None)
+    if plan.q_gather:
+        of = of[..., plan.rows[0]:plan.rows[0] + plan.rows[1]]
+    return shd.tp_out_proj(of, p.wo)
 
 
 def cross_attention(x: torch.Tensor, memory: torch.Tensor, p: AttnParams,
@@ -335,7 +412,7 @@ def decode_attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
     S = cache.k.shape[1]
     ring = window > 0 and S <= window
     slot = pos % S if ring else pos
-    q, k_new, v_new = _qkv(x, p, cfg, pos[:, None])
+    q, k_new, v_new = _qkv(x, p, cfg, pos[:, None], _heads(cfg))
     cache = update_cache(cache, k_new, v_new, slot, bits)
 
     cdt = x.dtype
@@ -401,12 +478,19 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(x)
 
 
-def mlp(x: torch.Tensor, p: MlpParams, act: str) -> torch.Tensor:
+def mlp(x: torch.Tensor, p: MlpParams, act: str,
+        d_ff: Optional[int] = None) -> torch.Tensor:
+    """The MLP on x.  With ``d_ff`` (the full hidden width) and rules that
+    shard ``ff`` over ``model``, the weights are this rank's columns / rows
+    and the down-projection's partial products are summed by
+    ``shd.tp_out_proj``; the output is where the residual stream lives."""
     if act == "swiglu":
         h = silu(x @ p.w_gate) * (x @ p.w_up)
     else:
         h = F.gelu(x @ p.w_up, approximate="tanh")  # jax.nn.gelu's default
-    return h @ p.w_down
+    if d_ff is not None and shd.tp_block("ff", d_ff) is not None:
+        return shd.tp_out_proj(h, p.w_down)
+    return shd.act(h @ p.w_down, "batch", "seq", None)
 
 
 # ---------------------------------------------------------------------------
@@ -439,16 +523,36 @@ def embed_specs(cfg: ModelConfig) -> Attrs:
                  final_norm=(None,))
 
 
-def embed(tokens: torch.Tensor, p: EmbedParams) -> torch.Tensor:
-    # the row gather; its backward is the embedding backward, which PyTorch
-    # does not list among its nondeterministic CUDA operations
-    return F.embedding(tokens, p.table)
+def _vocab(cfg: ModelConfig):
+    """This rank's (start, size) of the vocabulary, or ``None`` (whole)."""
+    return shd.tp_block("vocab", cfg.vocab)
+
+
+def embed(tokens: torch.Tensor, p: EmbedParams,
+          cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+    """The rows of ``tokens``.  Vocab-parallel where the rules shard the
+    table's vocabulary (``cfg`` given): the rows outside this rank's block
+    are zero, and the sum over ``model`` (exact: one rank holds each row)
+    is every rank's."""
+    block = None if cfg is None else _vocab(cfg)
+    if block is None:
+        # the row gather; its backward is the embedding backward, which
+        # PyTorch does not list among its nondeterministic CUDA operations
+        return F.embedding(tokens, p.table)
+    local = tokens.long() - block[0]
+    inside = (local >= 0) & (local < block[1])
+    rows = F.embedding(torch.where(inside, local, 0), p.table)
+    rows = torch.where(inside[..., None], rows, 0)
+    return collectives.all_reduce(rows, shd.model_group())
 
 
 def logits(x: torch.Tensor, p: EmbedParams, cfg: ModelConfig) -> torch.Tensor:
     x = rmsnorm(x, p.final_norm, cfg.norm_eps)
     w = p.table.T if cfg.tie_embeddings else p.unembed
-    return x @ w
+    if _vocab(cfg) is None:
+        return x @ w
+    return shd.act(x @ w, *(None,) * x.dim(),
+                   src=(None,) * (x.dim() - 1) + ("vocab",))
 
 
 def _nll(lg: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -468,9 +572,21 @@ def cross_entropy(lg: torch.Tensor, labels: torch.Tensor,
     return torch.mean(nll)
 
 
-def _ce_chunk(xc: torch.Tensor, w: torch.Tensor, lc: torch.Tensor,
-              mc: torch.Tensor):
-    nll = _nll((xc @ w).to(F32), lc) * mc
+def _ce_chunk(group, start: int, xc: torch.Tensor, w: torch.Tensor,
+              lc: torch.Tensor, mc: torch.Tensor):
+    """The chunk's summed NLL and mask.  ``w`` holds the vocabulary's
+    columns from ``start``; where they are one rank's block (``group``, the
+    ``model`` axis's; ``None``: the whole vocabulary) the max, the sum of
+    exponentials and the gold logit are reduced over ``group``."""
+    lg = (xc @ w).to(F32)
+    m = collectives.all_reduce_max(lg.amax(dim=-1), group)
+    se = collectives.all_reduce(torch.sum(torch.exp(lg - m[..., None]), dim=-1),
+                                group)
+    local = lc.long() - start
+    inside = (local >= 0) & (local < lg.shape[-1])
+    gold = torch.gather(lg, -1, torch.where(inside, local, 0)[..., None])[..., 0]
+    gold = collectives.all_reduce(torch.where(inside, gold, 0), group)
+    nll = (m + torch.log(se) - gold) * mc
     return torch.sum(nll), torch.sum(mc)
 
 
@@ -482,10 +598,15 @@ def fused_ce_loss(x: torch.Tensor, p: EmbedParams, cfg: ModelConfig,
     Never holds the (B, S, V) logits: each chunk computes its (B, C, V)
     logits, reduces them to per-token NLL and, under autograd, is
     checkpointed, so backward recomputes the chunk instead of keeping it.
+    ``x`` is whole over the sequence; where the rules shard the vocabulary
+    each chunk's logits are this rank's columns (``_ce_chunk``).
     """
     B, S, _ = x.shape
     x = rmsnorm(x, p.final_norm, cfg.norm_eps)
     w = p.table.T if cfg.tie_embeddings else p.unembed
+    block = _vocab(cfg)
+    fn = functools.partial(_ce_chunk, None, 0) if block is None else \
+        functools.partial(_ce_chunk, shd.model_group(), block[0])
     chunk = min(chunk, S)
     total = torch.zeros((), dtype=F32, device=x.device)
     count = torch.zeros((), dtype=F32, device=x.device)
@@ -495,8 +616,8 @@ def fused_ce_loss(x: torch.Tensor, p: EmbedParams, cfg: ModelConfig,
               else torch.ones((B, hi - lo), dtype=F32, device=x.device))
         args = (x[:, lo:hi], w, labels[:, lo:hi], mc)
         if torch.is_grad_enabled():
-            t, c = checkpoint(_ce_chunk, *args, use_reentrant=False)
+            t, c = checkpoint(fn, *args, use_reentrant=False)
         else:
-            t, c = _ce_chunk(*args)
+            t, c = fn(*args)
         total, count = total + t, count + c
     return total / torch.clamp(count, min=1.0)

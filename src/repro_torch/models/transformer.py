@@ -7,10 +7,26 @@ reference: attention (dense, vlm, moe, hybrid), the SSD mixer (ssm,
 hybrid; hybrid averages the two branches after a norm each), an MLP
 (dense, vlm, hybrid) or the MoE block (moe); a field the family has not is
 ``None``.  With ``rc.remat`` each layer runs under
-``torch.utils.checkpoint`` while autograd records (the reference's
-``"full"`` policy: nothing saved, all recomputed).  The encoder-decoder
-family is ``models/encdec.py``; the functions here refuse its configs
-(``check_family``), and ``model_zoo.get_api`` dispatches to either module.
+``torch.utils.checkpoint`` while autograd records: the reference's
+``"full"`` policy saves nothing and recomputes all; ``"save_collectives"``
+keeps the outputs of the collectives named ``proj_out`` and
+``kv_gathered`` (``collectives.SavePolicy``) and recomputes the rest, so
+that backward does not run them again (on one device there are none, and
+it is ``"full"``).  The encoder-decoder family is ``models/encdec.py``; the
+functions here refuse its configs (``check_family``), and
+``model_zoo.get_api`` dispatches to either module.
+
+On a mesh (rules installed by ``train.step``) each layer reads its
+parameters through ``sharding.gathered`` (ZeRO-3 over ``data``) and, for
+the dense, vlm and moe families on a ``model`` axis above 1, runs
+tensor-parallel: between layers the residual stream is (B, S / tp, d),
+this rank's block of positions, wherever ``rc.seq_shard`` holds and tp
+divides S (the vlm prefix is joined before the split), the norms run on
+that block, and the attention, MLP and MoE take it gathered.  The
+backbone returns the stream whole.  ``rc.tp_scatter`` selects nothing
+here: the port always issues the reference's ``tp_scatter`` schedule (an
+f32 partial product, reduce-scattered onto the sequence), which is also
+what GSPMD's own schedule computes.
 """
 from __future__ import annotations
 
@@ -22,6 +38,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.ckpt import Attrs, map_tree
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as shd
 from . import layers as L
 from . import moe as M
 from . import ssm as S
@@ -155,27 +173,45 @@ def _merge(cfg: ModelConfig, lp: LayerParams, a: Optional[torch.Tensor],
                   + L.rmsnorm(s, lp.ln_ssm_out, cfg.norm_eps))
 
 
-def _ffn(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams):
-    """The layer's MLP or MoE block on x -> (x + out, aux)."""
+#: the reference's ``save_only_these_names`` under ``"save_collectives"``
+SAVED_NAMES = ("proj_out", "kv_gathered")
+
+
+def _stream(S: int) -> tuple:
+    """The residual stream's logical placement for a sequence of S."""
+    return ("batch", "seq", None) if shd.seq_split(S) else ("batch", None, None)
+
+
+def _ffn(cfg: ModelConfig, x: torch.Tensor, lp: LayerParams,
+         stream: tuple = ("batch", None, None)):
+    """The layer's MLP or MoE block on x, the residual stream placed as
+    ``stream`` -> (x + out, aux)."""
     h2 = L.rmsnorm(x, lp.ln2, cfg.norm_eps)
+    h2 = shd.act(h2, "batch", None, None, src=stream)
     if cfg.family == "moe":
         out, aux = M.moe_block(h2, lp.moe, cfg)
         return x + out, aux
-    return x + L.mlp(h2, lp.mlp, cfg.mlp_act), None
+    return x + L.mlp(h2, lp.mlp, cfg.mlp_act, cfg.d_ff), None
 
 
 def _layer_fwd(cfg: ModelConfig, rc: RunConfig, x: torch.Tensor,
                pos: torch.Tensor, lp: LayerParams
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """-> (x, the layer's MoE aux loss, f32 0-dim; None without a MoE block)."""
+    """-> (x, the layer's MoE aux loss, f32 0-dim; None without a MoE block).
+
+    ``x`` is the residual stream as ``backbone`` places it; ``pos`` covers
+    the whole sequence."""
+    lp = shd.gathered(lp)
+    stream = _stream(pos.shape[1])
     h = L.rmsnorm(x, lp.ln1, cfg.norm_eps)
+    h = shd.act(h, "batch", None, None, src=stream)
     a = None if lp.attn is None else L.attention(h, lp.attn, cfg, pos,
                                                  rc.q_block, rc.kv_block)
     s = None if lp.ssm is None else S.ssd_forward(lp.ssm, h, cfg)
     x = x + _merge(cfg, lp, a, s)
     if lp.ln2 is None:
         return x, None
-    return _ffn(cfg, x, lp)
+    return _ffn(cfg, x, lp, stream)
 
 
 def backbone(params: DenseParams, tokens: torch.Tensor, cfg: ModelConfig,
@@ -184,30 +220,33 @@ def backbone(params: DenseParams, tokens: torch.Tensor, cfg: ModelConfig,
     """tokens (B, S_text) [+ optional stub prefix] -> (final hidden x, aux).
 
     ``aux`` is the MoE load-balance loss averaged over the layers (zero for
-    the other families).
+    the other families).  ``x`` is whole over the sequence.
     """
     check_family(cfg)
-    x = L.embed(tokens, params.embed)
+    x = L.embed(tokens, shd.gathered(params.embed), cfg)
     if vis_embeds is not None:
         x = torch.cat([vis_embeds.to(x.dtype), x], dim=1)
     B, Sq, _ = x.shape
     pos = torch.arange(Sq, device=x.device)[None, :].expand(B, Sq)
+    stream = _stream(Sq)
+    x = shd.act(x, *stream)
     remat = rc.remat and torch.is_grad_enabled()
+    kw = {}
     if remat and rc.remat_policy == "save_collectives":
-        raise NotImplementedError(
-            "remat_policy='save_collectives' saves the outputs of the "
-            "tensor-parallel collectives, which come with the distributed "
-            "slice that brings the 'model' axis, not ported yet; use 'full'")
+        kw["context_fn"] = collectives.SavePolicy.context_fn(SAVED_NAMES)
+    elif remat and rc.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {rc.remat_policy!r}")
+    rules = shd.get_rules()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params.layers:
         if remat:
-            x, inc = checkpoint(_layer_fwd, cfg, rc, x, pos, lp,
-                                use_reentrant=False)
+            x, inc = checkpoint(shd.under, rules, _layer_fwd, cfg, rc, x, pos,
+                                lp, use_reentrant=False, **kw)
         else:
             x, inc = _layer_fwd(cfg, rc, x, pos, lp)
         if inc is not None:
             aux = aux + inc
-    return x, aux / cfg.n_layers
+    return shd.act(x, "batch", None, None, src=stream), aux / cfg.n_layers
 
 
 def forward(params: DenseParams, tokens: torch.Tensor, cfg: ModelConfig,
@@ -215,7 +254,7 @@ def forward(params: DenseParams, tokens: torch.Tensor, cfg: ModelConfig,
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full logits (tests / tiny shapes)."""
     x, aux = backbone(params, tokens, cfg, rc, vis_embeds)
-    return L.logits(x, params.embed, cfg), aux
+    return L.logits(x, shd.gathered(params.embed), cfg), aux
 
 
 def loss_fn(params: DenseParams, batch, cfg: ModelConfig,
@@ -229,8 +268,8 @@ def loss_fn(params: DenseParams, batch, cfg: ModelConfig,
     x, aux = backbone(params, batch["tokens"], cfg, rc, vis_embeds=vis)
     if vis is not None:
         x = x[:, vis.shape[1]:]
-    loss = L.fused_ce_loss(x, params.embed, cfg, batch["labels"],
-                           batch.get("mask"))
+    loss = L.fused_ce_loss(x, shd.gathered(params.embed), cfg,
+                           batch["labels"], batch.get("mask"))
     if cfg.family == "moe":
         loss = loss + 0.01 * aux
     return loss
@@ -323,4 +362,4 @@ def prefill(params: DenseParams, tokens: torch.Tensor, cfg: ModelConfig,
             ) -> torch.Tensor:
     """Prefill: logits for the LAST position only (serving semantics)."""
     x, _ = backbone(params, tokens, cfg, rc, vis_embeds=vis_embeds)
-    return L.logits(x[:, -1:], params.embed, cfg)[:, 0]
+    return L.logits(x[:, -1:], shd.gathered(params.embed), cfg)[:, 0]

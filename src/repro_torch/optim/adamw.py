@@ -18,6 +18,7 @@ and qkv biases are decayed, ``embed.final_norm`` is not (ROADMAP Queue 3).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Dict, Iterable, Mapping, NamedTuple, Optional, Tuple
 
@@ -72,9 +73,27 @@ def schedule(cfg: AdamConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * (0.1 + 0.9 * cos)
 
 
-def global_norm(leaves: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(F32))) for x in leaves))
+def global_norm(leaves: Iterable[torch.Tensor],
+                groups: Optional[Iterable] = None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32.
+
+    ``groups`` (one a leaf) is where the leaves are blocks of sharded
+    tensors: a leaf's squares are summed over the process group of the
+    ranks that hold its other blocks (``None``: no other), once, so that a
+    block held whole on several ranks is counted once.  Every rank gets the
+    same value.
+    """
+    from repro_torch.distributed import collectives
+    by_group: dict = {}
+    for x, g in zip(leaves, itertools.repeat(None) if groups is None else groups):
+        by_group.setdefault(g, []).append(torch.sum(torch.square(x.to(F32))))
+    total = None
+    for g, squares in by_group.items():
+        part = sum(squares)
+        if g is not None:
+            part = collectives.all_reduce(part, g)
+        total = part if total is None else total + part
+    return torch.sqrt(total)
 
 
 #: the name prefixes of the per-layer lists, stacked in the reference

@@ -13,10 +13,12 @@ Port of ``repro.train.loop``:
 * checkpoints use the reference's layout (``checkpoint.ckpt``), so a run can
   resume from the reference's checkpoints and the reverse;
 * on a ``mesh`` (``launch.mesh``) every rank runs the loop on its rows of
-  each batch; rank 0 alone writes a checkpoint (the residuals of every pod
-  gathered first) and every rank restores it onto the *current* mesh, so a
-  run checkpointed on one size of the ``data`` axis resumes on another
-  (elastic re-mesh).
+  each batch and its blocks of the state; rank 0 alone writes a checkpoint
+  of whole leaves (each gathered to rank 0's host from the ranks' blocks,
+  one leaf at a time) and every rank restores its blocks on the *current*
+  mesh (it reads each whole leaf on the host and copies in its block), so
+  a run checkpointed on one mesh resumes on another of other ``data`` and
+  ``model`` sizes (elastic re-mesh).
 """
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ import torch.distributed as dist
 from repro_torch.checkpoint.ckpt import CheckpointManager
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.data.pipeline import SyntheticPipeline, device_batch
-from repro_torch.distributed import collectives, sharding as shd
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import model_zoo
 from repro_torch.obs import instrument as obs
 from repro_torch.train import step as train_step_mod
@@ -56,10 +58,8 @@ def train(cfg: ModelConfig, rc: RunConfig, loop: LoopConfig, mesh=None,
     every rank of ``mesh``; returns the metric history: ``loss`` and
     ``step_time`` per step run (a rolled-back step counts each time it
     runs), ``stragglers`` and ``restarts``."""
-    shd.check_model_axis(mesh)
-    rules = shd.Rules(mesh=mesh, seq_shard=rc.seq_shard, fsdp=rc.fsdp,
-                      shard_vocab=rc.shard_vocab)
-    with shd.use_rules(rules):
+    shd.check_model_axis(mesh, cfg)
+    with shd.use_rules(train_step_mod.rules_for(rc, mesh)):
         return _run(cfg, rc, loop, mesh, device, failure_hook, log_every)
 
 
@@ -71,15 +71,14 @@ def _run(cfg, rc, loop, mesh, device, failure_hook, log_every):
                             async_save=mesh is None)
     pipeline = SyntheticPipeline(cfg, rc)
     step_fn = train_step_mod.make_train_step(api, cfg, rc, mesh)
-    n_pods = train_step_mod._n_pods(mesh)
 
     def save(state):
-        resid = state.resid
-        if resid is not None:
-            resid = train_step_mod.gather_residuals(resid, mesh)
+        if mesh is None:
+            tree = train_step_mod.checkpoint_tree(state)
+        else:
+            tree = train_step_mod.whole_tree(state, api, rc, mesh)
         if writer:
-            mgr.save(int(state.step), train_step_mod.checkpoint_tree(state, resid),
-                     extra=pipeline.state())
+            mgr.save(int(state.step), tree, extra=pipeline.state())
         if mesh is not None:
             dist.barrier()
 
@@ -88,16 +87,10 @@ def _run(cfg, rc, loop, mesh, device, failure_hook, log_every):
         step_num = mgr.latest_step()
         if step_num is None:
             return state
-        full = None
-        if state.resid is not None:
-            full = collectives.init_residuals(
-                dict(state.params.named_parameters()), n_pods)
-        _, extra = mgr.restore(step_num,
-                               train_step_mod.checkpoint_tree(state, full))
-        if full is not None:
-            pod = mesh.coords["pod"]
-            for n, r in state.resid.items():
-                r.copy_(full[n][pod:pod + 1])
+        blocks = (None if mesh is None else
+                  train_step_mod.checkpoint_blocks(api, rc, mesh))
+        _, extra = mgr.restore(step_num, train_step_mod.checkpoint_tree(state),
+                               blocks)
         pipeline.restore(extra)
         log.info("restored checkpoint at step %d", step_num)
         return state

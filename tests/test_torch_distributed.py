@@ -32,6 +32,7 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.configs import base as tbase
 from repro_torch.data import pipeline as tpipe
 from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as shd
 from repro_torch.launch import mesh as tmesh
 from repro_torch.models import model_zoo
 from repro_torch.train import step as tstep
@@ -94,9 +95,10 @@ def _job_parity(job: dict) -> dict:
         rc = tbase.RunConfig(**RC, param_dtype="float32", grad_compress_bits=bits)
         api = model_zoo.get_api(cfg, rc, "cpu")
         state = tstep.init_state(api, rc, 0, mesh)
+        specs = tstep.param_partition(api, rc, mesh)
         with torch.no_grad():
             for n, p in state.params.named_parameters():
-                p.copy_(init[n])
+                p.copy_(shd.local_slice(init[n], specs[n], mesh))
         step = tstep.make_train_step(api, cfg, rc, mesh)
         pipe = tpipe.SyntheticPipeline(cfg, rc, seed=3)
         losses, wire = [], []
@@ -106,14 +108,12 @@ def _job_parity(job: dict) -> dict:
             state, m = step(state, batch)
             wire.append(collectives.wire_bytes_sent())
             losses.append(float(m["loss"]))
-        resid = None
-        if state.resid is not None:
-            resid = tstep.gather_residuals(state.resid, mesh)
+        whole = tstep.whole_tree(state, api, rc, mesh)
         out[bits] = {"loss": losses, "wire": wire,
                      "local_resid_shape": None if state.resid is None else
                      tuple(next(iter(state.resid.values())).shape)}
         if mesh.rank == 0:
-            out[bits]["tree"] = _host_tree(tstep.checkpoint_tree(state, resid))
+            out[bits]["tree"] = _host_tree(whole)
             out[bits]["stats"] = collectives.exchange_stats(
                 tstep.reference_tree(dict(state.params.named_parameters())), bits)
     return out
@@ -371,32 +371,28 @@ def test_checkpoints_with_residuals_cross_between_the_packages(direction, tmp_pa
         assert torch.equal(r, want.resid[n][1:2]), n
 
 
-@pytest.mark.parametrize("case", ["moe_plain_split", "moe_compressed_data2",
-                                  "model_axis_step", "model_axis_train"])
+@pytest.mark.parametrize("case", ["ssm_step", "hybrid_step", "encdec_step",
+                                  "encdec_train"])
 def test_out_of_slice_meshes_raise(case, tmp_path):
-    """What comes with the next slice raises NotImplementedError naming it:
-    moe where a rank holds part of what its capacity is computed over, and a
-    'model' axis above 1.  moe on the compressed path with one data rank a
-    pod is the reference's per-pod vmap, and builds."""
+    """What comes with a later slice raises NotImplementedError naming it:
+    the ssm, hybrid and encdec families on a 'model' axis above 1 (the
+    moe family on split batches and the dense family on a 'model' axis
+    run: tests/test_torch_tensor_parallel.py)."""
     from repro_torch.launch.mesh import abstract_mesh
-    arch = "mixtral-8x7b" if case.startswith("moe") else ARCH
+    arch = {"ssm": "mamba2-130m", "hybrid": "hymba-1.5b",
+            "encdec": "whisper-tiny"}[case.split("_")[0]]
     cfg = tbase.load_smoke(arch)
-    bits = 8 if "compressed" in case else 0
-    rc = tbase.RunConfig(**RC, grad_compress_bits=bits)
+    rc = tbase.RunConfig(**RC)
     api = model_zoo.get_api(cfg, rc, "cpu")
-    mesh = {"moe_plain_split": abstract_mesh((2, 1), ("data", "model")),
-            "moe_compressed_data2": abstract_mesh((2, 2, 1), NAMES),
-            "model_axis_step": abstract_mesh((1, 2), ("data", "model")),
-            "model_axis_train": abstract_mesh((2, 1, 2), NAMES)}[case]
     with pytest.raises(NotImplementedError, match="distributed slice") as e:
-        if case == "model_axis_train":
+        if case == "encdec_train":
             train(cfg, rc, LoopConfig(total_steps=1, ckpt_dir=str(tmp_path)),
-                  mesh=mesh, device="cpu")
+                  mesh=abstract_mesh((2, 1, 2), NAMES), device="cpu")
         else:
-            tstep.make_train_step(api, cfg, rc, mesh)
-    assert ("whole batch" in str(e.value)) == case.startswith("moe")
-    if case == "moe_compressed_data2":       # one data rank a pod: builds
-        tstep.make_train_step(api, cfg, rc, abstract_mesh((2, 1, 1), NAMES))
+            tstep.make_train_step(api, cfg, rc, abstract_mesh((1, 2), ("data", "model")))
+    assert "'model' axis to the ssm, hybrid and encdec families" in str(e.value)
+    # a 'model' axis of 1 builds: ZeRO-3 over 'data' serves every family
+    tstep.make_train_step(api, cfg, rc, abstract_mesh((2, 2, 1), NAMES))
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["oracle"]:

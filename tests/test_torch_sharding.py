@@ -97,23 +97,29 @@ def test_no_rules_is_noop():
     assert all(v == shd.P() for _, v in ckpt.flatten(shd.spec_tree(specs, specs)))
 
 
-def test_model_axis_of_one_is_a_noop_and_above_one_raises():
+def test_model_axis_of_one_is_a_noop_and_out_of_slice_families_raise():
+    """A ``model`` axis of 1 (or excluded) moves nothing; above 1 the
+    ssm, hybrid and encdec families raise, naming the slice that brings
+    them (the dense, vlm and moe families run tensor-parallel:
+    tests/test_torch_tensor_parallel.py)."""
     rt, _ = _rules((2, 2, 1), NAMES)
     x = torch.ones(8, 4, 6)
     with shd.use_rules(rt):
         assert shd.act(x, "batch", "seq", None) is x
         assert shd.tp_out_proj(x, torch.ones(6, 3)) is None
         assert shd.named_sharding(shd.P("pod")).spec == shd.P("pod")
+        assert shd.tp_block("heads", 8) is None and not shd.seq_split(4)
     assert shd.get_rules() is None
     tp, _ = _rules((1, 1, 2), NAMES)
-    with shd.use_rules(tp):
-        with pytest.raises(NotImplementedError, match="'model' axis"):
-            shd.act(x, "batch", "seq", None)
-        with pytest.raises(NotImplementedError, match="'model' axis"):
-            shd.tp_out_proj(x, torch.ones(6, 3))
-        excluded = dataclasses.replace(tp, exclude=frozenset({"model"}))
-        with shd.use_rules(excluded):
-            assert shd.tp_out_proj(x, torch.ones(6, 3)) is None
+    excluded = dataclasses.replace(tp, exclude=frozenset({"model"}))
+    with shd.use_rules(excluded):
+        assert shd.act(x, "batch", "seq", None) is x
+        assert shd.tp_out_proj(x, torch.ones(6, 3)) is None
+    for arch in ("mamba2-130m", "hymba-1.5b", "whisper-tiny"):
+        with pytest.raises(NotImplementedError, match="'model' axis to the ssm"):
+            shd.check_model_axis(tp.mesh, tbase.load_smoke(arch))
+    for arch in ("tinyllama-1.1b", "internvl2-76b", "mixtral-8x7b"):
+        shd.check_model_axis(tp.mesh, tbase.load_smoke(arch))
 
 
 def _full_size(arch):

@@ -155,24 +155,40 @@ def test_remat_recomputes_without_changing_grads():
         assert torch.equal(grads[0][n], grads[1][n]), n
 
 
-def test_save_collectives_policy_raises():
-    (_, _), (ct, rt) = _configs("tinyllama-1.1b", remat_policy="save_collectives")
-    api = model_zoo.get_api(ct, rt, "cpu")
+def test_save_collectives_policy_on_one_device_is_full():
+    """``remat_policy="save_collectives"`` keeps the outputs of the named
+    collectives; one device has none, so its gradients are ``"full"``'s,
+    bit for bit (and serving ignores the policy)."""
+    (_, _), (ct, rt) = _configs("tinyllama-1.1b", param_dtype="float32")
     batch = tpipe.device_batch(tpipe.SyntheticPipeline(ct, rt).next(), ct, rt, "cpu")
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        api.loss_fn(api.init(0), batch)
-    with torch.no_grad():                       # serving ignores the policy
-        assert torch.isfinite(api.loss_fn(api.init(0), batch))
+    grads = []
+    for policy in ("full", "save_collectives"):
+        rc = dataclasses.replace(rt, remat=True, remat_policy=policy)
+        api = model_zoo.get_api(ct, rc, "cpu")
+        p = api.init(0)
+        api.loss_fn(p, batch).backward()
+        grads.append({n: q.grad for n, q in p.named_parameters()})
+        with torch.no_grad():
+            assert torch.isfinite(api.loss_fn(api.init(0), batch))
+    for n in grads[0]:
+        assert torch.equal(grads[0][n], grads[1][n]), n
 
 
-def test_mesh_raises():
-    """A mesh with a 'model' axis above 1 (tensor parallelism) raises."""
+@pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b", "whisper-tiny",
+                                  "tinyllama-1.1b"])
+def test_mesh_raises(arch):
+    """A 'model' axis above 1 raises for the ssm, hybrid and encdec
+    families, naming the slice that brings it; the dense family builds."""
     from repro_torch.launch.mesh import abstract_mesh
-    (_, _), (ct, rt) = _configs("tinyllama-1.1b")
+    (_, _), (ct, rt) = _configs(arch)
     api = model_zoo.get_api(ct, rt, "cpu")
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        tstep_mod.make_train_step(api, ct, rt,
-                                  mesh=abstract_mesh((1, 2), ("data", "model")))
+    mesh = abstract_mesh((1, 2), ("data", "model"))
+    if arch == "tinyllama-1.1b":
+        tstep_mod.make_train_step(api, ct, rt, mesh=mesh)
+        return
+    with pytest.raises(NotImplementedError, match="distributed slice") as e:
+        tstep_mod.make_train_step(api, ct, rt, mesh=mesh)
+    assert ct.family in str(e.value) and "in_proj" in str(e.value)
 
 
 # -- the train step ---------------------------------------------------------------
