@@ -6,7 +6,7 @@ Run from the repository root, on a machine with an NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-Eleven paths, each driven with the launch counts set to 0 just before it
+Twelve paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 * stencil and codec: a 2^26-cell f32 field (256 MiB, seeded with numpy)
@@ -64,15 +64,26 @@ and read just after:
   compressed cross-pod exchange (quantize, bitplane-pack, gather the packed
   planes and scales, dequantize the pods' mean) with error feedback; the
   flash forward twice and both backward kernels once per layer and step;
-* training tinyllama-1.1b at full width and depth on four ranks of the one
-  card (four processes, gloo), the mesh (2, 2) over (data, model): tensor
+* training tinyllama-1.1b at full width, 8 of its 22 layers (by time), on
+  four ranks of the one card (four processes, gloo), the mesh (2, 2) over
+  (data, model): tensor
   parallelism over heads, ff and vocab (16 query heads, 2 KV heads, ff
   2816 and vocab 16000 a rank), the residual stream split over the
   sequence between layers, ZeRO-3 over data, remat; a global batch of
   4 x 4096 tokens (2 a data rank), 3 steps through
   ``train.step.make_train_step(..., mesh)``, then one more under each remat
   policy; the flash forward twice and both backward kernels once per layer
-  and step on every rank, at its local heads.
+  and step on every rank, at its local heads;
+* the ``model`` axis for the ssm, hybrid and encdec families on the same
+  four ranks: mamba2-130m at full size and hymba-1.5b at full width, 4 of
+  its 32 layers (by time), on (2, 2) over (data, model), and whisper-tiny
+  at full size on (1, 4), each 2 steps of a global batch of 4 (mamba2 and
+  hymba 4096 tokens, whisper 448 tokens and 1500 frames); the SSD on a
+  rank's heads (``in_proj``'s product and the conv gathered, the gated
+  norm's squares all-reduced), hymba's attention at 12.5 query heads a
+  rank (13 computed), whisper's at 1.5 (2 computed) with its stream whole
+  over ``model``; the flash forward twice and both backward kernels once
+  per attention call and step on every rank.
 
 Phases, one JSON line each:
 
@@ -283,8 +294,8 @@ Phases, one JSON line each:
                rank's losses within 5e-3 of a one-process run of the same
                global batch from the same weights (the reference's
                dist_equivalence rule); the weights and moments each rank
-               holds equal to its share (275,081,216 and twice that at 22
-               layers); its flash launches equal to the one-process run's;
+               holds equal to its share by the rules (``tp_expected_held``);
+               its flash launches equal to the one-process run's;
                the bytes each collective is handed a step equal to
                ``tp_bytes``' formula from the shapes; one more step from the
                same state under ``remat_policy="save_collectives"`` and
@@ -293,13 +304,25 @@ Phases, one JSON line each:
                rank; then the flash forward and backward at a rank's shape
                (2, 4096, 2, 8, 64) against their plain versions, timed
                beside SDPA;
-29. the ``{"kernels": [...]}`` line, then the card line, then the result line.
+29. tp_families — the four ranks of the ssm, hybrid and encdec path above
+               (each ``--tp-families-rank <r> <dir>``), by tp's rules: each
+               rank's losses within 5e-3 of a one-process run, the weights
+               and moments it holds, its flash launches, the bytes each
+               collective is handed a step against ``tp_bytes``; the SSD's
+               and the attention's heads a rank; then the flash forward and
+               backward at the shapes a rank launched (hymba (2, 4096, 13,
+               1, 64), window 1024; whisper's encoder (4, 1500, 1500, 2, 1,
+               64) non-causal, cross (4, 448, 1500, ...) and decoder (4,
+               448, 448, ...) causal) against their plain versions, timed
+               beside SDPA;
+30. the ``{"kernels": [...]}`` line, then the card line, then the result line.
                The kv and flash rows add ``launches_by_path`` (their
                launches on every LM path run), the flash rows
                ``at_hymba_window`` (the windowed times and bounds),
                ``at_whisper_shapes`` (times and bounds at whisper's three)
-               and ``at_tp_rank_shape``; ``launches_by_path`` counts every
-               rank of the dist and tp paths.
+               ``at_tp_rank_shape`` and ``at_tp_families_rank_shapes``;
+               ``launches_by_path`` counts every rank of the dist, tp and
+               tp_families paths.
 
 The three tensor-core rows (flash forward, dK/dV, dQ), the jacobi row, the
 two codec rows and the fused KV store's row also carry ``design``; the
@@ -497,15 +520,21 @@ DIST_TIMEOUT_S = 600
 #: card, the mesh (2, 2) over (data, model), gloo: tensor and sequence
 #: parallelism over ``model`` (16 query heads, 2 KV heads, ff 2816 and vocab
 #: 16000 a rank), ZeRO-3 over ``data``; train_4k's sequences, the global
-#: batch cut from 256 to 4 by time; remat, bf16 weights, f32 moments
+#: batch cut from 256 to 4 and the depth from 22 layers to 8, by time;
+#: remat, bf16 weights, f32 moments
 TP_ARCH, TP_SHAPE, TP_NAMES = TRAIN_ARCH, (2, 2), ("data", "model")
-TP_B, TP_STEPS, TP_LAYERS = 4, 3, 22
+TP_B, TP_STEPS, TP_LAYERS = 4, 3, 8
 TP_LOSS_TOL = 5e-3           # tests/_distributed_main.py's dist_equivalence
-#: weights a rank holds at 22 layers: a quarter of every sharded leaf and
-#: the 92,160 norm weights, which every rank holds whole
-TP_HELD_22 = 275_081_216
 TP_RANK_THREADS = 2
 TP_TIMEOUT_S = 700
+#: the ``model`` axis for the ssm, hybrid and encdec families on the same
+#: four ranks: (arch, mesh over (data, model), layers kept (0: all),
+#: sequence); a global batch of 4 (cut from train_4k's 256 by time), 2
+#: steps each; hymba's depth cut from 32 layers to 4 by time
+TPF_RUNS = (("mamba2-130m", (2, 2), 0, 4096), ("hymba-1.5b", (2, 2), 4, 4096),
+            ("whisper-tiny", (1, 4), 0, ENCDEC_SEQ))
+TPF_B, TPF_STEPS = 4, 2
+TPF_TIMEOUT_S = 600
 
 
 class CheckFailed(RuntimeError):
@@ -2345,34 +2374,38 @@ def sdpa_run(q, k, v, causal: bool, window: int = 0):
         return run, backend.name
     return None, "none ran"
 
-def windowed_fwd(dev, shape: tuple, window: int, copy_rate: float) -> dict:
+def windowed_fwd(dev, shape: tuple, window: int, copy_rate: float,
+                 causal: bool = True, Sk: int = 0) -> dict:
     """The bf16 flash forward with a sliding window at one layer's shape
     against its plain version (o within FLASH_BF16_TOL and its query tiles
     within FLASH_BF16_REL, lse within FLASH_LSE_TOL), timed beside SDPA
-    with the same band as an explicit mask."""
+    with the same band as an explicit mask.  ``shape`` is (B, S, KV, G, D),
+    the keys ``Sk`` (default S), causal or not."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 12)
     B, S, KV, G, D = shape
+    Sk = Sk or S
     q = torch.randn(B, S, KV, G, D, generator=gen, device=dev).to(torch.bfloat16)
-    k, v = (torch.randn(B, S, KV, D, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, Sk, KV, D, generator=gen, device=dev).to(torch.bfloat16)
             for _ in range(2))
-    o, lse = flash_attention.flash_fwd(q, k, v, True, window)
-    op, lp = flash_attention.flash_attention_plain(q, k, v, True, window)
+    o, lse = flash_attention.flash_fwd(q, k, v, causal, window)
+    op, lp = flash_attention.flash_attention_plain(q, k, v, causal, window)
     e_o, e_l = max_abs_diff(o.float(), op.float()), max_abs_diff(lse, lp)
     e_r = tile_rel_err(o, op)
     check(e_o < FLASH_BF16_TOL and e_l < FLASH_LSE_TOL and e_r < FLASH_BF16_REL,
-          f"windowed flash bf16 {shape} window {window}: o {e_o}, lse {e_l}, "
-          f"o tile rel {e_r}")
+          f"windowed flash bf16 {shape} Sk {Sk} causal {causal} window {window}: "
+          f"o {e_o}, lse {e_l}, o tile rel {e_r}")
     del op, lp
     plain_ms = time_ms(lambda: flash_attention.flash_attention_plain(
-        q, k, v, True, window), reps=3)
-    ms = time_ms(lambda: flash_attention.flash_fwd(q, k, v, True, window), reps=10)
-    lib, backend = sdpa_run(q, k, v, True, window)
+        q, k, v, causal, window), reps=3)
+    ms = time_ms(lambda: flash_attention.flash_fwd(q, k, v, causal, window), reps=10)
+    lib, backend = sdpa_run(q, k, v, causal, window)
     lib_ms = time_ms(lib, reps=10) if lib else None
-    pairs = band_pairs(S, window)
+    pairs = band_pairs(S, window) if causal else S * Sk
     flops = 4 * B * KV * G * D * pairs
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * KV * G * S
-    row = {"shape": list(shape), "window": window, "o_err": e_o, "lse_err": e_l,
+    row = {"shape": list(shape), "Sk": Sk, "causal": causal, "window": window,
+           "o_err": e_o, "lse_err": e_l,
            "o_tile_rel_err": e_r, "ms": ms, "plain_ms": plain_ms,
            "library_ms": lib_ms, "library_backend": backend,
            **bound(nbytes, flops, copy_rate, BF16_FLOPS_PER_S),
@@ -2447,33 +2480,36 @@ def phase_ssm_serve(dev) -> dict:
     return {"prefill": pre["launches"], "generate": gen["launches"]}
 
 
-def windowed_bwd(dev, shape: tuple, window: int, copy_rate: float) -> dict:
+def windowed_bwd(dev, shape: tuple, window: int, copy_rate: float,
+                 causal: bool = True, Sk: int = 0) -> dict:
     """The bf16 dK/dV and dQ kernels with a sliding window at one layer's
     train shape: launched on the whole batch, each sequence held against
     the plain forward and backward run on it alone; timed beside SDPA's
-    backward with the band as an explicit mask."""
+    backward with the band as an explicit mask.  ``shape``, ``causal`` and
+    ``Sk`` as ``windowed_fwd``'s."""
     fa = flash_attention
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 15)
     B, S, KV, G, D = shape
+    Sk = Sk or S
     q, k, v, do = [torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
-                   for sh in ((B, S, KV, G, D), (B, S, KV, D), (B, S, KV, D),
+                   for sh in ((B, S, KV, G, D), (B, Sk, KV, D), (B, Sk, KV, D),
                               (B, S, KV, G, D))]
-    o, lse = fa.flash_fwd(q, k, v, True, window)
-    got = fa.flash_bwd(q, k, v, o, lse, do, True, window)
+    o, lse = fa.flash_fwd(q, k, v, causal, window)
+    got = fa.flash_bwd(q, k, v, o, lse, do, causal, window)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     fwd_errs, abs_errs, rel_errs, plain_ms = [0.0] * 3, [0.0] * 3, [0.0] * 3, 0.0
     for b in range(B):
         one = [t[b:b + 1] for t in (q, k, v, o, lse, do)]
-        op, lp = fa.flash_attention_plain(*one[:3], True, window)
+        op, lp = fa.flash_attention_plain(*one[:3], causal, window)
         fwd_errs = list(map(max, fwd_errs, (
             max_abs_diff(one[3].float(), op.float()), max_abs_diff(one[4], lp),
             tile_rel_err(one[3], op))))
         del op, lp
         if b == 0:
-            fa.flash_bwd_plain(*one, True, window)                # warm-up
+            fa.flash_bwd_plain(*one, causal, window)                # warm-up
         start.record()
-        want = fa.flash_bwd_plain(*one, True, window)
+        want = fa.flash_bwd_plain(*one, causal, window)
         end.record()
         end.synchronize()
         plain_ms += start.elapsed_time(end)
@@ -2490,11 +2526,11 @@ def windowed_bwd(dev, shape: tuple, window: int, copy_rate: float) -> dict:
     del got
     torch.cuda.empty_cache()
     delta = fa.bwd_delta(o, do)
-    ms_dkv = time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, True, window), reps=5)
-    ms_dq = time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, True, window), reps=5)
+    ms_dkv = time_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, causal, window), reps=5)
+    ms_dq = time_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, causal, window), reps=5)
     qs = q.detach().requires_grad_()
     ks, vs = k.detach().requires_grad_(), v.detach().requires_grad_()
-    lib, backend = sdpa_run(qs, ks, vs, True, window)
+    lib, backend = sdpa_run(qs, ks, vs, causal, window)
     lib_ms = None
     if lib:
         try:                                        # the yardstick only
@@ -2506,7 +2542,7 @@ def windowed_bwd(dev, shape: tuple, window: int, copy_rate: float) -> dict:
         except RuntimeError as e:
             backend = f"{backend}: backward failed: {e}"[:300]
     del qs, ks, vs
-    pairs = band_pairs(S, window)
+    pairs = band_pairs(S, window) if causal else S * Sk
     H = KV * G
     io = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * (lse.numel() + delta.numel())
     rows = {}
@@ -2515,7 +2551,8 @@ def windowed_bwd(dev, shape: tuple, window: int, copy_rate: float) -> dict:
              8 * B * H * D * pairs),
             ("flash_attention.flash_bwd_dq", ms_dq, io + 2 * q.numel(),
              6 * B * H * D * pairs)):
-        rows[name] = {"shape": list(shape), "window": window, "ms": ms,
+        rows[name] = {"shape": list(shape), "Sk": Sk, "causal": causal,
+                      "window": window, "ms": ms,
                       "plain_ms": plain_ms, "plain_note": f"flash_bwd_plain "
                       f"(dq, dk, dv together) on each of the {B} sequences "
                       f"alone, one call each, times summed",
@@ -3289,34 +3326,174 @@ def tp_config(**kw) -> tuple:
     return cfg, configs.run_config_for("train_4k", cfg, global_batch=TP_B, **kw)
 
 
-def tp_bytes(cfg, rc, B: int, tp: int, data: int) -> dict:
-    """The bytes each differentiable collective moves a rank and step of the
-    tp phase, from the shapes (``collectives.collective_bytes``: a gather
-    counts the block it sends, in its dtype; a reduction the f32 tensor it
-    reduces).  Per layer, with remat: the forward gathers the normed stream
-    before the attention and the MLP (a bf16 block of B x S/tp x d each)
-    and the layer's weights over ``data`` (this rank's bf16 block of its tp
-    block), and reduce-scatters the two f32 partial outputs (B x S x d);
-    the recompute does the same but for the MLP's reduce-scatter (the
-    checkpoint stops at the last tensor the backward needs); the backward
-    gathers the f32 gradients of the two reduce-scatters' outputs and
-    reduce-scatters those of the two gathered streams and of the weights
-    (f32).  Outside: the table and the unembedding gathered over ``data``
-    and their gradients reduce-scattered; the vocab-parallel embedding's
-    all-reduce (B x S x d) and its adjoint; the stream gathered after the
-    last layer (and its adjoint); the loss's max, sum of exponentials and
-    gold logit (B x S each, again in each chunk's recompute, the last two
-    with their adjoints); the grad norm's scalar."""
-    S, d, V, L = rc.seq_len, cfg.d_model, cfg.vocab, cfg.n_layers
-    hd, H, KV, ff = cfg.hd, cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
-    block, stream = B * (S // tp) * d, B * S * d
-    w_tp = (d * H * hd + 2 * d * KV * hd + H * hd * d + 3 * d * ff) // tp
-    table_tp = 2 * V * d // tp                       # table and unembedding
-    return {"all_gather": L * (4 * block * 2 + 2 * (w_tp // data) * 2
-                               + 2 * block * 4) + (table_tp // data) * 2 + block * 2,
-            "reduce_scatter": L * (5 * stream * 4 + w_tp * 4) + table_tp * 4
-            + stream * 4,
-            "all_reduce": 2 * stream * 4 + 8 * B * S * 4 + 4}
+def _kv_gathered(H: int, KV: int, hd: int, tp: int) -> bool:
+    """Whether attention gathers k and v over ``model`` (``layers._heads``'
+    rule, from the shapes): a rank's KV block cuts a head, or the query
+    heads covering a rank's query block read KV heads outside its KV
+    block."""
+    qc, kc = H * hd // tp, KV * hd // tp
+    if (KV * hd) % tp or tp == 1:
+        return False
+    if kc % hd:
+        return True
+    G = H // KV
+    for r in range(tp):
+        lo, hi = r * qc // hd, -(-(r + 1) * qc // hd)
+        if lo // G < r * kc // hd or (hi - 1) // G + 1 > (r + 1) * kc // hd:
+            return True
+    return False
+
+
+def tp_bytes(cfg, rc, shape: tuple, names: tuple = DIST_NAMES) -> dict:
+    """The bytes each differentiable collective is handed a rank and step
+    (``collectives.collective_bytes``: a gather counts the block it sends,
+    in its dtype; a reduction the f32 tensor it reduces) on a mesh of
+    ``shape`` over ``names``, from the shapes, for the dense, ssm, hybrid
+    and encdec families.
+
+    B = the global batch over the batch ranks (pod x data), S the sequence,
+    d the width, tp the ``model`` axis, data the ``data`` axis; a rule that
+    names ``model`` cuts a dimension n to n / tp where tp divides it, else
+    keeps it whole.  Each layer's forward, in call order:
+
+    * decoder-only: where the stream is split (``seq_shard``, tp | S), the
+      normed stream gathered before the mixers and before the MLP (a block
+      of B x S/tp x d each); every family's stream is whole in encdec;
+    * ZeRO-3 (data > 1): each weight the ``fsdp`` rule shards gathered over
+      ``data`` on first use (this rank's block of its tp block);
+    * attention (q and kv heads cut): q gathered (B x S x its columns)
+      where its block cuts a head; k and v gathered (``kv_gathered``) where
+      their block cuts a head or the covering query heads read another
+      rank's KV heads (``_kv_gathered``); the out-projection's f32 B x S x d
+      partial reduce-scattered onto the split stream, else all-reduced
+      (``proj_out``);
+    * the SSD: the ``in_proj`` product's block (B x S x W/tp, W = 2 di + 2 N
+      + H) gathered where tp divides W, the conv's weights and bias where
+      tp divides di + 2 N; where tp divides di, the gated norm's f32 sums of
+      squares (B x S) all-reduced and the out-projection as attention's;
+    * the MLP (ff cut): its out-projection as attention's; encdec's encoder
+      layers run at the frames' length (``enc_seq``), its cross-attention's
+      k and v too.
+
+    Backward runs each one's adjoint once: a gather's is a reduce-scatter
+    of the whole f32 gradient (tp or data times the block), a
+    reduce-scatter's a gather of the f32 block, an all-reduce's an
+    all-reduce.  With remat (``full``) the recompute runs the layer's
+    collectives again but the last out-projection's (the checkpoint stops
+    at the last tensor backward needs); under ``save_collectives`` all but
+    those named ``proj_out`` and ``kv_gathered``.  Outside the layers: the
+    table (and the unembedding, or the tied table again for the loss)
+    gathered over ``data``; where tp divides the vocabulary the embedding's
+    all-reduce (B x S x d) and its adjoint, and the loss's max, sum of
+    exponentials and gold logit (B x S each, again in each chunk's
+    recompute, the last two with their adjoints: 8 x B x S); the stream
+    gathered after the last layer where it is split; the grad norm's f32
+    scalar once for each set of axes the leaves are split over."""
+    from repro_torch.launch.mesh import abstract_mesh
+    sizes = dict(zip(names, shape))
+    pod, data, tp = (sizes.get(a, 1) for a in ("pod", "data", "model"))
+    if cfg.family not in ("dense", "ssm", "hybrid", "encdec"):
+        raise ValueError(f"tp_bytes has no formula for the {cfg.family} family")
+    B, S, d, L = rc.global_batch // (pod * data), rc.seq_len, cfg.d_model, cfg.n_layers
+    g = 2 if rc.param_dtype == "bfloat16" else 4      # a gather's dtype
+    V = cfg.vocab
+
+    def cut(n: int) -> int:
+        return n // tp if n % tp == 0 else n
+
+    split = cfg.family != "encdec" and rc.seq_shard and tp > 1 and S % tp == 0
+    vocab_cut = rc.shard_vocab and tp > 1 and V % tp == 0
+    moved = {"all_gather": 0, "reduce_scatter": 0, "all_reduce": 0}
+
+    def add(kind: str, n: int, *, again: bool = False) -> None:
+        """One collective of n values (a gather: its block; a reduction:
+        the tensor) and its adjoint; ``again`` once more in a recompute."""
+        for _ in range(2 if again else 1):
+            if kind == "gather_model" or kind == "gather_data":
+                moved["all_gather"] += n * g
+            elif kind == "scatter":
+                moved["reduce_scatter"] += n * 4
+            else:
+                moved["all_reduce"] += n * 4
+        if kind == "gather_model":
+            moved["reduce_scatter"] += n * tp * 4
+        elif kind == "gather_data":
+            moved["reduce_scatter"] += n * data * 4
+        elif kind == "scatter":
+            moved["all_gather"] += n // tp * 4
+        else:
+            moved["all_reduce"] += n * 4
+
+    def zero(*weights: int) -> list:
+        return [("gather_data", w // data, None) for w in weights] if data > 1 else []
+
+    def out(n: int) -> list:
+        return [("scatter" if split else "reduce", n, "proj_out")]
+
+    def attention(Sq: int, Sk: int) -> list:
+        H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+        qc, kc = cut(H * hd), cut(KV * hd)
+        ev = zero(d * qc, d * kc, d * kc)
+        if qc < H * hd and qc % hd:
+            ev.append(("gather_model", B * Sq * qc, None))
+        if _kv_gathered(H, KV, hd, tp):
+            ev += [("gather_model", B * Sk * kc, "kv_gathered")] * 2
+        ev += zero(qc * d)
+        return ev + (out(B * Sq * d) if qc < H * hd else [])
+
+    def ssd() -> list:
+        di, N, H = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        W, C = 2 * di + 2 * N + H, di + 2 * N
+        ev = zero(d * cut(W))
+        if cut(W) < W:
+            ev.append(("gather_model", B * S * W // tp, None))
+        if cut(C) < C:
+            ev += [("gather_model", cfg.ssm_conv * C // tp, None),
+                   ("gather_model", C // tp, None)]
+        ev += zero(cut(di) * d)
+        if cut(di) < di:
+            ev += [("reduce", B * S, None)] + out(B * S * d)
+        return ev
+
+    def mlp(Sx: int) -> list:
+        ff = cut(cfg.d_ff)
+        ev = zero(*([d * ff] * (2 if cfg.mlp_act == "swiglu" else 1)), ff * d)
+        return ev + (out(B * Sx * d) if ff < cfg.d_ff else [])
+
+    stream = [("gather_model", B * S // tp * d, None)] if split else []
+    if cfg.family == "encdec":
+        Se = cfg.enc_seq
+        layers = [attention(Se, Se) + mlp(Se)] * cfg.enc_layers
+        layers += [attention(S, S) + attention(S, Se) + mlp(S)] * L
+    else:
+        mix = stream + (attention(S, S) if cfg.family != "ssm" else []) \
+            + (ssd() if cfg.family in ("ssm", "hybrid") else [])
+        layers = [mix + (stream + mlp(S) if cfg.family != "ssm" else [])] * L
+    for ev in layers:
+        for i, (kind, n, name) in enumerate(ev):
+            if not rc.remat:
+                again = False
+            elif rc.remat_policy == "save_collectives":
+                again = name not in ("proj_out", "kv_gathered")
+            else:
+                again = not (i == len(ev) - 1 and name == "proj_out")
+            add(kind, n, again=again)
+    table = cut(V) * d if vocab_cut else V * d
+    for kind, n, _ in zero(table, table):   # the embedding's, the loss's
+        add(kind, n)
+    if vocab_cut:
+        add("reduce", B * S * d)
+        moved["all_reduce"] += 8 * B * S * 4
+    for kind, n, _ in stream:
+        add(kind, n)
+    specs = train_step.param_partition(model_zoo.get_api(cfg, rc, "cpu"), rc,
+                                       abstract_mesh(shape, names))
+    groups = {frozenset(a for part in sp if part
+                        for a in ((part,) if isinstance(part, str) else part)
+                        if a in ("data", "model") and sizes.get(a, 1) > 1)
+              for sp in specs.values()}
+    moved["all_reduce"] += 4 * len(groups - {frozenset()})
+    return moved
 
 
 def tp_child(rank: int, workdir: str) -> int:
@@ -3406,13 +3583,14 @@ def tp_child(rank: int, workdir: str) -> int:
     return 0
 
 
-def tp_expected_held(cfg, rc) -> int:
-    """Weights a rank holds on the (2, 2) mesh, from the rules: each leaf's
-    whole size over the sizes of the axes its spec names."""
+def tp_expected_held(cfg, rc, shape: tuple = TP_SHAPE, names: tuple = TP_NAMES) -> int:
+    """Weights a rank holds on a mesh of ``shape`` over ``names``, from the
+    rules: each leaf's whole size over the sizes of the axes its spec
+    names."""
     from repro_torch.launch.mesh import abstract_mesh
     api = model_zoo.get_api(cfg, rc, "cpu")
-    sizes = dict(zip(TP_NAMES, TP_SHAPE))
-    specs = train_step.param_partition(api, rc, abstract_mesh(TP_SHAPE, TP_NAMES))
+    sizes = dict(zip(names, shape))
+    specs = train_step.param_partition(api, rc, abstract_mesh(shape, names))
     held = 0
     for n, shape in train_step.full_shapes(api).items():
         div = int(np.prod([sizes[a] for part in specs[n]
@@ -3466,9 +3644,7 @@ def phase_tp(dev, smi: str, copy_rate: float) -> dict:
     del state, step, b
     torch.cuda.empty_cache()
     want_held = tp_expected_held(cfg, rc)
-    check(TP_LAYERS != 22 or want_held == TP_HELD_22,
-          f"held {want_held}, want {TP_HELD_22}")
-    want_bytes = tp_bytes(cfg, rc, TP_B // TP_SHAPE[0], TP_SHAPE[1], TP_SHAPE[0])
+    want_bytes = tp_bytes(cfg, rc, TP_SHAPE, TP_NAMES)
     for r in ranks:
         check(all(np.isfinite(r["loss"])), f"rank {r['rank']} loss {r['loss']}")
         gap = max(abs(a - b) for a, b in zip(r["loss"], single))
@@ -3494,7 +3670,8 @@ def phase_tp(dev, smi: str, copy_rate: float) -> dict:
     emit({"phase": "tp", "arch": TP_ARCH, "mesh": dict(zip(TP_NAMES, TP_SHAPE)),
           "backend": ranks[0]["backend"], "n_layers": cfg.n_layers,
           "batch": TP_B, "seq": rc.seq_len,
-          "reduced": {"global_batch": [configs.SHAPES["train_4k"][1], TP_B]},
+          "reduced": {"global_batch": [configs.SHAPES["train_4k"][1], TP_B],
+                      "n_layers": [configs.load_arch(TP_ARCH).n_layers, TP_LAYERS]},
           "ranks_s": ranks_s, "held": [r["held"] for r in ranks],
           "held_want": want_held, "whole_weights": sum(
               int(np.prod(s)) for s in train_step.full_shapes(
@@ -3520,6 +3697,211 @@ def phase_tp(dev, smi: str, copy_rate: float) -> dict:
 
 
 
+def tpf_config(arch: str, n_layers: int, seq: int) -> tuple:
+    cfg = configs.load_arch(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg, configs.run_config_for("train_4k", cfg, seq_len=seq,
+                                       global_batch=TPF_B)
+
+
+def tpf_heads(cfg, rc, mesh) -> dict:
+    """The heads this rank computes under the rules: the SSD's (covering
+    its block of di rows) and attention's (covering its query block), and
+    the (KV, G) its flash launches take."""
+    from repro_torch.models import layers as model_layers
+    from repro_torch.models import ssm as model_ssm
+    from repro_torch.distributed import sharding as shd
+    out = {}
+    with shd.use_rules(train_step.rules_for(rc, mesh)):
+        if cfg.family in ("ssm", "hybrid"):
+            out["ssd_heads"] = list(model_ssm._ssd_heads(cfg).heads)
+        if cfg.n_heads:
+            plan = model_layers._heads(cfg)
+            nq = plan.q[1] - plan.q[0]
+            kv = nq if plan.kv_index is not None else plan.kv_local[1] - plan.kv_local[0]
+            out.update(q_heads=list(plan.q), q_gathered=plan.q_gather,
+                       kv_gathered=plan.kv_gather, kv_g=[kv, nq // kv])
+    return out
+
+
+def tpf_child(rank: int, workdir: str) -> int:
+    """One rank of the four: each TPF_RUNS mesh over a gloo group in turn,
+    TPF_STEPS steps of its model from the seed's weights."""
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(TP_RANK_THREADS)
+    dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
+                            rank=rank, world_size=4)
+    try:
+        out = {"rank": rank, "runs": {}}
+        for arch, shape, n_layers, seq in TPF_RUNS:
+            mesh = make_mesh(shape, TP_NAMES, dev)
+            cfg, rc = tpf_config(arch, n_layers, seq)
+            check(rc.remat and rc.fsdp and rc.seq_shard and rc.opt_dtype == "float32"
+                  and rc.param_dtype == "bfloat16", f"tp_families config {rc}")
+            api = model_zoo.get_api(cfg, rc, dev)
+            t0 = time.perf_counter()
+            state = train_step.init_state(api, rc, SEED, mesh)
+            init_s = time.perf_counter() - t0
+            params = dict(state.params.named_parameters())
+            held = sum(p.numel() for p in params.values())
+            moments = sum(t.numel() for t in (*state.opt.mu.values(),
+                                              *state.opt.nu.values()))
+            step = train_step.make_train_step(api, cfg, rc, mesh)
+            pipe = SyntheticPipeline(cfg, rc, seed=SEED)
+            batches = [device_batch(pipe.next(), cfg, rc, dev, mesh)
+                       for _ in range(TPF_STEPS)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ops.reset_launch_counts()
+            losses, times, moved = [], [], []
+            for b in batches:
+                collectives.reset_collective_bytes()
+                t0 = time.perf_counter()
+                state, m = step(state, b)
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                moved.append(collectives.collective_bytes())
+            out["runs"][arch] = {
+                "coords": mesh.coords, "init_s": init_s, "held": held,
+                "moments": moments, "loss": losses, "step_ms": times,
+                "moved": moved, "launches": ops.launch_counts(),
+                "peak_GiB": torch.cuda.max_memory_allocated(dev) / 2**30,
+                "rows": list(batches[0]["tokens"].shape),
+                "heads": tpf_heads(cfg, rc, mesh)}
+            del state, step, batches, params, api
+            torch.cuda.empty_cache()
+        Path(workdir, f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def tpf_flash(dev, copy_rate: float, runs: dict) -> dict:
+    """Rows 6-8 at the shapes the ranks launched (rank 0's; every rank's
+    (KV, G) checked equal): hymba's windowed causal self-attention, and
+    whisper's encoder, cross and decoder attention. -> {label: {kernel:
+    row}}."""
+    out = {}
+    for arch, label, S, Sk, causal in (
+            ("hymba-1.5b", "hymba_window", 4096, 4096, True),
+            ("whisper-tiny", "whisper_encoder", 1500, 1500, False),
+            ("whisper-tiny", "whisper_cross", ENCDEC_SEQ, 1500, False),
+            ("whisper-tiny", "whisper_decoder", ENCDEC_SEQ, ENCDEC_SEQ, True)):
+        per_rank = runs[arch]
+        kv_g = {tuple(r["heads"]["kv_g"]) for r in per_rank}
+        check(len(kv_g) == 1, f"{arch}: ranks launch (KV, G) {kv_g}")
+        cfg = configs.load_arch(arch)
+        shape = (per_rank[0]["rows"][0], S, *next(iter(kv_g)), cfg.hd)
+        window = cfg.sliding_window if causal else 0
+        fwd = windowed_fwd(dev, shape, window, copy_rate, causal, Sk)
+        bwd = windowed_bwd(dev, shape, window, copy_rate, causal, Sk)
+        out[label] = {"flash_attention.flash_fwd": fwd, **bwd["rows"],
+                      "bwd_checks": {k: v for k, v in bwd.items() if k != "rows"}}
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_families(dev, smi: str, copy_rate: float) -> dict:
+    """The ssm, hybrid and encdec families on four ranks of the one card
+    (TPF_RUNS) against one-process runs of the same global batch from the
+    same weights; the flash kernels at the shapes a rank launched."""
+    torch.cuda.empty_cache()
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tpf_") as d:
+            env = dict(os.environ, PYTHONUNBUFFERED="1")
+            procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                       "--tp-families-rank", str(r), d], env=env)
+                     for r in range(4)]
+            deadline = time.monotonic() + TPF_TIMEOUT_S
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            codes = [p.returncode for p in procs]
+            check(codes == [0] * len(procs), f"tp_families ranks exited {codes}")
+            ranks = [json.loads(Path(d, f"rank{r}.json").read_text())
+                     for r in range(len(procs))]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    runs, report, launches = {}, {}, {}
+    for arch, shape, n_layers, seq in TPF_RUNS:
+        cfg, rc = tpf_config(arch, n_layers, seq)
+        api = model_zoo.get_api(cfg, rc, dev)
+        state = train_step.init_state(api, rc, SEED)
+        step = train_step.make_train_step(api, cfg, rc)
+        pipe = SyntheticPipeline(cfg, rc, seed=SEED)
+        ops.reset_launch_counts()
+        single, single_ms = [], []
+        for _ in range(TPF_STEPS):
+            b = device_batch(pipe.next(), cfg, rc, dev)
+            t1 = time.perf_counter()
+            state, m = step(state, b)
+            single.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            single_ms.append((time.perf_counter() - t1) * 1e3)
+        single_launches = {k: v for k, v in ops.launch_counts().items() if v}
+        del state, step, b, api
+        torch.cuda.empty_cache()
+        want_held = tp_expected_held(cfg, rc, shape, TP_NAMES)
+        want_bytes = tp_bytes(cfg, rc, shape, TP_NAMES)
+        per_rank = [r["runs"][arch] for r in ranks]
+        for i, r in enumerate(per_rank):
+            who = f"{arch} rank {i}"
+            check(all(np.isfinite(r["loss"])), f"{who} loss {r['loss']}")
+            gap = max(abs(a - b) for a, b in zip(r["loss"], single))
+            check(gap < TP_LOSS_TOL, f"{who} losses {r['loss']} against the "
+                  f"one-process run's {single} (< {TP_LOSS_TOL})")
+            check(r["held"] == want_held and r["moments"] == 2 * want_held,
+                  f"{who} holds {r['held']} weights, {r['moments']} moments; "
+                  f"want {want_held}, {2 * want_held}")
+            got = {k: v for k, v in r["launches"].items() if v}
+            check(got == single_launches, f"{who} launched {got}, the "
+                  f"one-process run {single_launches}")
+            check(all(m == want_bytes for m in r["moved"]),
+                  f"{who} moved {r['moved']}, want {want_bytes}")
+            check(r["rows"] == [TPF_B // shape[0], seq], f"{who} rows {r['rows']}")
+            ssd = r["heads"].get("ssd_heads")
+            check(ssd is None or ssd[1] - ssd[0] < cfg.ssm_heads,
+                  f"{who} runs the SSD on heads {ssd} of {cfg.ssm_heads}")
+        runs[arch] = per_rank
+        path = f"{arch}_{cfg.n_layers}L_tp_{shape[0]}x{shape[1]}_{TPF_STEPS}_steps"
+        launches[path] = {k: sum(r["launches"].get(k, 0) for r in per_rank)
+                          for k in ops.launch_counts()}
+        report[arch] = {
+            "mesh": dict(zip(TP_NAMES, shape)), "n_layers": cfg.n_layers,
+            "seq": seq, "enc_seq": cfg.enc_seq or None,
+            "reduced": {"global_batch": [configs.SHAPES["train_4k"][1], TPF_B],
+                        **({"n_layers": [configs.load_arch(arch).n_layers, n_layers]}
+                           if n_layers else {})},
+            "held": [r["held"] for r in per_rank], "held_want": want_held,
+            "whole_weights": sum(int(np.prod(s)) for s in train_step.full_shapes(
+                model_zoo.get_api(cfg, rc, "cpu")).values()),
+            "loss": [r["loss"] for r in per_rank], "single_loss": single,
+            "single_step_ms": single_ms, "step_ms": [r["step_ms"] for r in per_rank],
+            "step_ms_median": float(np.median([t for r in per_rank for t in r["step_ms"]])),
+            "moved_per_step": per_rank[0]["moved"][0], "moved_formula": want_bytes,
+            "init_s": [r["init_s"] for r in per_rank],
+            "peak_GiB": [r["peak_GiB"] for r in per_rank],
+            "heads": [r["heads"] for r in per_rank],
+            "launches_per_rank": {k: v for k, v in per_rank[0]["launches"].items() if v}}
+    flash = tpf_flash(dev, copy_rate, runs)
+    emit({"phase": "tp_families", "backend": "gloo", "ranks_s": ranks_s,
+          "batch": TPF_B, "steps": TPF_STEPS, "runs": report,
+          "flash_at_rank_shapes": flash, "nvidia_smi": smi})
+    return {"launches": launches,
+            "flash": {label: {k: v for k, v in rows.items() if k != "bwd_checks"}
+                      for label, rows in flash.items()}}
+
+
 def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
                      paths: dict) -> None:
     """The kv and flash rows of the kernels line: their launches on every LM
@@ -3540,7 +3922,8 @@ def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
         "whisper_prefill": paths["encdec_serve"]["prefill"],
         "whisper_generate": paths["encdec_serve"]["generate"],
         "whisper_train_3_steps": paths["encdec_train"]["launches"],
-        **paths["dist"], **paths["tp"]["launches"]}
+        **paths["dist"], **paths["tp"]["launches"],
+        **paths["tp_families"]["launches"]}
     windowed = {"flash_attention.flash_fwd": paths["hybrid_serve"]["window_fwd"],
                 **paths["families_train"]["window_bwd"]}
     keep = ("shape", "window", "ms", "plain_ms", "library_ms", "library_backend",
@@ -3554,6 +3937,10 @@ def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
         if r["name"] in tp:
             r["at_tp_rank_shape"] = {k: tp[r["name"]][k] for k in keep}
         if r["name"].startswith("flash_attention."):
+            r["at_tp_families_rank_shapes"] = {
+                label: {k: v for k, v in rows_[r["name"]].items()
+                        if k in keep + ("causal", "Sk")}
+                for label, rows_ in paths["tp_families"]["flash"].items()}
             r["at_whisper_shapes"] = {
                 label: {k: v for k, v in rows_[r["name"]].items()
                         if k in keep + ("causal",)}
@@ -3568,6 +3955,8 @@ def main() -> int:
         return dist_child(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--tp-rank"]:         # one of phase_tp's ranks
         return tp_child(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--tp-families-rank"]:   # one of phase_tp_families'
+        return tpf_child(int(sys.argv[2]), sys.argv[3])
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 parity: full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -3618,6 +4007,8 @@ def main() -> int:
     paths["dist"] = phase_dist(dev, smi)
     torch.cuda.empty_cache()
     paths["tp"] = phase_tp(dev, smi, copy_rate)
+    torch.cuda.empty_cache()
+    paths["tp_families"] = phase_tp_families(dev, smi, copy_rate)
     add_family_paths(rows, prefill, serve, trained, paths)
     emit({"kernels": [{k: v for k, v in r.items()
                        if k != "copy_bound_ms"}

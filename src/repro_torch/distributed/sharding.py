@@ -30,13 +30,16 @@ the order of reductions:
 * ``fsdp`` (ZeRO-3): a parameter keeps its block over ``data``
   (``shard_parameter``), and a layer reads it through ``gathered``, which
   all-gathers it on first use (again in a remat recompute);
-* ``model``: the dense, vlm and moe families (``TP_FAMILIES``) run
-  tensor-parallel over heads, ff and vocab, with the residual stream split
-  over the sequence between layers where ``seq_shard`` holds and tp
-  divides S (``seq_split``, ``act``), and each contraction over a sharded
-  dimension summed by ``tp_out_proj`` / ``reduce_partial``.  The other
-  families raise ``NotImplementedError`` on a ``model`` axis above 1
-  (``check_model_axis``).
+* ``model``: every family runs tensor-parallel over heads, ff, vocab and
+  the SSD's ``tp`` columns, with the residual stream split over the
+  sequence between layers where ``seq_shard`` holds and tp divides S
+  (``seq_split``, ``act``), and each contraction over a sharded dimension
+  summed by ``tp_out_proj`` / ``reduce_partial``; a parameter or an
+  activation whose block does not line up with heads (mamba2's packed
+  ``in_proj``, the conv, a head cut mid-way) is gathered whole over
+  ``model`` with ``act`` (its backward sums the copies' gradients and keeps
+  the block), and a norm over a sharded dimension all-reduces its partial
+  squares over ``model_group()``.
 
 The reference's ``collectives.shard_map``, a shim over jax's API drift
 between ``jax.shard_map`` and ``jax.experimental.shard_map``, has no
@@ -139,26 +142,6 @@ def use_rules(rules: Optional[Rules]):
         yield rules
     finally:
         set_rules(prev)
-
-
-#: the families whose layers run tensor-parallel over the ``model`` axis
-TP_FAMILIES = ("dense", "vlm", "moe")
-#: the slice that brings the ``model`` axis to the other families
-TP_SLICE = ("the distributed slice that brings the 'model' axis to the ssm, "
-            "hybrid and encdec families, not ported yet: their reference "
-            "rules shard columns that do not line up with heads (mamba2's "
-            "in_proj packs [z | x | B | C | dt] into one matrix and is cut "
-            "mid-block; whisper has 6 heads)")
-
-
-def check_model_axis(mesh, cfg) -> None:
-    """Raise on a mesh whose ``model`` axis is above 1 for a family outside
-    ``TP_FAMILIES``."""
-    if (mesh is not None and "model" in mesh.axis_names
-            and mesh.shape["model"] > 1 and cfg.family not in TP_FAMILIES):
-        raise NotImplementedError(
-            f"{cfg.name} ({cfg.family}) on a 'model' axis of "
-            f"{mesh.shape['model']} needs {TP_SLICE}")
 
 
 def _tp(r) -> int:

@@ -14,11 +14,22 @@ reference's ``jax.checkpoint`` with ``nothing_saveable``).  Attention runs
 as ``layers.attention`` and ``layers.cross_attention`` dispatch it: the
 flash kernels on a CUDA tensor, the blockwise path on a CPU tensor.
 
+On a mesh the layers run tensor-parallel over heads, ff and (where tp
+divides it) the vocabulary, as ``models.layers`` does for the decoder-only
+families, with one difference: the reference passes no ``tp_scatter``
+here, so the residual stream stays whole over ``model`` (``encode`` and
+``decoder_backbone`` run under the rules with ``seq_shard`` off) and each
+out-projection's partial products are all-reduced.  The encoder's memory
+is whole on every rank; each rank projects it through its own ``wk`` /
+``wv`` columns in the cross-attention.
+
 As in the reference, ``init_decode_state`` gives zero cross K/V and
 nothing in the serve path fills them (ROADMAP Queue 3).
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
 from typing import Iterator, List, NamedTuple
 
 import torch
@@ -140,6 +151,21 @@ def _layers(body, layers, x: torch.Tensor, rc: RunConfig, *args) -> torch.Tensor
     return x
 
 
+def _whole_stream(fn):
+    """``fn`` under the rules with ``seq_shard`` off: the stream stays whole
+    over ``model``, as the reference's calls without ``tp_scatter`` keep
+    it, and ``shd.reduce_partial`` all-reduces."""
+    @functools.wraps(fn)
+    def run(*args):
+        r = shd.get_rules()
+        if r is None or not r.seq_shard:
+            return fn(*args)
+        with shd.use_rules(dataclasses.replace(r, seq_shard=False)):
+            return fn(*args)
+    return run
+
+
+@_whole_stream
 def encode(params: EncDecParams, frames: torch.Tensor, cfg: ModelConfig,
            rc: RunConfig) -> torch.Tensor:
     """frames: (B, enc_seq, d) stub embeddings -> encoder memory."""
@@ -153,12 +179,13 @@ def encode(params: EncDecParams, frames: torch.Tensor, cfg: ModelConfig,
         x = x + L.attention(h, lp.attn, cfg, pos, rc.q_block, rc.kv_block,
                             causal=False)
         h = L.rmsnorm(x, lp.ln2, cfg.norm_eps)
-        return x + L.mlp(h, lp.mlp, cfg.mlp_act)
+        return x + L.mlp(h, lp.mlp, cfg.mlp_act, cfg.d_ff)
 
     x = _layers(body, params.enc_layers, frames, rc)
     return L.rmsnorm(x, params.enc_norm, cfg.norm_eps)
 
 
+@_whole_stream
 def decoder_backbone(params: EncDecParams, tokens: torch.Tensor,
                      memory: torch.Tensor, cfg: ModelConfig,
                      rc: RunConfig) -> torch.Tensor:
@@ -172,10 +199,10 @@ def decoder_backbone(params: EncDecParams, tokens: torch.Tensor,
         x = x + L.cross_attention(h, memory, lp.cross_attn, cfg, rc.q_block,
                                   rc.kv_block)
         h = L.rmsnorm(x, lp.ln2, cfg.norm_eps)
-        return x + L.mlp(h, lp.mlp, cfg.mlp_act)
+        return x + L.mlp(h, lp.mlp, cfg.mlp_act, cfg.d_ff)
 
     return _layers(body, params.dec_layers,
-                   L.embed(tokens, shd.gathered(params.embed)), rc,
+                   L.embed(tokens, shd.gathered(params.embed), cfg), rc,
                    memory)
 
 

@@ -220,7 +220,8 @@ def _heads(cfg: ModelConfig) -> _Heads:
 
     ``wq``'s H*hd columns and ``wk``'s KV*hd columns are each sharded
     wherever tp divides them.  A query block that cuts a head is gathered
-    (every head is computed and o is cut back to wo's rows).  The KV heads
+    and the heads that cover the block are computed (o is cut back to wo's
+    rows); a head cut between two ranks is computed on both.  The KV heads
     that the local query heads read (head h reads h // G) are the local
     ones where the blocks line up; otherwise k and v are gathered whole,
     as the reference does (its ``kv_gathered``), and the needed heads are
@@ -232,7 +233,7 @@ def _heads(cfg: ModelConfig) -> _Heads:
         return _Heads(None, (0, H), False, False, (0, KV), None)
     G = H // KV
     q_gather = qb[0] % hd != 0 or qb[1] % hd != 0
-    q = (0, H) if q_gather else (qb[0] // hd, (qb[0] + qb[1]) // hd)
+    q = (qb[0] // hd, -(-(qb[0] + qb[1]) // hd))
     need = (q[0] // G, (q[1] - 1) // G + 1)
     kb = shd.tp_block("heads", KV * hd)
     base, kv_gather = 0, False
@@ -247,17 +248,22 @@ def _heads(cfg: ModelConfig) -> _Heads:
                   (need[0] - base, need[1] - base), index)
 
 
-def _qkv(x: torch.Tensor, p: AttnParams, cfg: ModelConfig, pos: torch.Tensor,
-         plan: _Heads):
+def _qkv(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
+         pos: Optional[torch.Tensor], plan: _Heads,
+         memory: Optional[torch.Tensor] = None):
     """q on the plan's query heads, k and v on the KV heads those read
     (grouped as ``_grouped`` expects, or one KV head a query head where
-    the groups do not line up), q and k roped."""
+    the groups do not line up).  Self-attention: k and v from x, the
+    biases added, q and k roped at ``pos``; cross-attention: k and v from
+    ``memory``, no bias and no RoPE (the reference reads only the four
+    weights)."""
     B, S, _ = x.shape
     hd = cfg.hd
+    src = x if memory is None else memory
     q = x @ p.wq
-    k = x @ p.wk
-    v = x @ p.wv
-    if p.bq is not None:
+    k = src @ p.wk
+    v = src @ p.wv
+    if memory is None and p.bq is not None:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
     if plan.q_gather:
         q = shd.act(q, "batch", None, None, src=("batch", None, "heads"))
@@ -265,16 +271,34 @@ def _qkv(x: torch.Tensor, p: AttnParams, cfg: ModelConfig, pos: torch.Tensor,
         k, v = (shd.act(t, "batch", None, None, src=("batch", None, "heads"),
                         name="kv_gathered") for t in (k, v))
     q = q.reshape(B, S, -1, hd)
-    k = k.reshape(B, S, -1, hd)
-    v = v.reshape(B, S, -1, hd)
+    k = k.reshape(B, src.shape[1], -1, hd)
+    v = v.reshape(B, src.shape[1], -1, hd)
+    if plan.q_gather:
+        q = q[:, :, plan.q[0]:plan.q[1]]
     if plan.kv_index is not None:
         idx = torch.tensor(plan.kv_index, device=x.device)
         k, v = k.index_select(2, idx), v.index_select(2, idx)
     else:
         k, v = (t[:, :, plan.kv_local[0]:plan.kv_local[1]] for t in (k, v))
-    q = rope(q, pos, cfg.rope_theta)
-    k = rope(k, pos, cfg.rope_theta)
+    if memory is None:
+        q = rope(q, pos, cfg.rope_theta)
+        k = rope(k, pos, cfg.rope_theta)
     return q, k, v
+
+
+def _out_proj(o: torch.Tensor, p: AttnParams, cfg: ModelConfig,
+              plan: _Heads) -> torch.Tensor:
+    """o (B, S, heads, hd) through ``wo``, where the residual stream lives:
+    the plain product (all heads), or this rank's rows of the covering
+    heads' output through ``shd.tp_out_proj``."""
+    B, S = o.shape[:2]
+    of = o.reshape(B, S, -1)
+    if plan.rows is None:
+        return shd.act(of @ p.wo, "batch", "seq", None)
+    if plan.q_gather:
+        lo = plan.rows[0] - plan.q[0] * cfg.hd
+        of = of[..., lo:lo + plan.rows[1]]
+    return shd.tp_out_proj(of, p.wo)
 
 
 def attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
@@ -310,34 +334,31 @@ def attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
     else:
         o = blockwise_attention(q, k, v, causal=causal, window=window,
                                 q_block=qb, kv_block=kb)
-    of = o.reshape(B, S, -1)
-    if plan.rows is None:
-        return shd.act(of @ p.wo, "batch", "seq", None)
-    if plan.q_gather:
-        of = of[..., plan.rows[0]:plan.rows[0] + plan.rows[1]]
-    return shd.tp_out_proj(of, p.wo)
+    return _out_proj(o, p, cfg, plan)
 
 
 def cross_attention(x: torch.Tensor, memory: torch.Tensor, p: AttnParams,
                     cfg: ModelConfig, q_block: int, kv_block: int) -> torch.Tensor:
     """Encoder-decoder cross attention: q from x (B, S, d), k and v from the
-    encoder's ``memory`` (B, M, d); no RoPE on either side, no mask, and no
-    bias (the reference reads only the four weights)."""
+    encoder's ``memory`` (B, M, d, whole on every rank); no RoPE on either
+    side, no mask, and no bias (the reference reads only the four weights).
+    Under tensor parallelism it runs on this rank's heads as ``attention``
+    does (k and v from the rank's ``wk`` / ``wv`` columns, gathered where a
+    block cuts a head)."""
     B, S, _ = x.shape
     M = memory.shape[1]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (x @ p.wq).reshape(B, S, H, hd)
-    k = (memory @ p.wk).reshape(B, M, KV, hd)
-    v = (memory @ p.wv).reshape(B, M, KV, hd)
+    plan = _heads(cfg)
+    q, k, v = _qkv(x, p, cfg, None, plan, memory)
     if x.device.type == "cuda":
-        o = fa.flash_attention(_grouped(q, KV), k, v, causal=False, window=0)
+        o = fa.flash_attention(_grouped(q, k.shape[2]), k, v, causal=False,
+                               window=0)
     else:
         qb, kb = min(q_block, S), min(kv_block, M)
         if S % qb or M % kb:
             qb, kb = S, M  # tiny shapes: single block
         o = blockwise_attention(q, k, v, causal=False, window=0,
                                 q_block=qb, kv_block=kb)
-    return o.reshape(B, S, -1) @ p.wo
+    return _out_proj(o.reshape(B, S, -1, cfg.hd), p, cfg, plan)
 
 
 # ---------------------------------------------------------------------------

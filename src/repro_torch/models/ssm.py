@@ -12,6 +12,21 @@ N = ssm_state.  B and C are shared across heads (one group).  A is a decay
 per head; dt per head through softplus.  ``a_log``, ``dt_bias`` and
 ``d_skip`` are f32 whatever the model's dtype.  The reference has no
 Pallas kernel for the scan or the causal conv; these are torch ops.
+
+Under rules whose mesh has a ``model`` axis above 1 (``train.step``) the
+reference's ``"tp"`` rules cut ``in_proj``'s packed ``[z | x | B | C |
+dt]`` columns, the conv's channels and ``gate_norm`` / ``out_proj``'s di
+rows, each where tp divides it and without regard to heads.
+``ssd_forward`` then divides the work by heads (``_ssd_heads``): the
+``in_proj`` product on the rank's columns is gathered whole over
+``model`` (a whole ``in_proj`` is used as it is), the conv's weights are
+gathered, and the rank runs the conv and the chunked scan on the heads
+that cover its block of di rows (all of B and C, its heads' x and dt),
+cuts the output back to its rows, takes the gated norm's mean over the
+whole di through an all-reduce of its partial sums of squares over
+``model`` and sums the out-projection's partial products with
+``shd.tp_out_proj``, so that the output lands where the residual stream
+lives.
 """
 from __future__ import annotations
 
@@ -22,6 +37,8 @@ from torch import nn
 
 from repro_torch.checkpoint.ckpt import Attrs
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as shd
 from . import layers as L
 
 F32 = torch.float32
@@ -105,34 +122,86 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return L.silu(_conv_sum(xp, w, S) + b), new_state
 
 
+class _SsdHeads(NamedTuple):
+    """Which SSD heads this rank runs."""
+    rows: Optional[Tuple[int, int]]  # gate_norm / out_proj rows held (None: all)
+    heads: Tuple[int, int]           # heads [start, stop) covering the rows
+
+
+def _ssd_heads(cfg: ModelConfig) -> _SsdHeads:
+    """This rank's share of the SSD under the rules: the heads that cover
+    its block of ``gate_norm`` / ``out_proj``'s di rows (a head cut between
+    two ranks is run on both), or every head where the rows are whole."""
+    P = cfg.ssm_head
+    rows = shd.tp_block("tp", cfg.d_inner)
+    if rows is None:
+        return _SsdHeads(None, (0, cfg.ssm_heads))
+    return _SsdHeads(rows, (rows[0] // P, -(-(rows[0] + rows[1]) // P)))
+
+
+def _whole(t: torch.Tensor, full: int, dim: int) -> torch.Tensor:
+    """``t`` whole along ``dim`` (of ``full`` values): gathered over
+    ``model`` where the ``"tp"`` rule cut it (the backward sums the ranks'
+    gradients and keeps this rank's block), else itself."""
+    if shd.tp_block("tp", full) is None:
+        return t
+    src = tuple("tp" if i == dim % t.dim() else None for i in range(t.dim()))
+    return shd.act(t, *(None,) * t.dim(), src=src)
+
+
+def _gated_norm(y: torch.Tensor, w: torch.Tensor, eps: float,
+                full: int) -> torch.Tensor:
+    """``layers.rmsnorm`` over the whole di from this rank's block of it:
+    the f32 sum of squares all-reduced over ``model`` (a partial mean
+    summed in another order than one device's: ~1e-7 relative in f32)."""
+    yf = y.to(F32)
+    ss = collectives.all_reduce(torch.sum(yf * yf, dim=-1, keepdim=True),
+                                shd.model_group())
+    return (yf * torch.rsqrt(ss / full + eps)).to(y.dtype) * w
+
+
 def ssd_forward(params: SsmParams, x: torch.Tensor, cfg: ModelConfig
                 ) -> torch.Tensor:
-    """Training / prefill SSD.  x: (B, S, d) -> (B, S, d)."""
+    """Training / prefill SSD.  x: (B, S, d), whole over ``model`` ->
+    (B, S, d), where the residual stream lives (on one device: whole)."""
     B, S, _ = x.shape
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head
     Q = min(cfg.ssm_chunk, S)
     if S % Q:
         raise ValueError(f"SSD takes S a multiple of the chunk: S={S}, Q={Q}")
+    plan = _ssd_heads(cfg)
+    h0, h1 = plan.heads
+    nh = h1 - h0
 
-    z, xin, b, c, dt_raw = _split(x @ params.in_proj, cfg)
-    xbc, _ = _causal_conv(torch.cat([xin, b, c], dim=-1),
-                          params.conv_w, params.conv_b)
-    xin, b, c = xbc[..., :di], xbc[..., di:di + N], xbc[..., di + N:]
+    z, xin, b, c, dt_raw = _split(_whole(x @ params.in_proj,
+                                         2 * di + 2 * N + H, -1), cfg)
+    conv_w = _whole(params.conv_w, di + 2 * N, 1)
+    conv_b = _whole(params.conv_b, di + 2 * N, 0)
+    dt_bias, a_log, d_skip = params.dt_bias, params.a_log, params.d_skip
+    if nh < H:
+        # this rank's heads: their x channels and dt, all of B and C
+        xin, dt_raw = xin[..., h0 * P:h1 * P], dt_raw[..., h0:h1]
+        conv_w = torch.cat([conv_w[:, h0 * P:h1 * P], conv_w[:, di:]], dim=-1)
+        conv_b = torch.cat([conv_b[h0 * P:h1 * P], conv_b[di:]])
+        dt_bias, a_log, d_skip = dt_bias[h0:h1], a_log[h0:h1], d_skip[h0:h1]
+    xbc, _ = _causal_conv(torch.cat([xin, b, c], dim=-1), conv_w, conv_b)
+    nx = nh * P
+    xin, b, c = xbc[..., :nx], xbc[..., nx:nx + N], xbc[..., nx + N:]
 
-    dt = softplus(dt_raw.to(F32) + params.dt_bias)               # (B,S,H)
-    da = dt * -torch.exp(params.a_log)                           # (B,S,H) < 0
+    dt = softplus(dt_raw.to(F32) + dt_bias)                      # (B,S,nh)
+    da = dt * -torch.exp(a_log)                                  # (B,S,nh) < 0
     adt = x.dtype
-    xh = xin.reshape(B, S, H, P)
+    xh = xin.reshape(B, S, nh, P)
     xdt = xh * dt[..., None].to(adt)
 
     tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    h = torch.zeros((B, H, N, P), dtype=F32, device=x.device)
+    h = torch.zeros((B, nh, N, P), dtype=F32, device=x.device)
     ys = []
     for lo in range(0, S, Q):
         da_n = da[:, lo:lo + Q]
         b_n, c_n = b[:, lo:lo + Q].to(F32), c[:, lo:lo + Q].to(F32)
         xdt_n = xdt[:, lo:lo + Q].to(F32)
-        cs = torch.cumsum(da_n, dim=1)                           # (B,Q,H)
+        cs = torch.cumsum(da_n, dim=1)                           # (B,Q,nh)
         cb = torch.einsum("bim,bjm->bij", c_n, b_n)              # (B,Q,Q)
         # the exponent masked before exp: the reference takes exp of the
         # whole square and masks after, the same values, but its upper
@@ -141,21 +210,25 @@ def ssd_forward(params: SsmParams, x: torch.Tensor, cfg: ModelConfig
         # gradients: hymba-1.5b training on 4096-token sequences)
         decay = torch.exp(torch.where(tri[None, :, :, None],
                                       cs[:, :, None, :] - cs[:, None, :, :],
-                                      -torch.inf))                # (B,Q,Q,H)
+                                      -torch.inf))                # (B,Q,Q,nh)
         att = cb[..., None] * decay
         y_intra = torch.einsum("bijh,bjhp->bihp", att, xdt_n)
         y_inter = torch.einsum("bim,bhmp->bihp", c_n, h) * torch.exp(cs)[..., None]
-        seg = torch.exp(cs[:, -1:, :] - cs)                      # (B,Q,H)
+        seg = torch.exp(cs[:, -1:, :] - cs)                      # (B,Q,nh)
         s_chunk = torch.einsum("bjm,bjhp->bhmp", b_n, xdt_n * seg[..., None])
         h = torch.exp(cs[:, -1, :])[:, :, None, None] * h + s_chunk
         ys.append((y_intra + y_inter).to(adt))
-    y = torch.cat(ys, dim=1)                                     # (B,S,H,P)
-    y = y + params.d_skip.to(adt)[None, None, :, None] * xh
-    y = y.reshape(B, S, di).to(x.dtype)
+    y = torch.cat(ys, dim=1)                                     # (B,S,nh,P)
+    y = y + d_skip.to(adt)[None, None, :, None] * xh
+    y = y.reshape(B, S, nx).to(x.dtype)
 
-    y = y * L.silu(z)
-    y = L.rmsnorm(y, params.gate_norm, cfg.norm_eps)
-    return y @ params.out_proj
+    if plan.rows is None:
+        y = L.rmsnorm(y * L.silu(z), params.gate_norm, cfg.norm_eps)
+        return shd.act(y @ params.out_proj, "batch", "seq", None)
+    r0, nr = plan.rows
+    y = y[..., r0 - h0 * P:r0 - h0 * P + nr] * L.silu(z[..., r0:r0 + nr])
+    y = _gated_norm(y, params.gate_norm, cfg.norm_eps, di)
+    return shd.tp_out_proj(y, params.out_proj)
 
 
 # ---------------------------------------------------------------------------

@@ -17,16 +17,19 @@ functions here refuse its configs (``check_family``), and
 ``model_zoo.get_api`` dispatches to either module.
 
 On a mesh (rules installed by ``train.step``) each layer reads its
-parameters through ``sharding.gathered`` (ZeRO-3 over ``data``) and, for
-the dense, vlm and moe families on a ``model`` axis above 1, runs
-tensor-parallel: between layers the residual stream is (B, S / tp, d),
-this rank's block of positions, wherever ``rc.seq_shard`` holds and tp
-divides S (the vlm prefix is joined before the split), the norms run on
-that block, and the attention, MLP and MoE take it gathered.  The
-backbone returns the stream whole.  ``rc.tp_scatter`` selects nothing
-here: the port always issues the reference's ``tp_scatter`` schedule (an
-f32 partial product, reduce-scattered onto the sequence), which is also
-what GSPMD's own schedule computes.
+parameters through ``sharding.gathered`` (ZeRO-3 over ``data``) and, on a
+``model`` axis above 1, runs tensor-parallel: between layers the residual
+stream is (B, S / tp, d), this rank's block of positions, wherever
+``rc.seq_shard`` holds and tp divides S (the vlm prefix is joined before
+the split), the norms run on that block, and the attention, the SSD
+mixer, the MLP and the MoE take it gathered and each return their output
+where the stream lives, so that hybrid's two branches meet in
+``_merge`` on the same positions and are normed there with the whole (d,)
+``ln_attn_out`` / ``ln_ssm_out``.  The backbone returns the stream whole.
+``rc.tp_scatter`` selects nothing here: the port always issues the
+reference's ``tp_scatter`` schedule (an f32 partial product,
+reduce-scattered onto the sequence), which is also what GSPMD's own
+schedule computes.
 """
 from __future__ import annotations
 

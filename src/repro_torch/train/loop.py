@@ -58,7 +58,6 @@ def train(cfg: ModelConfig, rc: RunConfig, loop: LoopConfig, mesh=None,
     every rank of ``mesh``; returns the metric history: ``loss`` and
     ``step_time`` per step run (a rolled-back step counts each time it
     runs), ``stragglers`` and ``restarts``."""
-    shd.check_model_axis(mesh, cfg)
     with shd.use_rules(train_step_mod.rules_for(rc, mesh)):
         return _run(cfg, rc, loop, mesh, device, failure_hook, log_every)
 

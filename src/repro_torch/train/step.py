@@ -14,16 +14,16 @@ reference's specs put it, issuing each collective by hand:
   rule shards (parameters, moments, residuals; ``init_state``,
   ``param_partition``), a layer all-gathers its blocks before use (again
   under remat), and the gather's backward reduce-scatters the gradient;
-* ``model`` is tensor and sequence parallelism for the dense, vlm and moe
-  families (``models.layers``, ``models.transformer``); the ssm, hybrid
-  and encdec families raise ``NotImplementedError`` on a ``model`` axis
-  above 1 (``sharding.check_model_axis``).
+* ``model`` is tensor and sequence parallelism for every family
+  (``models.layers``, ``models.ssm``, ``models.transformer``,
+  ``models.encdec``).
 
 Each rank differentiates its own copy of the loss and every collective's
 backward is its adjoint (``distributed.collectives``), so each gradient
 block is that of the sum of the ranks' losses once a leaf held whole on
 several ranks has its copies' gradients summed over those axes (a norm, a
-router, an indivisible vocabulary; the batch axes for every leaf not
+router, an indivisible vocabulary or ``in_proj``, the SSD's per-head
+``a_log``, ``dt_bias`` and ``d_skip``; the batch axes for every leaf not
 sharded over ``data``).  Dividing by the number of ranks whose losses were
 summed gives the reference's mean.  Two gradient paths, as in the
 reference:
@@ -298,7 +298,6 @@ def make_train_step(api: ModelApi, cfg: ModelConfig, rc: RunConfig, mesh=None):
     gradients' ``grad_norm`` (after the exchange, before clipping, over
     every block), as 0-dim tensors on the device.
     """
-    shd.check_model_axis(mesh, cfg)
     compress = _compress(rc, mesh)
     _check_batch(cfg, rc, mesh)
     acfg = adam_config(rc)

@@ -144,8 +144,27 @@ def _job_remesh(job: dict) -> dict:
                  device="cpu", log_every=0)
 
 
+#: the families whose ``model`` axis came last, by the case that runs each
+MODEL_AXIS_ARCHES = {"ssm": "mamba2-130m", "hybrid": "hymba-1.5b",
+                     "encdec": "whisper-tiny"}
+#: the meshes their loops take a step on
+MODEL_AXIS_MESHES = {2: ((1, 2), ("data", "model")), 4: ((2, 1, 2), NAMES)}
+
+
+def _job_model_axis(job: dict) -> dict:
+    """One step of ``train.loop.train`` for each family on the world's
+    mesh with a ``model`` axis of 2 (a checkpoint written at its end)."""
+    shape, names = MODEL_AXIS_MESHES[dist.get_world_size()]
+    mesh = tmesh.make_mesh(shape, names, "cpu")
+    return {arch: train(tbase.load_smoke(arch), tbase.RunConfig(**RC),
+                        LoopConfig(total_steps=1, ckpt_every=5,
+                                   ckpt_dir=f"{job['dir']}/{arch}_{len(shape)}"),
+                        mesh=mesh, device="cpu", log_every=0)
+            for arch in MODEL_AXIS_ARCHES.values()}
+
+
 JOBS = {"parity": _job_parity, "equivalence": _job_equivalence,
-        "remesh": _job_remesh}
+        "remesh": _job_remesh, "model_axis": _job_model_axis}
 
 
 # -- the reference, in a subprocess ------------------------------------------------
@@ -371,28 +390,46 @@ def test_checkpoints_with_residuals_cross_between_the_packages(direction, tmp_pa
         assert torch.equal(r, want.resid[n][1:2]), n
 
 
+@pytest.fixture(scope="module")
+def model_axis_loops(tmp_path_factory):
+    """Each family's one-step loop on (1, 2) over (data, model), two ranks,
+    and on (2, 1, 2), four ranks; and one device's, by arch."""
+    tmp = tmp_path_factory.mktemp("model_axis")
+    runs = {len(shape): _spawn(math.prod(shape), {"kind": "model_axis", "dir": str(tmp)}, tmp)
+            for shape, _ in MODEL_AXIS_MESHES.values()}
+    single = {arch: train(tbase.load_smoke(arch), tbase.RunConfig(**RC),
+                          LoopConfig(total_steps=1, ckpt_dir=str(tmp / f"{arch}_1")),
+                          device="cpu", log_every=0)["loss"][0]
+              for arch in MODEL_AXIS_ARCHES.values()}
+    return runs, single, tmp
+
+
 @pytest.mark.parametrize("case", ["ssm_step", "hybrid_step", "encdec_step",
                                   "encdec_train"])
-def test_out_of_slice_meshes_raise(case, tmp_path):
-    """What comes with a later slice raises NotImplementedError naming it:
-    the ssm, hybrid and encdec families on a 'model' axis above 1 (the
-    moe family on split batches and the dense family on a 'model' axis
-    run: tests/test_torch_tensor_parallel.py)."""
+def test_out_of_slice_meshes_raise(case, model_axis_loops):
+    """The ssm, hybrid and encdec families on a 'model' axis above 1, which
+    raised NotImplementedError until their slice came (the name is that
+    test's): the step builds on (1, 2) and (2, 1, 2), and the loop takes a
+    step at smoke size on each (``*_step``: on (1, 2), and for ssm and
+    hybrid also on (2, 1, 2); ``encdec_train``: whisper on (2, 1, 2)), every
+    rank with the same finite bf16 loss within the reference's 5e-3 of one
+    device's, and a checkpoint written at its end."""
     from repro_torch.launch.mesh import abstract_mesh
-    arch = {"ssm": "mamba2-130m", "hybrid": "hymba-1.5b",
-            "encdec": "whisper-tiny"}[case.split("_")[0]]
+    arch = MODEL_AXIS_ARCHES[case.split("_")[0]]
     cfg = tbase.load_smoke(arch)
     rc = tbase.RunConfig(**RC)
     api = model_zoo.get_api(cfg, rc, "cpu")
-    with pytest.raises(NotImplementedError, match="distributed slice") as e:
-        if case == "encdec_train":
-            train(cfg, rc, LoopConfig(total_steps=1, ckpt_dir=str(tmp_path)),
-                  mesh=abstract_mesh((2, 1, 2), NAMES), device="cpu")
-        else:
-            tstep.make_train_step(api, cfg, rc, abstract_mesh((1, 2), ("data", "model")))
-    assert "'model' axis to the ssm, hybrid and encdec families" in str(e.value)
-    # a 'model' axis of 1 builds: ZeRO-3 over 'data' serves every family
-    tstep.make_train_step(api, cfg, rc, abstract_mesh((2, 2, 1), NAMES))
+    for shape, names in MODEL_AXIS_MESHES.values():
+        tstep.make_train_step(api, cfg, rc, abstract_mesh(shape, names))
+    runs, single, tmp = model_axis_loops
+    meshes = {"ssm_step": (2, 3), "hybrid_step": (2, 3), "encdec_step": (2,),
+              "encdec_train": (3,)}[case]
+    for n_axes in meshes:
+        losses = [h[arch]["loss"] for h in runs[n_axes]]
+        assert all(lo == losses[0] for lo in losses) and len(losses[0]) == 1, losses
+        assert np.isfinite(losses[0][0]) and abs(losses[0][0] - single[arch]) < 5e-3, (
+            losses[0], single[arch])
+        assert "step_00000001" in os.listdir(tmp / f"{arch}_{n_axes}")
 
 
 if __name__ == "__main__" and sys.argv[1:2] == ["oracle"]:

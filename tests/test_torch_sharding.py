@@ -97,11 +97,27 @@ def test_no_rules_is_noop():
     assert all(v == shd.P() for _, v in ckpt.flatten(shd.spec_tree(specs, specs)))
 
 
+#: mixer leaves' blocks a rank holds on (1, 1, 2) by the rules (the smoke
+#: configs: mamba2 / hymba d 128, di 256, N 16, 8 SSD heads, in_proj 552
+#: columns; hymba 4 heads of 32, 2 KV heads; whisper 4 heads of 32, ff 256)
+MIXER_BLOCKS = {
+    "mamba2-130m": {"layers.0.ssm.in_proj": (128, 276), "layers.0.ssm.conv_w": (4, 144),
+                    "layers.0.ssm.conv_b": (144,), "layers.0.ssm.gate_norm": (128,),
+                    "layers.0.ssm.out_proj": (128, 128), "layers.0.ssm.a_log": (8,)},
+    "hymba-1.5b": {"layers.1.ssm.in_proj": (128, 276), "layers.1.ssm.d_skip": (8,),
+                   "layers.1.attn.wq": (128, 64), "layers.1.attn.wk": (128, 32),
+                   "layers.1.ln_ssm_out": (128,), "layers.1.mlp.w_down": (128, 128)},
+    "whisper-tiny": {"enc_layers.0.attn.wq": (128, 64), "dec_layers.1.cross_attn.wk": (128, 64),
+                     "dec_layers.1.cross_attn.wo": (64, 128), "dec_layers.0.mlp.w_up": (128, 128),
+                     "embed.table": (128, 128), "enc_norm": (128,)},
+}
+
+
 def test_model_axis_of_one_is_a_noop_and_out_of_slice_families_raise():
-    """A ``model`` axis of 1 (or excluded) moves nothing; above 1 the
-    ssm, hybrid and encdec families raise, naming the slice that brings
-    them (the dense, vlm and moe families run tensor-parallel:
-    tests/test_torch_tensor_parallel.py)."""
+    """A ``model`` axis of 1 (or excluded) moves nothing; above 1 every
+    family builds its train step (none is refused any more: the name is
+    the one this test had when the ssm, hybrid and encdec families raised),
+    and each mixer leaf's block is its rule's (``MIXER_BLOCKS``)."""
     rt, _ = _rules((2, 2, 1), NAMES)
     x = torch.ones(8, 4, 6)
     with shd.use_rules(rt):
@@ -115,11 +131,19 @@ def test_model_axis_of_one_is_a_noop_and_out_of_slice_families_raise():
     with shd.use_rules(excluded):
         assert shd.act(x, "batch", "seq", None) is x
         assert shd.tp_out_proj(x, torch.ones(6, 3)) is None
-    for arch in ("mamba2-130m", "hymba-1.5b", "whisper-tiny"):
-        with pytest.raises(NotImplementedError, match="'model' axis to the ssm"):
-            shd.check_model_axis(tp.mesh, tbase.load_smoke(arch))
-    for arch in ("tinyllama-1.1b", "internvl2-76b", "mixtral-8x7b"):
-        shd.check_model_axis(tp.mesh, tbase.load_smoke(arch))
+    assert not hasattr(shd, "check_model_axis") and not hasattr(shd, "TP_FAMILIES")
+    rc = tbase.RunConfig(seq_len=64, global_batch=8, kind="train")
+    for arch in ("tinyllama-1.1b", "internvl2-76b", "mixtral-8x7b", "mamba2-130m",
+                 "hymba-1.5b", "whisper-tiny"):
+        cfg = tbase.load_smoke(arch)
+        api = model_zoo.get_api(cfg, rc, "cpu")
+        tstep.make_train_step(api, cfg, rc, tp.mesh)
+        specs = tstep.param_partition(api, rc, tp.mesh)
+        shapes = tstep.full_shapes(api)
+        blocks = {n: tuple(d // (2 if "model" in shd._axes(part) else 1)
+                           for d, part in zip(shapes[n], specs[n])) for n in specs}
+        for n, want in MIXER_BLOCKS.get(arch, {}).items():
+            assert blocks[n] == want, (arch, n, blocks[n], want)
 
 
 def _full_size(arch):

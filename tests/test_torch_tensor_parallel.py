@@ -131,13 +131,17 @@ class _OneRank:
 
 @pytest.mark.parametrize("heads,tp", [((4, 2, 32), 2), ((4, 2, 32), 4),
                                       ((4, 2, 32), 8), ((32, 4, 64), 2),
-                                      ((48, 8, 128), 12), ((48, 8, 128), 32)])
+                                      ((48, 8, 128), 12), ((48, 8, 128), 32),
+                                      ((25, 5, 64), 2), ((6, 6, 64), 4),
+                                      ((6, 6, 32), 4)])
 def test_each_rank_reads_the_kv_heads_of_its_query_heads(heads, tp):
     """``layers._heads`` on every rank: query head h reads KV head h // G,
     whether the rank's KV block lines up (local heads), cuts a head (k and
     v gathered: the smoke config at tp = 4), its query heads span groups
     unevenly (one KV head a query head) or its query block cuts a head
-    (q gathered, o cut back to wo's rows)."""
+    (q gathered, the heads that cover the block computed and o cut back to
+    wo's rows: hymba-1.5b's 12.5 heads a rank at tp = 2, 13 computed;
+    whisper-tiny's 1.5 at tp = 4, 2 computed)."""
     import dataclasses
 
     from repro_torch.models import layers as L
@@ -153,6 +157,8 @@ def test_each_rank_reads_the_kv_heads_of_its_query_heads(heads, tp):
             qb = shd.tp_block("heads", H * hd)
         assert plan.rows == qb == (rank * H * hd // tp, H * hd // tp)
         assert plan.q_gather == bool(qb[0] % hd or qb[1] % hd)
+        assert plan.q == (qb[0] // hd, -(-(qb[0] + qb[1]) // hd))
+        assert plan.q[1] - plan.q[0] <= -(-H // tp) + 1
         heads_q = list(range(*plan.q))
         kv = list(range(KV)) if kb is None or plan.kv_gather else \
             list(range(kb[0] // hd, (kb[0] + kb[1]) // hd))

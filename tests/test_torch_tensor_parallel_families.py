@@ -3,7 +3,9 @@
 load-balance loss over the whole batch), on gloo ranks on the CPU, against
 the JAX package; ZeRO-3 over ``data`` for the ssm, hybrid and encdec
 families, the sharded bf16 step against one device and the elastic
-re-mesh across ``model`` sizes, against the port's own single-device runs.
+re-mesh across ``model`` sizes (tinyllama and hymba), against the port's
+own single-device runs.  The ssm, hybrid and encdec families' ``model``
+axis is ``tests/test_torch_tensor_parallel_mixers.py``.
 
 The ranks, the reference's subprocess and the tolerances are
 ``tests/_torch_tp_harness.py``'s; the dense family's meshes are in
@@ -74,15 +76,20 @@ def test_sharded_step_equals_single_device(tmp_path):
         assert np.allclose(losses, single, atol=5e-3), (losses, single)
 
 
-def test_elastic_remesh_across_model_sizes(tmp_path):
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "hymba-1.5b"])
+def test_elastic_remesh_across_model_sizes(arch, tmp_path):
     """10 steps on (2, 2) data x model with checkpoints, resumed to 20 on
     (1, 4): the last 3 losses within 5e-3 of an uninterrupted run (the
-    reference's ``remesh``, (4, 2) to (2, 4) there)."""
+    reference's ``remesh``, (4, 2) to (2, 4) there).  hymba's whole leaves
+    (the checkpoint's) are restored onto blocks cut twice as fine over
+    ``model``: its SSD's ``in_proj`` from 276 to 138 columns, its KV heads
+    from one a rank to half of one."""
     d = str(tmp_path / "ckpt")
-    first = _spawn(4, {"kind": "remesh", "shape": (2, 2), "steps": 10, "dir": d}, tmp_path)
-    second = _spawn(4, {"kind": "remesh", "shape": (1, 4), "steps": 20, "dir": d}, tmp_path)
+    job = {"kind": "remesh", "arch": arch, "dir": d}
+    first = _spawn(4, {**job, "shape": (2, 2), "steps": 10}, tmp_path)
+    second = _spawn(4, {**job, "shape": (1, 4), "steps": 20}, tmp_path)
     assert len(first[0]["loss"]) == 10 and len(second[0]["loss"]) == 10
-    ref = train(tbase.load_smoke("tinyllama-1.1b"), tbase.RunConfig(**RC),
+    ref = train(tbase.load_smoke(arch), tbase.RunConfig(**RC),
                 LoopConfig(total_steps=20, ckpt_every=5, ckpt_dir=str(tmp_path / "ref")),
                 device="cpu", log_every=0)
     for h in second:

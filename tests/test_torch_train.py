@@ -174,21 +174,54 @@ def test_save_collectives_policy_on_one_device_is_full():
         assert torch.equal(grads[0][n], grads[1][n]), n
 
 
+#: (mesh, leaf, block a rank holds) at full size, by the rules
+FULL_BLOCKS = {
+    "mamba2-130m": ((1, 2), {"layers.0.ssm.in_proj": (768, 1676),   # cut mid-x
+                             "layers.0.ssm.conv_w": (4, 896),
+                             "layers.0.ssm.gate_norm": (768,),
+                             "layers.0.ssm.out_proj": (768, 768),
+                             "layers.0.ssm.a_log": (24,)}),
+    "hymba-1.5b": ((1, 4), {"layers.0.ssm.in_proj": (1600, 6482),   # 6482 % 4: whole
+                            "layers.0.ssm.conv_w": (4, 808),
+                            "layers.0.ssm.gate_norm": (800,),       # 12.5 heads
+                            "layers.0.attn.wq": (1600, 400),
+                            "layers.0.attn.wk": (1600, 80),
+                            "embed.table": (32001, 1600)}),         # vocab whole
+    "whisper-tiny": ((1, 4), {"enc_layers.0.attn.wq": (384, 96),    # 1.5 heads
+                              "dec_layers.0.cross_attn.wv": (384, 96),
+                              "dec_layers.0.mlp.w_down": (384, 384),
+                              "embed.table": (51865, 384)}),
+    "tinyllama-1.1b": ((1, 2), {"layers.0.attn.wq": (2048, 1024),
+                                "layers.0.attn.wk": (2048, 128)}),
+}
+
+
 @pytest.mark.parametrize("arch", ["mamba2-130m", "hymba-1.5b", "whisper-tiny",
                                   "tinyllama-1.1b"])
 def test_mesh_raises(arch):
-    """A 'model' axis above 1 raises for the ssm, hybrid and encdec
-    families, naming the slice that brings it; the dense family builds."""
+    """Every family builds its step on a ``model`` axis above 1 (the name
+    is the one this test had when the ssm, hybrid and encdec families
+    raised), and at full size the rules cut each mixer leaf as the
+    reference's do (``FULL_BLOCKS``): mamba2's ``in_proj`` (768, 3352) at
+    column 1676 on two ranks, hymba's left whole on four (6482 % 4 = 2)
+    while its ``gate_norm`` is cut mid-head, whisper's 6 heads at 1.5 a
+    rank."""
     from repro_torch.launch.mesh import abstract_mesh
     (_, _), (ct, rt) = _configs(arch)
     api = model_zoo.get_api(ct, rt, "cpu")
-    mesh = abstract_mesh((1, 2), ("data", "model"))
-    if arch == "tinyllama-1.1b":
-        tstep_mod.make_train_step(api, ct, rt, mesh=mesh)
-        return
-    with pytest.raises(NotImplementedError, match="distributed slice") as e:
-        tstep_mod.make_train_step(api, ct, rt, mesh=mesh)
-    assert ct.family in str(e.value) and "in_proj" in str(e.value)
+    tstep_mod.make_train_step(api, ct, rt, mesh=abstract_mesh((1, 2), ("data", "model")))
+    shape, blocks = FULL_BLOCKS[arch]
+    mesh = abstract_mesh(shape, ("data", "model"))
+    cfg = tbase.load_arch(arch)
+    full = model_zoo.get_api(cfg, rt, "cpu")
+    tstep_mod.make_train_step(full, cfg, rt, mesh=mesh)
+    specs = tstep_mod.param_partition(full, rt, mesh)
+    shapes = tstep_mod.full_shapes(full)
+    for n, want in blocks.items():
+        got = tuple(d // (shape[1] if part == "model" or
+                          (isinstance(part, tuple) and "model" in part) else 1)
+                    for d, part in zip(shapes[n], specs[n]))
+        assert got == want, (n, got, want, specs[n])
 
 
 # -- the train step ---------------------------------------------------------------

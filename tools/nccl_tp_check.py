@@ -17,9 +17,12 @@ Checks, on every rank:
   of the operand dtype);
 * ``train.step.whole_tree`` on the (2, 2) data x model mesh: rank 0 alone
   gets the whole state, equal to the single device's initial parameters;
-* 3 steps of tinyllama-1.1b's smoke config, bf16, remat, ``fsdp`` and
-  ``seq_shard``, on that mesh: every rank's losses within 5e-3 of one
-  process's steps on one card from the same weights and batches.
+* 3 steps of tinyllama-1.1b's, mamba2-130m's and hymba-1.5b's smoke
+  configs on that mesh and of whisper-tiny's on (1, 4), bf16, remat,
+  ``fsdp`` and ``seq_shard``: every rank's losses within 5e-3 of one
+  process's steps on one card from the same weights and batches (the SSD
+  on a rank's heads, hymba's KV heads and whisper's query heads cut
+  mid-head at tp = 4, whisper's stream whole over ``model``).
 
 Rank 0 prints one JSON line of what it measured; the exit code is 0 when
 every check held.
@@ -49,6 +52,9 @@ WORLD = 4
 SHAPE, NAMES = (2, 2), ("data", "model")
 STEPS = 3
 ARCH = "tinyllama-1.1b"
+#: each family's smoke config and its mesh over NAMES
+FAMILIES = {ARCH: SHAPE, "mamba2-130m": SHAPE, "hymba-1.5b": SHAPE,
+            "whisper-tiny": (1, 4)}
 
 
 def run_config():
@@ -106,6 +112,24 @@ def check_collectives(rank: int, dev) -> dict:
     return out
 
 
+def mesh_losses(arch: str, rc, dev) -> tuple:
+    """STEPS losses and step ms of ``arch``'s smoke config on its mesh."""
+    mesh = make_mesh(FAMILIES[arch], NAMES, dev)
+    cfg = configs.load_smoke(arch)
+    api = model_zoo.get_api(cfg, rc, dev)
+    state = train_step.init_state(api, rc, 0, mesh)
+    step = train_step.make_train_step(api, cfg, rc, mesh)
+    pipe = SyntheticPipeline(cfg, rc, seed=3)
+    losses, times = [], []
+    for _ in range(STEPS):
+        batch = device_batch(pipe.next(), cfg, rc, dev, mesh)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        times.append((time.perf_counter() - t0) * 1e3)
+    return losses, times
+
+
 def single_device(cfg, rc, dev) -> tuple:
     """One process's initial parameters and STEPS losses on one card."""
     api = model_zoo.get_api(cfg, rc, dev)
@@ -138,21 +162,16 @@ def rank_main(rank: int, init_method: str, backend: str, workdir: str) -> None:
         state = train_step.init_state(api, rc, 0, mesh)
         whole = train_step.whole_tree(state, api, rc, mesh)
         res["whole_on_rank0_only"] = (whole is not None) == (rank == 0)
-        step = train_step.make_train_step(api, cfg, rc, mesh)
-        pipe = SyntheticPipeline(cfg, rc, seed=3)
-        losses, times = [], []
-        for _ in range(STEPS):
-            batch = device_batch(pipe.next(), cfg, rc, dev, mesh)
-            t0 = time.perf_counter()
-            state, m = step(state, batch)
-            losses.append(float(m["loss"]))
-            times.append((time.perf_counter() - t0) * 1e3)
-        res["loss"], res["step_ms"] = losses, times
+        del state
+        res["loss"], res["step_ms"] = {}, {}
+        for arch in FAMILIES:
+            res["loss"][arch], res["step_ms"][arch] = mesh_losses(arch, rc, dev)
         if rank == 0:
             from repro_torch.checkpoint.ckpt import flatten
-            init, single = single_device(cfg, rc, dev)
+            init, _ = single_device(cfg, rc, dev)
             named = train_step.reference_tree(init)
-            res["single_loss"] = single
+            res["single_loss"] = {a: single_device(configs.load_smoke(a), rc, dev)[1]
+                                  for a in FAMILIES}
             got, want = flatten(map_parts(whole["params"])), flatten(map_parts(named))
             res["whole_equals_init"] = [p for p, _ in got] == [p for p, _ in want] \
                 and all(torch.equal(a, b) for (_, a), (_, b) in zip(got, want))
@@ -191,8 +210,8 @@ def main(argv) -> int:
     checks = {"collectives": all(v for r in ranks for v in r["collectives"].values()),
               "whole_on_rank0_only": all(r["whole_on_rank0_only"] for r in ranks),
               "whole_equals_init": ranks[0]["whole_equals_init"],
-              "losses": all(abs(a - b) <= 5e-3 for r in ranks
-                            for a, b in zip(r["loss"], single))}
+              "losses": all(abs(a - b) <= 5e-3 for r in ranks for arch in FAMILIES
+                            for a, b in zip(r["loss"][arch], single[arch]))}
     smi = "" if cpu else subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip().splitlines()
