@@ -6,7 +6,7 @@ Run from the repository root, on a machine with an NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-Twelve paths, each driven with the launch counts set to 0 just before it
+Thirteen paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 * stencil and codec: a 2^26-cell f32 field (256 MiB, seeded with numpy)
@@ -83,7 +83,14 @@ and read just after:
   norm's squares all-reduced), hymba's attention at 12.5 query heads a
   rank (13 computed), whisper's at 1.5 (2 computed) with its stream whole
   over ``model``; the flash forward twice and both backward kernels once
-  per attention call and step on every rank.
+  per attention call and step on every rank;
+* the port's tooling on the card: the access walk and the byte audit of
+  the kernel routes of ``pack``, ``unpack``, ``jacobi_chunked``,
+  ``kv_quant``, ``kv_dequant`` (the reference's grid) and
+  ``kv_quant_store`` (``analysis.access.builtin_cases``), then the four
+  examples at their small sizes (``examples/torch_*.py``): the serve
+  example's decode graph launches kv_quant_store and kv_dequant, the train
+  example's steps the flash forward and both backward kernels.
 
 Phases, one JSON line each:
 
@@ -137,10 +144,30 @@ Phases, one JSON line each:
                the reference's fixed ends and the entry point's edge padding
                agree); cells compared, deviations, compression ratios and
                each part's host seconds (host time, not device time);
-7. lm_init   — the granite-8b weights on the card (count, GiB, seconds);
-8. prefill   — the prefill path: 36 flash launches, finite logits (4, 49152),
+7. tooling   — the tooling path above (~20 s on an H100): the access pass
+               (``analysis.access``) over the kernel routes finds nothing
+               (the walked bytes of the tensors handed to each launch and
+               returned by it, or written in place by kv_quant_store, equal
+               ``ops.*_io_bytes``; no copy, clone or dtype conversion of
+               argument data around a launch; no strided, transposed or
+               gathered innermost access); over 50 back-to-back calls of
+               each wrapper in one profiler session, opened by 8 spin
+               kernels that take the session's lost first events, its
+               launch count rises by one a call, the profiler sees its
+               kernel exactly 50 times and no other device op (the Jacobi
+               wrapper's zero-fill of its 4-byte-a-tile workspace apart);
+               the audit's kernel-IO checks (``launch.audit``) on the card
+               exact (1e-9) and its FLOPs check under ``FlopCounterMode``
+               exact; the four examples on the card: quickstart's host
+               numbers equal to its CPU run and its
+               chunked stencil within 1e-5 of the dense reference, the
+               stencil kernel within 1e-5 of ``ref.jacobi_chunked_ref``, the
+               serve example's int8 / bf16 agreement, the train example's
+               loss lower after its 10 steps; every wrapper launched;
+8. lm_init   — the granite-8b weights on the card (count, GiB, seconds);
+9. prefill   — the prefill path: 36 flash launches, finite logits (4, 49152),
                a profile of one more prefill (device ops, idle share);
-9. serve     — the generate path: the graph's capture ms, then launches
+10. serve     — the generate path: the graph's capture ms, then launches
                checked exactly (36 x steps kv_quant_store, 72 x steps
                kv_dequant, no kv_quant and nothing else), tokens/s, cache
                bytes, peak memory; an int4 generate, counted the same way;
@@ -152,7 +179,7 @@ Phases, one JSON line each:
                times, kv_dequant 72 x 8); a step's token copy and replay
                by CUDA events, and the idle share of the untraced generate's
                step against the profile's busy time a step;
-10. kvpack    — kv_quant / kv_dequant bit-identical to their plain versions
+11. kvpack    — kv_quant / kv_dequant bit-identical to their plain versions
                at the serve path's shapes, bits 8 and 4, f32 and bf16, and on
                an odd row count; kv_quant_store ``torch.equal`` to its plain
                version on caches full of seeded noise, at the serve shape
@@ -161,7 +188,7 @@ Phases, one JSON line each:
                mix (60 cases); the three kv rows timed by events, back to
                back and in the profile, beside the profiler's device time of
                a one-element ``fill_`` (the card's launch floor);
-11. attention — the flash forward against its plain version at one layer's
+12. attention — the flash forward against its plain version at one layer's
                prefill shape (bf16: o within 3e-2, lse within 1e-3, and o's
                relative error on every 64-row query tile of each head within
                FLASH_BF16_REL), on bf16 cases for the tensor-core kernel's
@@ -169,7 +196,7 @@ Phases, one JSON line each:
                non-causal, ragged D = 128, Sk < S) and on the f32 cases
                of tests/test_flash_attention.py (2e-5); the bf16 forward and
                SDPA's forward timed at the prefill and the train shapes;
-12. lm_parity — the granite-8b smoke config with the same weights on the card
+13. lm_parity — the granite-8b smoke config with the same weights on the card
                (kernels) and on the CPU (plain paths): f32 logits within 1e-4
                and identical greedy tokens, bf16 logits within 3e-2 of the
                largest logit, for kv_cache_bits 16, 8 and 4; each prefill
@@ -177,15 +204,15 @@ Phases, one JSON line each:
                the card's cache code where the two round a value apart at a
                boundary (one code, both values within 1e-3 of a code of the
                boundary; any other difference fails; ties listed);
-13. train    — the training path above: step ms (median), tokens/s, MFU,
+14. train    — the training path above: step ms (median), tokens/s, MFU,
                peak memory, loss and grad norm per step (finite), launches
                per step checked exactly, a profile of one more step;
-14. train_loop — ``train.loop.train`` itself on the card at the smoke
+15. train_loop — ``train.loop.train`` itself on the card at the smoke
                config of tests/test_train_loop.py, checkpoints in a temp
                dir: no restart without injection and the loss drops; with an
                injected failure one restart, and the resumed losses equal
                the uninterrupted run's (atol 1e-5);
-15. attention_bwd — the dK/dV and dQ kernels (bf16: both on the tensor
+16. attention_bwd — the dK/dV and dQ kernels (bf16: both on the tensor
                cores; f32: on the CUDA cores) against ``flash_bwd_plain``:
                f32 on the shapes of tests/test_flash_attention.py's gradient
                test, windows 32 and 64, ragged S and D = 128 (relative error
@@ -198,11 +225,16 @@ Phases, one JSON line each:
                gradient within 1e-2 of its largest magnitude) run on it
                alone; the kernels timed at that shape,
                the plain backward's times summed over the sequences;
-16. train_parity — the tinyllama smoke config with the same weights on the
+17. train_parity — the tinyllama smoke config with the same weights on the
                card (kernels) and on the CPU (plain paths), 3 train steps:
                f32 losses within 1e-4 and grad norms within 1e-4 relative,
                bf16 losses within 2e-2 and grad norms within 5e-3 relative;
-17. families_parity — the smoke configs of mixtral, grok, mamba2 and hymba
+18. roofline — the roofline terms (``launch.roofline``: ``model_flops_for``
+               and ``kernelized_io_bytes`` over the card's data-sheet peaks)
+               of granite-8b's prefill and decode step and tinyllama-1.1b's
+               train step, beside their times measured above and the
+               ``card`` phase's copy rate;
+19. families_parity — the smoke configs of mixtral, grok, mamba2 and hymba
                with the same weights on the card and on the CPU, by
                lm_parity's rules at bits 16, 8 and 4 (mamba2: 16); where
                the CPU's MoE routing differs from the card's, it takes the
@@ -215,7 +247,7 @@ Phases, one JSON line each:
                train_parity's 3 steps in f32 and bf16, and a mixtral bf16
                train step run twice from one state: loss, gradients and
                updated weights ``torch.equal``;
-18. moe_serve — mixtral at full width, depth 16: weights counted against
+20. moe_serve — mixtral at full width, depth 16: weights counted against
                ``param_count()``; the prefill (16 flash launches, nothing
                else; wall ms, tokens/s, profile) and the share of routed
                copies past the expert capacity (2560) in one more prefill;
@@ -223,7 +255,7 @@ Phases, one JSON line each:
                16 x steps kv_quant_store, 32 x steps kv_dequant), a profile
                of 8 replayed steps, and the graph against eager
                ``decode_step`` on 16 steps (logits ``torch.equal``);
-19. hybrid_serve — hymba-1.5b: the prefill (32 windowed flash launches);
+21. hybrid_serve — hymba-1.5b: the prefill (32 windowed flash launches);
                the windowed forward at one layer's shape (4, 2048, 5, 5,
                64), window 1024, against its plain version (o, lse and
                o's tiles as in attention) and timed beside SDPA with the
@@ -235,17 +267,17 @@ Phases, one JSON line each:
                ``torch.equal`` to its plain version at (8, 1, 5, 64) into
                (8, 1024, 5, 64), and kv_dequant on that cache's 40,960 rows
                of 64, int8 and int4, full of seeded noise;
-20. ssm_serve — mamba2-130m: prefill and generate as moe_serve (no kernel
+22. ssm_serve — mamba2-130m: prefill and generate as moe_serve (no kernel
                launched), the graph against eager with logits and the
                final state (h, conv) equal;
-21. families_train — hymba-1.5b and mamba2-130m, 8 x 4096 tokens: step ms
+23. families_train — hymba-1.5b and mamba2-130m, 8 x 4096 tokens: step ms
                (median of 3), tokens/s, MFU from the counted parameters,
                peak memory, launches per step checked exactly, a profiled
                step; for hymba the windowed dK/dV and dQ at (8, 4096, 5,
                5, 64), window 1024, each sequence held against the plain
                forward and ``flash_bwd_plain`` run on it alone (attention_bwd's
                rules), and timed beside SDPA's banded backward;
-22. encdec_parity — whisper-tiny's smoke config with the same weights on the
+24. encdec_parity — whisper-tiny's smoke config with the same weights on the
                card and on the CPU: ``prefill`` and ``decoder_forward``
                logits, 24 decode steps from the zero state and again from
                seeded cross K/V, a generate, at bits 16, 8 and 4, by
@@ -255,30 +287,32 @@ Phases, one JSON line each:
                train_parity's 3 steps, in f32 and bf16; and one full-width
                f32 layer each side at enc_seq 1500 and a 447-token decoder
                (prefill, loss, every gradient);
-23. encdec_flash — the forward, dK/dV and dQ at whisper's three shapes
+25. encdec_flash — the forward, dK/dV and dQ at whisper's three shapes
                (B = 32; encoder 1500 x 1500 non-causal, cross 448 x 1500,
                decoder 447 causal; G = 1), f32 and bf16, against their plain
                versions on the whole batch (attention's and attention_bwd's
                rules); the bf16 kernels timed beside the plain versions and
                SDPA's forward and backward;
-24. encdec_serve — whisper-tiny's prefill (12 flash launches) and generate
+26. encdec_serve — whisper-tiny's prefill (12 flash launches) and generate
                (launches exact: 4 x steps kv_quant_store, 8 x steps
                kv_dequant), tokens/s, capture, a profile of 8 replayed steps,
                the read bound of a step (the decoder's weights and the cross
                K/V); an int4 generate; the graph against eager on 15 steps
                from the zero state and from seeded cross K/V (int8 and int4);
-25. encdec_train — train_run at whisper-tiny's size (flash launches 24 / 12
+27. encdec_train — train_run at whisper-tiny's size (flash launches 24 / 12
                / 12 a step, checked exactly), and the warm-up batch's loss
                lower after the steps than before;
-26. dist_codec — ``distributed.collectives.quantize_tree`` and
+28. dist_codec — ``distributed.collectives.quantize_tree`` and
                ``dequant_mean_tree`` on a full-size tinyllama gradient tree
                (bf16 gradients and f32 residuals of seeded noise, the
                reference-view stacked leaves) at bits 4, 8 and 16: ms of the
                whole tree's quantize-and-pack and unpack-and-dequantize,
                ``exchange_stats`` (leaves, raw and wire bytes, reduction)
                and the bytes' bound; the same on the CPU (in a thread beside
-               the next phase's ranks) bit-equal: planes, scales, residuals;
-27. dist     — the two ranks above (each process is this script run as
+               the next phase's ranks) bit-equal to the card's on the
+               embeddings and the first DIST_CPU_LAYERS = 2 layers (cut
+               by time): planes, scales, residuals;
+29. dist     — the two ranks above (each process is this script run as
                ``--dist-rank <r> <dir>``): every rank's losses equal, the
                flash launches exact, the bytes each compressed step sent
                equal to ``ExchangeStats.wire_bytes``, the last loss at bits
@@ -290,7 +324,7 @@ Phases, one JSON line each:
                ms, the exchange's pieces timed one at a time (quantize-and-
                pack, wire, dequant-mean; at bits 0 the f32 all-reduce),
                peak memory per rank; a failing rank fails the run;
-28. tp       — the four ranks above (each ``--tp-rank <r> <dir>``): each
+30. tp       — the four ranks above (each ``--tp-rank <r> <dir>``): each
                rank's losses within 5e-3 of a one-process run of the same
                global batch from the same weights (the reference's
                dist_equivalence rule); the weights and moments each rank
@@ -304,7 +338,7 @@ Phases, one JSON line each:
                rank; then the flash forward and backward at a rank's shape
                (2, 4096, 2, 8, 64) against their plain versions, timed
                beside SDPA;
-29. tp_families — the four ranks of the ssm, hybrid and encdec path above
+31. tp_families — the four ranks of the ssm, hybrid and encdec path above
                (each ``--tp-families-rank <r> <dir>``), by tp's rules: each
                rank's losses within 5e-3 of a one-process run, the weights
                and moments it holds, its flash launches, the bytes each
@@ -315,14 +349,14 @@ Phases, one JSON line each:
                64) non-causal, cross (4, 448, 1500, ...) and decoder (4,
                448, 448, ...) causal) against their plain versions, timed
                beside SDPA;
-30. the ``{"kernels": [...]}`` line, then the card line, then the result line.
+32. the ``{"kernels": [...]}`` line, then the card line, then the result line.
                The kv and flash rows add ``launches_by_path`` (their
                launches on every LM path run), the flash rows
                ``at_hymba_window`` (the windowed times and bounds),
                ``at_whisper_shapes`` (times and bounds at whisper's three)
                ``at_tp_rank_shape`` and ``at_tp_families_rank_shapes``;
                ``launches_by_path`` counts every rank of the dist, tp and
-               tp_families paths.
+               tp_families paths, and the tooling phase's launches.
 
 The three tensor-core rows (flash forward, dK/dV, dQ), the jacobi row, the
 two codec rows and the fused KV store's row also carry ``design``; the
@@ -342,8 +376,11 @@ printing no result, when there is no GPU or any check fails.
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
+import re
+import runpy
 import subprocess
 import sys
 import tempfile
@@ -357,6 +394,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import obs  # noqa: E402
+from repro_torch.analysis import access  # noqa: E402
 from repro_torch.checkpoint.ckpt import Stacked, flatten, map_tree  # noqa: E402
 from repro_torch.configs import base as configs  # noqa: E402
 from repro_torch.core import (blockcodec, executor, layout, mars,  # noqa: E402
@@ -365,6 +403,7 @@ from repro_torch.kernels import (_build, bitplane, flash_attention,  # noqa: E40
                                  jacobi_mars, kvpack, ops, ref)
 from repro_torch.data.pipeline import SyntheticPipeline, device_batch  # noqa: E402
 from repro_torch.distributed import collectives  # noqa: E402
+from repro_torch.launch import audit, roofline  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import encdec, model_zoo, moe, transformer  # noqa: E402
 from repro_torch.obs import report  # noqa: E402
@@ -511,6 +550,11 @@ DIST_EQUAL_BITS = 8          # held torch.equal to the one-process emulation
 #: at 16 bits, 0.35 at 8)
 DIST_TRACK = {16: 0.1, 8: 0.35}
 DIST_CODEC_BITS = (4, 8, 16)
+#: the codec's CPU run, held bit-equal to the card's, takes the embeddings
+#: and the first DIST_CPU_LAYERS of the 22 layers (cut by time: on an
+#: H100's host the whole tree took 316-347 s of CPU beside the two ranks,
+#: and slowed them); the card's codec is timed on the whole tree
+DIST_CPU_LAYERS = 2
 #: CPU threads of the codec's CPU run, beside the two ranks, and of each
 #: rank (which only stages the exchange through host memory): 8 cores
 DIST_CPU_THREADS, DIST_RANK_THREADS = 6, 1
@@ -535,6 +579,27 @@ TPF_RUNS = (("mamba2-130m", (2, 2), 0, 4096), ("hymba-1.5b", (2, 2), 4, 4096),
             ("whisper-tiny", (1, 4), 0, ENCDEC_SEQ))
 TPF_B, TPF_STEPS = 4, 2
 TPF_TIMEOUT_S = 600
+
+#: the tooling phase: each walked case's wrapper and its kernel, by its
+#: demangled name in the profiler; the Jacobi wrapper also zero-fills its
+#: workspace (a ticket and a level count a tile, 4 bytes each), which reads
+#: no argument data
+TOOLING_KERNELS = {
+    "pack": ("bitplane.pack", r"\bpack_kernel\b"),
+    "unpack": ("bitplane.unpack", r"\bunpack_kernel\b"),
+    "kv_quant": ("kvpack.kv_quant", r"\bquant_kernel\b"),
+    "kv_dequant": ("kvpack.kv_dequant", r"\bdequant_kernel\b"),
+    "kv_quant_store": ("kvpack.kv_quant_store", r"\bquant_store_kernel\b"),
+    "jacobi1d": ("jacobi_mars.jacobi_chunked", r"\bjacobi_wavefront_kernel\b")}
+TOOLING_WORKSPACE = {"jacobi1d": r"FillFunctor|Memset"}
+#: each walked wrapper's profiled calls, and the spin kernels that open the
+#: session ahead of them (``wrapper_device_ops``), ~6 us each on an H100
+WRAPPER_CALLS, SENTINELS, SENTINEL_CYCLES = 50, 8, 10_000
+SENTINEL_KERNEL = r"\bspin_kernel\b"
+#: the examples at their small sizes, with the arguments they run with
+EXAMPLES = {"torch_quickstart.py": [], "torch_stencil_kernel.py": [],
+            "torch_serve_lm.py": ["--small"],
+            "torch_train_lm.py": ["--small", "--steps", "10"]}
 
 
 class CheckFailed(RuntimeError):
@@ -987,7 +1052,7 @@ def launch_costs(fn, kernel_key: str, n: int = 200) -> dict:
             "profiler_sessions": sessions}
 
 
-def device_profile(fn, watch: dict, top: int = 5) -> dict:
+def device_profile(fn, watch: dict, top: int | None = 5) -> dict:
     """Run fn under torch.profiler: top device ops by self time, idle share.
 
     The idle share is 1 - (union of device-op intervals) / (first device-op
@@ -996,7 +1061,8 @@ def device_profile(fn, watch: dict, top: int = 5) -> dict:
     time.  ``watch`` maps a label to a substring of kernel names whose
     device time is summed under that label (the port's own kernels).  A
     session that comes back with no device events is taken again, fn run
-    once more, up to three sessions (``launch_costs`` says why).
+    once more, up to three sessions (``launch_costs`` says why).  ``top``
+    None lists every device op.
 
     The session opens PROFILE_PAD_S before fn and closes PROFILE_PAD_S
     after the device is idle: the profiler keeps only the device records
@@ -1052,7 +1118,8 @@ def device_profile(fn, watch: dict, top: int = 5) -> dict:
             "top_device_ops": [{"name": e.key[:120], "device_ms": dev_us(e) / 1e3,
                                 "share_of_busy": dev_us(e) / busy,
                                 "count": e.count}
-                               for e in ops_[:top] if dev_us(e) > 0]}
+                               for e in ops_[:top]
+                               if top is None or dev_us(e) > 0]}
 
 
 def paper_table1() -> list:
@@ -2989,8 +3056,6 @@ def phase_dist_codec(dev, smi: str) -> tuple:
     for n, shape, dt in full_size_shapes(cfg, rc):
         grads[n] = (torch.randn(shape, generator=gen, device=dev) * 1e-3).to(dt)
         resid[n] = torch.randn(shape, generator=gen, device=dev) * 1e-5
-    host_in = ({n: t.cpu() for n, t in grads.items()},
-               {n: t.cpu() for n, t in resid.items()})
     g_tree = train_step.reference_tree(grads)
     n_values = sum(t.numel() for t in grads.values())
     rows, outputs = {}, {}
@@ -3017,19 +3082,31 @@ def phase_dist_codec(dev, smi: str) -> tuple:
             t.numel() for t in parts(raw) if t is not None)
         q_bytes = n_values * (2 + 4 + 4) + packed
         d_bytes = packed + 2 * n_values
-        outputs[bits] = {
-            "planes": [t.view(torch.int32).cpu() for t in parts(planes)],
-            "scales": [t.cpu() for t in parts(scales)],
-            "resid": {n: t.cpu() for n, t in r.items()}}
         rows[bits] = {
             "quantize_pack_ms": q_ms, "unpack_dequant_ms": d_ms,
             "quantize_bound_ms": q_bytes / HBM_BYTES_PER_S * 1e3,
             "dequant_bound_ms": d_bytes / HBM_BYTES_PER_S * 1e3,
             "stats": {**dataclasses.asdict(stats), "reduction": stats.reduction}}
         del planes, scales, raw, mean, one_pod, r
+    # the tree the CPU holds bit-equal: the embeddings and the first layers
+    keep = [n for n in grads if not n.startswith("layers.")
+            or int(n.split(".")[1]) < DIST_CPU_LAYERS]
+    grads = {n: grads[n] for n in keep}
+    resid = {n: resid[n] for n in keep}
+    host_in = ({n: t.cpu() for n, t in grads.items()},
+               {n: t.cpu() for n, t in resid.items()})
+    for bits in DIST_CODEC_BITS:
+        r = {n: t.clone() for n, t in resid.items()}
+        planes, scales, _ = codec_outputs(grads, r, bits)
+        outputs[bits] = {
+            "planes": [t.view(torch.int32).cpu() for t in parts(planes)],
+            "scales": [t.cpu() for t in parts(scales)],
+            "resid": {n: t.cpu() for n, t in r.items()}}
+        del planes, scales, r
     del grads, resid, g_tree
     torch.cuda.empty_cache()
     emit({"phase": "dist_codec", "arch": DIST_ARCH, "values": n_values,
+          "cpu_held_values": sum(t.numel() for t in host_in[0].values()),
           "bits": rows, "bound": "bytes over 3.35 TB/s (data sheet)",
           "nvidia_smi": smi})
     return host_in, outputs
@@ -3902,6 +3979,174 @@ def phase_tp_families(dev, smi: str, copy_rate: float) -> dict:
                       for label, rows in flash.items()}}
 
 
+def wrapper_device_ops(case) -> dict:
+    """The device ops of WRAPPER_CALLS back-to-back calls of a walked
+    wrapper, by ``device_profile``: its kernel once a call and nothing else
+    (the Jacobi wrapper's workspace fill apart, ``TOOLING_WORKSPACE``); the
+    wrapper's launch count adds one a call.  On an H100, sessions of 50
+    such calls after the script's earlier phases lost their first three or
+    four device events, so SENTINELS spin kernels (``torch.cuda._sleep``,
+    a kernel no wrapper launches) open each session ahead of the calls to
+    take that loss, and the kernel's count must then be exact."""
+    key = case.name.split("/")[1]
+    name, pattern = TOOLING_KERNELS[key]
+    wrapper = ops.KERNELS[name]
+    space = TOOLING_WORKSPACE.get(key)
+    case.fn(*case.args)                             # warm: no first-use work
+    torch.cuda.synchronize()
+    before = wrapper.launches
+
+    def calls():
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(SENTINEL_CYCLES)
+        for _ in range(WRAPPER_CALLS):
+            case.fn(*case.args)
+
+    prof = device_profile(calls, {}, top=None)
+    launched = wrapper.launches - before
+    seen = {e["name"]: e["count"] for e in prof["top_device_ops"] or []}
+    kernel = {n: c for n, c in seen.items() if re.search(pattern, n)}
+    sentinel = {n: c for n, c in seen.items() if re.search(SENTINEL_KERNEL, n)}
+    workspace = {n: c for n, c in seen.items() if n not in kernel
+                 and space and re.search(space, n)}
+    other = sorted(set(seen) - set(kernel) - set(sentinel) - set(workspace))
+    check(sum(kernel.values()) == WRAPPER_CALLS and not other
+          and launched == WRAPPER_CALLS * prof["profiler_sessions"],
+          f"{case.name}: {launched} launches in {prof['profiler_sessions']} "
+          f"session(s) of {WRAPPER_CALLS} calls; the profiler saw {kernel} "
+          f"of its kernel and {other[:5]}")
+    return {"kernel": next(iter(kernel))[:100], "calls": WRAPPER_CALLS,
+            "kernel_events": sum(kernel.values()),
+            "sentinel_events": sum(sentinel.values()),
+            "workspace_events": sum(workspace.values()), "other_ops": len(other),
+            "profiler_sessions": prof["profiler_sessions"]}
+
+
+def run_example(name: str, argv: list) -> tuple:
+    """An example's ``main(argv)`` in this process: (its printout, what it
+    returned)."""
+    ns = runpy.run_path(str(Path(__file__).resolve().parent / "examples" / name),
+                        run_name="example")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        ret = ns["main"](argv)
+    return out.getvalue(), ret
+
+
+def last_number(text: str) -> float:
+    return float(re.findall(r"[-+]?\d+\.\d+e[-+]\d+", text)[-1])
+
+
+def roofline_terms(cfg, rc, measured_ms: float, copy_rate: float) -> dict:
+    """``model_flops_for`` and ``kernelized_io_bytes`` of a measured path
+    over the card's peaks (``launch.roofline``), beside its measured time."""
+    flops = roofline.model_flops_for(cfg, rc)
+    kio = roofline.kernelized_io_bytes(cfg, rc, 1)
+    rl = roofline.analyze(flops, kio, {}, 1, flops)
+    return {"kind": rc.kind, "batch": rc.global_batch, "seq": rc.seq_len,
+            "model_flops": flops, "kernelized_io_bytes": kio,
+            "compute_ms": rl.compute_s * 1e3, "memory_ms": rl.memory_s * 1e3,
+            "memory_ms_at_copy_rate": kio / copy_rate * 1e3,
+            "dominant": rl.dominant, "measured_ms": measured_ms,
+            "bound_share_of_measured": rl.bound_seconds * 1e3 / measured_ms}
+
+
+def phase_tooling(dev) -> dict:
+    """The port's tooling on the card: the access walk and the audit of the
+    kernel routes, then the examples."""
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    # the access walk of the kernel routes (rows 1-5 and kv_quant_store):
+    # no finding, and each wrapper runs its kernel alone
+    cases = access.builtin_cases(dev)
+    findings = access.run_pass(cases)
+    check(not findings, "access findings on the kernel routes: "
+          + "; ".join(f.render() for f in findings))
+    wrappers = {c.name: wrapper_device_ops(c) for c in cases}
+    # the audit: walked bytes of the kernel routes against ops.*_io_bytes,
+    # the FLOPs under FlopCounterMode on the card
+    checks = audit.kernel_io_audit(dev) + [audit.flops_audit(dev)]
+    report_ = audit.summarize(checks)
+    check(report_["ok"], "audit diverged on the card: " + json.dumps(
+        [c for c in report_["checks"] if c["diverged"]]))
+    walk_s = time.perf_counter() - t0
+    # the examples at their small sizes on the card (quickstart also on the
+    # CPU: every host number equal)
+    t1 = time.perf_counter()
+    examples = {}
+    ckpt = tempfile.TemporaryDirectory()
+    for name, argv in EXAMPLES.items():
+        if name == "torch_train_lm.py":
+            argv = argv + ["--ckpt", ckpt.name]
+        before = ops.launch_counts()
+        te = time.perf_counter()
+        text, ret = run_example(name, argv + ["--device", "cuda"])
+        after = ops.launch_counts()
+        examples[name] = {"seconds": time.perf_counter() - te,
+                          "launches": {k: after[k] - before[k] for k in after
+                                       if after[k] != before[k]},
+                          "last_line": text.strip().splitlines()[-1]}
+        if name == "torch_quickstart.py":
+            host, _ = run_example(name, ["--device", "cpu"])
+            check(text.splitlines()[:-1] == host.splitlines()[:-1],
+                  "quickstart's host numbers differ between the runs")
+            check(last_number(text) <= JACOBI_TOL,
+                  f"quickstart: chunked jacobi on the card {last_number(text)}")
+        elif name == "torch_stencil_kernel.py":
+            err = float(re.search(r"= ([\d.e+-]+)", text).group(1))
+            check(err <= JACOBI_TOL, f"stencil example: kernel vs reference {err}")
+            examples[name]["max_err"] = err
+        elif name == "torch_serve_lm.py":
+            check(0.0 <= ret <= 1.0, f"serve example agreement {ret}")
+            for k in ("kvpack.kv_quant_store", "kvpack.kv_dequant"):
+                check(examples[name]["launches"].get(k, 0) > 0,
+                      f"serve example never launched {k}")
+            examples[name]["agreement"] = float(ret)
+        else:
+            losses = ret["loss"]
+            check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                  f"train example losses {losses}")
+            for k in FLASH_KERNELS:
+                check(examples[name]["launches"].get(k, 0) > 0,
+                      f"train example never launched {k}")
+            examples[name]["loss_first_last"] = [losses[0], losses[-1]]
+    ckpt.cleanup()
+    launches = ops.launch_counts()
+    for name, count in launches.items():
+        check(count >= 1, f"the tooling phase never launched {name}: {launches}")
+    emit({"phase": "tooling", "walk_and_audit_s": walk_s,
+          "examples_s": time.perf_counter() - t1,
+          "seconds": time.perf_counter() - t0,
+          "access_findings": len(findings), "cases": len(cases),
+          "wrappers": wrappers,
+          "audit": [{k: c[k] for k in ("name", "walked_value", "analytic_value",
+                                       "rel_error")} for c in report_["checks"]],
+          "examples": examples, "launches": launches})
+    return launches
+
+
+def phase_roofline(copy_rate: float, prefill: dict, serve: dict,
+                   trained: dict) -> None:
+    """The roofline terms of the paths measured above, beside their times."""
+    granite = configs.load_arch(ARCH)
+    tiny = configs.load_arch(TRAIN_ARCH)
+    terms = {
+        "granite8b_prefill": roofline_terms(granite, configs.RunConfig(
+            seq_len=PREFILL_S, global_batch=PREFILL_B, kind="prefill"),
+            prefill["wall_ms"], copy_rate),
+        "granite8b_decode_step": roofline_terms(granite, configs.RunConfig(
+            seq_len=SERVE_SEQ, global_batch=SERVE_B, kind="decode",
+            kv_cache_bits=8), serve["wall_ms"] / serve["steps"], copy_rate),
+        "tinyllama_train_step": roofline_terms(tiny, configs.RunConfig(
+            seq_len=4096, global_batch=TRAIN_B, kind="train"),
+            trained["step_ms"], copy_rate)}
+    emit({"phase": "roofline",
+          "constants": {"peak_flops": roofline.PEAK_FLOPS,
+                        "hbm_bw": roofline.HBM_BW, "link_bw": roofline.LINK_BW,
+                        "measured_copy_bytes_per_s": copy_rate},
+          **terms})
+
+
 def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
                      paths: dict) -> None:
     """The kv and flash rows of the kernels line: their launches on every LM
@@ -3923,7 +4168,8 @@ def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
         "whisper_generate": paths["encdec_serve"]["generate"],
         "whisper_train_3_steps": paths["encdec_train"]["launches"],
         **paths["dist"], **paths["tp"]["launches"],
-        **paths["tp_families"]["launches"]}
+        **paths["tp_families"]["launches"],
+        "tooling_phase": paths["tooling"]}
     windowed = {"flash_attention.flash_fwd": paths["hybrid_serve"]["window_fwd"],
                 **paths["families_train"]["window_bwd"]}
     keep = ("shape", "window", "ms", "plain_ms", "library_ms", "library_backend",
@@ -3969,6 +4215,7 @@ def main() -> int:
     del main_out                                    # the stencil buffers
     torch.cuda.empty_cache()
     phase_paper(dev, smi)
+    tooling = phase_tooling(dev)
 
     lm = phase_lm_init(dev)
     prefill = phase_prefill(dev, lm)
@@ -3985,6 +4232,7 @@ def main() -> int:
     phase_train_loop(dev)
     rows += phase_attention_bwd(dev, trained, copy_rate)
     phase_train_parity(dev)
+    phase_roofline(copy_rate, prefill, serve, trained)
     torch.cuda.empty_cache()
 
     phase_families_parity(dev)
@@ -4009,6 +4257,7 @@ def main() -> int:
     paths["tp"] = phase_tp(dev, smi, copy_rate)
     torch.cuda.empty_cache()
     paths["tp_families"] = phase_tp_families(dev, smi, copy_rate)
+    paths["tooling"] = tooling
     add_family_paths(rows, prefill, serve, trained, paths)
     emit({"kernels": [{k: v for k, v in r.items()
                        if k != "copy_bound_ms"}

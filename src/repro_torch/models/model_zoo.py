@@ -4,8 +4,9 @@ Port of ``repro.models.model_zoo`` for every family: the encoder-decoder
 family runs in ``encdec``, the decoder-only ones in ``transformer``.
 ``param_specs`` gives the logical axes of the parameters in the
 reference's tree (``distributed.sharding`` resolves them).  The reference's
-``abstract_params`` and ``decode_state_specs`` serve its dry-run tooling,
-which the port does not have yet.  The port adds ``cache_leaves`` and
+``abstract_params`` and ``decode_state_specs`` serve its dry-run tooling;
+the port's dry run (``launch.dryrun``) builds the model under
+``FakeTensorMode`` instead.  The port adds ``cache_leaves`` and
 ``reset_decode_state``, which the serving engine's CUDA graph needs (the
 reference rebuilds its state).
 """

@@ -223,7 +223,8 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|repro)(\.|\s|$)", re.M)
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
-    [*(ROOT / "src" / "repro_torch").rglob("*.py"), ROOT / "chip_smoke.py"]))
+    [*(ROOT / "src" / "repro_torch").rglob("*.py"), ROOT / "chip_smoke.py",
+     *(ROOT / "examples").glob("torch_*.py")]))
 def test_port_imports_no_jax_or_repro(path):
     src = (ROOT / path).read_text()
     assert not _FORBIDDEN.search(src), path
