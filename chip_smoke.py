@@ -6,7 +6,7 @@ Run from the repository root, on a machine with an NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-Thirteen paths, each driven with the launch counts set to 0 just before it
+Fourteen paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 * stencil and codec: a 2^26-cell f32 field (256 MiB, seeded with numpy)
@@ -23,10 +23,16 @@ and read just after:
   step), then a short int4 generate;
 * training tinyllama-1.1b at its full published width and depth (22 layers,
   d_model 2048, bf16 weights, f32 AdamW moments, remat): 3 timed steps of
-  ``train.step.make_train_step`` (the step ``train.loop.train`` runs) on
-  8 x 4096 tokens each, the batch cut from the 256 of ``SHAPES["train_4k"]``
-  to keep the run short (flash forward twice per layer, forward and remat
-  recompute, and both flash backward kernels once per layer);
+  ``train.step.make_train_step`` on 8 x 4096 tokens each, the batch cut
+  from the 256 of ``SHAPES["train_4k"]`` to keep the run short (flash
+  forward twice per layer, forward and remat recompute, and both flash
+  backward kernels once per layer), then 3 more replayed as one CUDA graph
+  of the whole step (``train.step.GraphedTrainStep``, the step
+  ``train.loop.train`` runs on the card); hymba-1.5b, mamba2-130m and
+  whisper-tiny's train paths below time both the same way;
+* the graphed train step of every family (dense, vlm, moe, ssm, hybrid,
+  encdec) at its smoke config: 3 steps replayed against 3 eager steps from
+  the same seed and batches;
 * the paper's host analysis (``core``: MARS, the layout ILP, the codec, the
   transfer model, the tiled-accelerator executor) with the obs exporters,
   tied to the card by the Jacobi kernel: the executor's full-tile rows held
@@ -75,8 +81,9 @@ and read just after:
   policy; the flash forward twice and both backward kernels once per layer
   and step on every rank, at its local heads;
 * the ``model`` axis for the ssm, hybrid and encdec families on the same
-  four ranks: mamba2-130m at full size and hymba-1.5b at full width, 4 of
-  its 32 layers (by time), on (2, 2) over (data, model), and whisper-tiny
+  four ranks: mamba2-130m at full width, 12 of its 24 layers, and
+  hymba-1.5b at full width, 4 of its 32 layers (both by time), on (2, 2)
+  over (data, model), and whisper-tiny
   at full size on (1, 4), each 2 steps of a global batch of 4 (mamba2 and
   hymba 4096 tokens, whisper 448 tokens and 1500 frames); the SSD on a
   rank's heads (``in_proj``'s product and the conv gathered, the gated
@@ -204,14 +211,34 @@ Phases, one JSON line each:
                the card's cache code where the two round a value apart at a
                boundary (one code, both values within 1e-3 of a code of the
                boundary; any other difference fails; ties listed);
+13b. train_graph — the smoke configs of tinyllama, internvl2, mixtral,
+               mamba2, hymba and whisper (bf16, remat, 4 x 64 tokens): 3
+               eager steps from seed 0, again, then 3 replays of
+               ``GraphedTrainStep`` from seed 0 on the same batches; where
+               the eager runs are bit-equal the graphed run must be
+               (losses, grad norms, every parameter and moment, ``count``,
+               ``step``), else within the eager runs' own spread, part by
+               part; the replays' launches = the captured counts x 3, and
+               the captured counts one eager step's;
 14. train    — the training path above: step ms (median), tokens/s, MFU,
                peak memory, loss and grad norm per step (finite), launches
-               per step checked exactly, a profile of one more step;
+               per step checked exactly, a profile of one more step; then,
+               with the eager run's cached blocks released (reserved memory
+               before and after), the same steps from seed 0 under
+               ``graphed``: warm-up and capture ms, 3 replayed steps held
+               to the eager ones as train_graph holds them (losses, grad
+               norms and the final state, within train_graph's eager
+               spread for the family), their launches (captured counts x
+               3), peak and reserved memory, a profiled replay (idle
+               share);
 15. train_loop — ``train.loop.train`` itself on the card at the smoke
                config of tests/test_train_loop.py, checkpoints in a temp
-               dir: no restart without injection and the loss drops; with an
-               injected failure one restart, and the resumed losses equal
-               the uninterrupted run's (atol 1e-5);
+               dir, every step a replay of its ``GraphedTrainStep`` (flash
+               launches: the warm-up's forward and backward, then one
+               forward and backward a step): no restart without injection
+               and the loss drops; with an injected failure one restart,
+               restored into the graph's state in place, and the resumed
+               losses equal the uninterrupted run's (atol 1e-5);
 16. attention_bwd — the dK/dV and dQ kernels (bf16: both on the tensor
                cores; f32: on the CUDA cores) against ``flash_bwd_plain``:
                f32 on the shapes of tests/test_flash_attention.py's gradient
@@ -273,7 +300,7 @@ Phases, one JSON line each:
 23. families_train — hymba-1.5b and mamba2-130m, 8 x 4096 tokens: step ms
                (median of 3), tokens/s, MFU from the counted parameters,
                peak memory, launches per step checked exactly, a profiled
-               step; for hymba the windowed dK/dV and dQ at (8, 4096, 5,
+               step, eager and graphed as in train; for hymba the windowed dK/dV and dQ at (8, 4096, 5,
                5, 64), window 1024, each sequence held against the plain
                forward and ``flash_bwd_plain`` run on it alone (attention_bwd's
                rules), and timed beside SDPA's banded backward;
@@ -300,8 +327,11 @@ Phases, one JSON line each:
                K/V); an int4 generate; the graph against eager on 15 steps
                from the zero state and from seeded cross K/V (int8 and int4);
 27. encdec_train — train_run at whisper-tiny's size (flash launches 24 / 12
-               / 12 a step, checked exactly), and the warm-up batch's loss
-               lower after the steps than before;
+               / 12 a step, checked exactly), eager at 128 clips and the
+               warm-up batch's loss lower after the steps than before;
+               graphed at ENCDEC_GRAPH_B = 64 clips (at 128 the graph's
+               pool leaves 0.26 GiB of the card free), held to an eager
+               run of its own at 64;
 28. dist_codec — ``distributed.collectives.quantize_tree`` and
                ``dequant_mean_tree`` on a full-size tinyllama gradient tree
                (bf16 gradients and f32 residuals of seeded noise, the
@@ -356,7 +386,8 @@ Phases, one JSON line each:
                ``at_whisper_shapes`` (times and bounds at whisper's three)
                ``at_tp_rank_shape`` and ``at_tp_families_rank_shapes``;
                ``launches_by_path`` counts every rank of the dist, tp and
-               tp_families paths, and the tooling phase's launches.
+               tp_families paths, the tooling phase's launches, and the
+               graphed train steps' replays (``*_train_graph_3_steps``).
 
 The three tensor-core rows (flash forward, dK/dV, dQ), the jacobi row, the
 two codec rows and the fused KV store's row also carry ``design``; the
@@ -505,6 +536,12 @@ TENSOR_CORE_KERNELS = ("flash_fwd_sm90_kernel", "flash_bwd_dkv_sm90_kernel",
                        "flash_bwd_dq_sm90_kernel")
 SM90_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
 
+#: the graphed train step: one smoke config of each family (dense, vlm,
+#: moe, ssm, hybrid, encdec), eager twice and replayed, GRAPH_STEPS steps
+GRAPH_ARCHES = ("tinyllama-1.1b", "internvl2-76b", "mixtral-8x7b",
+                "mamba2-130m", "hymba-1.5b", "whisper-tiny")
+GRAPH_STEPS = 3
+
 #: the moe, ssm and hybrid families: their smoke configs against the CPU,
 #: and the ring generate (seq_len 128 past a 64-slot ring: 100 steps)
 FAMILY_SMOKES = ("mixtral-8x7b", "grok-1-314b", "mamba2-130m", "hymba-1.5b")
@@ -536,6 +573,11 @@ ENCDEC_INT4_B, ENCDEC_INT4_NEW = 8, 60
 #: ~50 GiB); a peak rate at which the bf16 weights move within the
 #: warm-up's first steps (their updates at train_4k's 3e-4 round away)
 ENCDEC_TRAIN_B, ENCDEC_LR = 128, 1e-2
+#: whisper's graphed run, cut from 128: at 128 the graph's private pool
+#: holds 78.0 GiB of an H100's 79.2 with the cache released, 0.26 GiB free
+#: (a capture cannot free its pool's fragments to make room for a large
+#: block, as the eager step's allocator does)
+ENCDEC_GRAPH_B = 64
 GRAD_F32_REL = 1e-4          # each f32 gradient leaf, of its largest magnitude
 
 #: the distributed path: tinyllama-1.1b at full size on two ranks of the
@@ -574,8 +616,9 @@ TP_TIMEOUT_S = 700
 #: the ``model`` axis for the ssm, hybrid and encdec families on the same
 #: four ranks: (arch, mesh over (data, model), layers kept (0: all),
 #: sequence); a global batch of 4 (cut from train_4k's 256 by time), 2
-#: steps each; hymba's depth cut from 32 layers to 4 by time
-TPF_RUNS = (("mamba2-130m", (2, 2), 0, 4096), ("hymba-1.5b", (2, 2), 4, 4096),
+#: steps each; hymba's depth cut from 32 layers to 4, mamba2's from 24 to
+#: 12, by time
+TPF_RUNS = (("mamba2-130m", (2, 2), 12, 4096), ("hymba-1.5b", (2, 2), 4, 4096),
             ("whisper-tiny", (1, 4), 0, ENCDEC_SEQ))
 TPF_B, TPF_STEPS = 4, 2
 TPF_TIMEOUT_S = 600
@@ -1955,16 +1998,27 @@ def train_flops(cfg, params, batch: int, S: int) -> tuple:
         "weights and the cross wk, wv, N_t the rest, E = enc_seq")
 
 
-def train_run(dev, arch: str, batch: int = TRAIN_B, seq_len: int = 0,
-              lr: float = 0.0) -> dict:
+def train_run(dev, arch: str, spread: dict, batch: int = TRAIN_B, seq_len: int = 0,
+              lr: float = 0.0, graph_batch: int = 0) -> dict:
     """One model at full size, batch ``batch`` (cut from train_4k's 256),
     on train_4k's sequences or ``seq_len``, bf16 weights, f32 AdamW
-    moments, remat: TRAIN_STEPS timed steps of ``train.step.make_train_step``
-    (the step ``train.loop.train`` runs) after a warm-up, launches checked
-    exactly (flash forward twice an attention call, forward and remat
-    recompute, and both backward kernels once), a profiled step.  With
-    ``lr`` (a peak rate over train_4k's), the loss on the warm-up's batch
-    after the steps must fall below the warm-up's loss."""
+    moments, remat, from SEED: a warm-up step and TRAIN_STEPS timed steps
+    of ``train.step.make_train_step`` (the step ``train.loop.train`` runs
+    on a mesh), launches checked exactly (flash forward twice an attention
+    call, forward and remat recompute, and both backward kernels once), a
+    profiled step.  Then, with the eager run's blocks released, the same
+    warm-up and steps from SEED through ``GraphedTrainStep`` (the step
+    ``train()`` runs on one card), under ``graphed``: capture ms, step ms,
+    peak and reserved memory, launches = the captured counts x steps, the
+    captured counts one eager step's, a profiled replay.  The graphed run
+    is held to the eager one (its losses, grad norms and state, kept on
+    the host before the eager profile) as ``phase_train_graph`` holds them,
+    within the family's eager spread from that phase (``spread``; zero
+    where its eager runs were bit-equal).  With ``graph_batch`` the graphed
+    run takes that batch, and is held to an eager run of its own at that
+    batch.  With ``lr`` (a peak rate over train_4k's), the loss on the
+    warm-up's batch after the eager steps must fall below the warm-up's
+    loss."""
     cfg = configs.load_arch(arch)
     over = {"global_batch": batch}
     if seq_len:
@@ -1974,32 +2028,16 @@ def train_run(dev, arch: str, batch: int = TRAIN_B, seq_len: int = 0,
     rc = configs.run_config_for("train_4k", cfg, **over)
     check(rc.remat and rc.opt_dtype == "float32" and rc.param_dtype == "bfloat16",
           f"train config {rc}")
+    grc = dataclasses.replace(rc, global_batch=graph_batch) if graph_batch else rc
     api = model_zoo.get_api(cfg, rc, dev)
-    t0 = time.perf_counter()
-    state = train_step.init_state(api, rc, SEED)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = sum(p.numel() for p in state.params.parameters())
-    step_fn = train_step.make_train_step(api, cfg, rc)
-    pipe = SyntheticPipeline(cfg, rc, seed=SEED)
-    batches = [device_batch(pipe.next(), cfg, rc, dev) for _ in range(TRAIN_STEPS + 2)]
+    batches = train_batches(cfg, rc, dev)
     B = batch
-    t0 = time.perf_counter()
-    state, m = step_fn(state, batches[0])
-    warm_loss = float(m["loss"])
-    warm_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.reset_peak_memory_stats(dev)
-    ops.reset_launch_counts()
-    times, losses, gnorms = [], [], []
-    for b in batches[1:TRAIN_STEPS + 1]:
-        t0 = time.perf_counter()
-        state, m = step_fn(state, b)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(m["loss"]))
-        gnorms.append(float(m["grad_norm"]))
-    launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    eager = run_steps(dev, api, cfg, rc, batches[1:TRAIN_STEPS + 1], False,
+                      warm=batches[0])
+    state = eager["state"]
+    n_params = sum(p.numel() for p in state.params.parameters())
+    launches, times = eager["launches"], eager["step_ms"]
+    losses, gnorms = eager["loss"].tolist(), eager["grad_norm"].tolist()
     L, calls = cfg.n_layers, attention_calls(cfg)
     want = {k: 0 for k in launches}
     if calls:
@@ -2007,32 +2045,83 @@ def train_run(dev, arch: str, batch: int = TRAIN_B, seq_len: int = 0,
                      "flash_attention.flash_bwd_dkv": calls * TRAIN_STEPS,
                      "flash_attention.flash_bwd_dq": calls * TRAIN_STEPS})
     check(launches == want, f"{arch} train launched {launches}, want {want}")
-    check(all(np.isfinite(losses + gnorms)) and np.isfinite(warm_loss),
+    check(all(np.isfinite(losses + gnorms)) and np.isfinite(eager["warm_loss"]),
           f"{arch}: non-finite loss or grad norm: {losses}, {gnorms}")
     check(int(state.step) == TRAIN_STEPS + 1, f"step counter {int(state.step)}")
+    kept = kept_on_host(eager) if grc is rc else None
 
-    def one_step():
-        nonlocal state
-        state, m = step_fn(state, batches[-1])
-        float(m["loss"])
-    prof = device_profile(one_step, {"flash_fwd": "flash_fwd_sm90_kernel",
-                                     "flash_bwd_dkv": "flash_bwd_dkv_sm90_kernel",
-                                     "flash_bwd_dq": "flash_bwd_dq_sm90_kernel"}, top=8)
-    step_ms = float(np.median(times))
-    tokens = B * rc.seq_len
-    model_flops, attn_flops, formula = train_flops(cfg, state.params, B, rc.seq_len)
+    watch = {"flash_fwd": "flash_fwd_sm90_kernel",
+             "flash_bwd_dkv": "flash_bwd_dkv_sm90_kernel",
+             "flash_bwd_dq": "flash_bwd_dq_sm90_kernel"}
+
+    def one_step(run, b):
+        def go():
+            _, m = run["step"](run["state"], b)
+            float(m["loss"])
+        return go
+    prof = device_profile(one_step(eager, batches[-1]), watch, top=8)
     extra = {}
     if lr:
         with torch.no_grad():
             after = float(api.loss_fn(state.params, batches[0]))
-        check(np.isfinite(after) and after < warm_loss,
-              f"{arch}: the warm-up batch's loss went {warm_loss} -> {after}")
+        check(np.isfinite(after) and after < eager["warm_loss"],
+              f"{arch}: the warm-up batch's loss went {eager['warm_loss']} -> {after}")
         extra = {"lr": rc.lr, "warmup_batch_loss_after": after}
+    model_flops, attn_flops, formula = train_flops(cfg, state.params, B, rc.seq_len)
+    warm_loss, warm_ms, init_s, peak = (eager[k] for k in (
+        "warm_loss", "warm_ms", "init_s", "peak_GiB"))
+    del state, eager
+    torch.cuda.synchronize()
+    memory = {"reserved_GiB_after_eager": torch.cuda.memory_reserved(dev) / 2**30}
+    torch.cuda.empty_cache()
+    memory["reserved_GiB_after_empty_cache"] = torch.cuda.memory_reserved(dev) / 2**30
+    gapi, gbatches, reduced = api, batches, {}
+    if kept is None:                # the graph's batch: an eager run of its own
+        gapi, gbatches = model_zoo.get_api(cfg, grc, dev), train_batches(cfg, grc, dev)
+        ref = run_steps(dev, gapi, cfg, grc, gbatches[1:TRAIN_STEPS + 1], False,
+                        warm=gbatches[0])
+        kept = kept_on_host(ref)
+        reduced = {"reduced": {"global_batch": [B, grc.global_batch]},
+                   "eager_step_ms_at_graph_batch": ref["step_ms"]}
+        del ref
+        torch.cuda.empty_cache()
+
+    graph = run_steps(dev, gapi, cfg, grc, gbatches[1:TRAIN_STEPS + 1], True,
+                      warm=gbatches[0])
+    diff = trajectory_diff(graph, kept)
+    check(all(diff[k] <= spread[k] for k in diff),
+          f"{arch}: graphed against eager {diff}, eager against eager {spread}")
+    replays, captured = graph["launches"], graph["captured"]
+    per_step = {k: v // TRAIN_STEPS for k, v in launches.items()}
+    check({k: captured.get(k, 0) for k in per_step} == per_step,
+          f"{arch}: the graph captured {captured}, an eager step launched {per_step}")
+    check(replays == {k: TRAIN_STEPS * captured.get(k, 0) for k in replays},
+          f"{arch}: replays launched {replays}, captured {captured}")
+    memory["reserved_GiB_after_replays"] = torch.cuda.memory_reserved(dev) / 2**30
+    torch.cuda.empty_cache()      # the graph's warm-up blocks; its pool stays
+    free, total = torch.cuda.mem_get_info(dev)
+    memory.update(reserved_GiB_graph_alive=torch.cuda.memory_reserved(dev) / 2**30,
+                  card_GiB=total / 2**30, headroom_GiB=free / 2**30)
+    graph_ms = float(np.median(graph["step_ms"]))
+    graph_flops = train_flops(cfg, graph["state"].params, grc.global_batch, grc.seq_len)[0]
+    graphed = {"batch": grc.global_batch, **reduced,
+               "capture_ms": graph["capture_ms"], "step_ms": graph["step_ms"],
+               "step_ms_median": graph_ms,
+               "mfu": graph_flops / (graph_ms * 1e-3) / BF16_FLOPS_PER_S,
+               "loss": graph["loss"].tolist(), "grad_norm": graph["grad_norm"].tolist(),
+               "vs_eager_max_abs": diff, "eager_spread": spread,
+               "bit_equal": not any(diff.values()),
+               "peak_GiB": graph["peak_GiB"], "memory": memory,
+               "launches": replays, "captured": captured,
+               **device_profile(one_step(graph, gbatches[-1]), watch, top=8)}
+    del graph, kept, gbatches
     if cfg.family == "encdec":
         extra.update(enc_layers=cfg.enc_layers, enc_seq=cfg.enc_seq,
                      frames_per_step=B * cfg.enc_seq)
-    del state, batches
+    del batches
     torch.cuda.empty_cache()
+    step_ms = float(np.median(times))
+    tokens = B * rc.seq_len
     return {"arch": arch, "n_layers": L, "d_model": cfg.d_model,
             "params": n_params, "param_count_formula": cfg.param_count(),
             "batch": B, "seq": rc.seq_len,
@@ -2048,20 +2137,83 @@ def train_run(dev, arch: str, batch: int = TRAIN_B, seq_len: int = 0,
             "loss": [warm_loss] + losses, "grad_norm": gnorms, "peak_GiB": peak,
             "launches": launches,
             "launches_per_step": {k: v / TRAIN_STEPS for k, v in launches.items()},
-            **prof}
+            **prof, "graphed": graphed}
 
 
-def phase_train(dev) -> dict:
-    """tinyllama-1.1b at full width: warm-up, TRAIN_STEPS timed steps, a profile."""
-    row = train_run(dev, TRAIN_ARCH)
+def train_batches(cfg, rc, dev) -> list:
+    """TRAIN_STEPS + 2 batches from SEED: a warm-up's, the steps', a profile's."""
+    pipe = SyntheticPipeline(cfg, rc, seed=SEED)
+    return [device_batch(pipe.next(), cfg, rc, dev) for _ in range(TRAIN_STEPS + 2)]
+
+
+def kept_on_host(run: dict) -> dict:
+    """``run_steps``'s losses, grad norms and state tensors, copied to the host."""
+    return {"loss": run["loss"].to("cpu", copy=True),
+            "grad_norm": run["grad_norm"].to("cpu", copy=True),
+            "tensors": [t.detach().to("cpu", copy=True) for t in run["tensors"]]}
+
+
+def run_steps(dev, api, cfg, rc, batches: list, graphed: bool, warm=None) -> dict:
+    """A fresh state from SEED; with ``warm``, one eager step on that batch
+    first (its loss and ms); then ``len(batches)`` steps, eager
+    (``make_train_step``) or replayed (``GraphedTrainStep``, built after
+    the warm-up: its own warm-up and capture ms), each timed on the host's
+    clock, synchronized.  Returns the losses and grad norms (device
+    tensors), the state, its tensors (``state_tensors``) and the step that
+    ran it, the steps' launches (a graph's: of its replays), the captured
+    counts, and peak memory from after the warm-up step (the state, then a
+    graph's warm-up and private pool; before a graph is built, the cached
+    blocks are released)."""
+    t0 = time.perf_counter()
+    state = train_step.init_state(api, rc, SEED)
+    torch.cuda.synchronize()
+    out = {"init_s": time.perf_counter() - t0}
+    eager = train_step.make_train_step(api, cfg, rc)
+    if warm is not None:
+        t0 = time.perf_counter()
+        state, m = eager(state, warm)
+        out.update(warm_loss=float(m["loss"]), warm_ms=(time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    if graphed:
+        torch.cuda.empty_cache()            # the warm-up step's blocks
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    step = train_step.GraphedTrainStep(api, cfg, rc, state) if graphed else eager
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    ops.reset_launch_counts()
+    times, losses, gnorms = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(m["loss"].clone())
+        gnorms.append(m["grad_norm"].clone())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return {**out, "loss": torch.stack(losses), "grad_norm": torch.stack(gnorms),
+            "step_ms": times, "state": state, "step": step,
+            "tensors": train_step.state_tensors(state),
+            "n_params": sum(1 for _ in state.params.parameters()),
+            "launches": ops.launch_counts(),
+            "captured": step.launches if graphed else None,
+            "capture_ms": capture_ms if graphed else None,
+            "peak_GiB": torch.cuda.max_memory_allocated(dev) / 2**30}
+
+
+def phase_train(dev, spreads: dict) -> dict:
+    """tinyllama-1.1b at full width: warm-up, TRAIN_STEPS timed steps, a
+    profile, eager and graphed."""
+    row = train_run(dev, TRAIN_ARCH, spreads[TRAIN_ARCH])
     check(row["params"] == row["param_count_formula"],
           f"{row['params']} parameters, config says {row['param_count_formula']}")
     emit({"phase": "train", **row})
-    return {"launches": row["launches"], "step_ms": row["step_ms_median"]}
+    return {"launches": row["launches"], "step_ms": row["step_ms_median"],
+            "graph_launches": row["graphed"]["launches"]}
 
 
 def phase_train_loop(dev) -> None:
-    """``train()`` on the card at the smoke config of tests/test_train_loop.py."""
+    """``train()`` on the card at the smoke config of tests/test_train_loop.py,
+    each step a replay of its ``GraphedTrainStep``."""
     cfg = configs.load_smoke(TRAIN_ARCH)
     rc = configs.RunConfig(seq_len=64, global_batch=8, kind="train", remat=False,
                            q_block=32, kv_block=32, lr=1e-3)
@@ -2087,9 +2239,11 @@ def phase_train_loop(dev) -> None:
         published = sorted(p.name for p in Path(d, "a").iterdir())
     L = cfg.n_layers
     check(ref["restarts"] == 0, f"restarts without injection: {ref['restarts']}")
-    check(launches["flash_attention.flash_fwd"] == L * steps and
-          launches["flash_attention.flash_bwd_dkv"] == L * steps and
-          launches["flash_attention.flash_bwd_dq"] == L * steps,
+    # the graph's warm-up runs one forward and backward eagerly, then every
+    # step is a replay (an eager loop would launch L x steps)
+    check(launches["flash_attention.flash_fwd"] == L * (steps + 1) and
+          launches["flash_attention.flash_bwd_dkv"] == L * (steps + 1) and
+          launches["flash_attention.flash_bwd_dq"] == L * (steps + 1),
           f"train() launches {launches}")
     check(ref["loss"][-1] < ref["loss"][0] - 0.3, f"loss did not drop: {ref['loss']}")
     check(got["restarts"] == 1, f"restarts with one injected failure: {got['restarts']}")
@@ -2283,6 +2437,84 @@ def phase_train_parity(dev) -> None:
           "f32_tol": TRAIN_F32_TOL, "bf16_rel_tol": TRAIN_BF16_REL,
           "bf16_grad_norm_rel_tol": TRAIN_BF16_GN_REL,
           "results": results})
+
+
+def trajectory_diff(a: dict, b: dict) -> dict:
+    """Max abs difference of two of ``run_steps``'s trajectories by part:
+    losses, grad norms, parameters, moments (mu, nu), counters; 0.0 only
+    where bit-equal.  ``b``'s tensors may lie on the host."""
+    n = a["n_params"]
+    parts = {"loss": [0], "grad_norm": [0], "params": range(n),
+             "mu": range(n, 2 * n), "nu": range(2 * n, 3 * n),
+             "counters": range(3 * n, len(a["tensors"]))}
+    out = {}
+    for part, idx in parts.items():
+        pairs = ([(a[part], b[part])] if part in ("loss", "grad_norm") else
+                 [(a["tensors"][i], b["tensors"][i]) for i in idx])
+        pairs = [(x, y.to(x.device)) for x, y in pairs]
+        equal = all(torch.equal(x, y) for x, y in pairs)
+        out[part] = 0.0 if equal else max(
+            max_abs_diff(x.float(), y.float()) for x, y in pairs) or float("nan")
+    return out
+
+
+def phase_train_graph(dev) -> tuple:
+    """Each family's smoke config (bf16, remat): GRAPH_STEPS eager steps
+    twice from SEED, then GRAPH_STEPS replays of ``GraphedTrainStep`` from
+    SEED on the same batches.  Where the two eager runs are bit-equal, the
+    graphed run must be bit-equal to them (losses, grad norms, every
+    parameter and moment, ``count`` and ``step``); else it may differ from
+    the first by no more than the eager runs differ from each other, part
+    by part.  The replays' launches equal the captured counts x
+    GRAPH_STEPS, and the captured counts one eager step's.  Returns the
+    replays' launches by config and the eager spread by arch (what
+    ``train_run`` holds the full-size graphed runs to)."""
+    rows, launches, spreads = [], {}, {}
+    for arch in GRAPH_ARCHES:
+        cfg = configs.load_smoke(arch)
+        rc = configs.RunConfig(seq_len=64, global_batch=4, kind="train",
+                               q_block=16, kv_block=32, lr=1e-3)
+        api = model_zoo.get_api(cfg, rc, dev)
+        pipe = SyntheticPipeline(cfg, rc, seed=SEED)
+        batches = [device_batch(pipe.next(), cfg, rc, dev)
+                   for _ in range(GRAPH_STEPS)]
+        eager = run_steps(dev, api, cfg, rc, batches, False)
+        again = run_steps(dev, api, cfg, rc, batches, False)
+        graph = run_steps(dev, api, cfg, rc, batches, True)
+        spread = trajectory_diff(eager, again)
+        diff = trajectory_diff(eager, graph)
+        reproducible = not any(spread.values())
+        ok = all(diff[k] <= spread[k] for k in diff)
+        check(ok, f"{arch}: graphed against eager {diff}, eager against "
+                  f"eager {spread}")
+        counters = [int(t) for t in graph["tensors"][-2:]]   # count, step
+        check(counters == [GRAPH_STEPS] * 2, f"{arch}: counters {counters}")
+        per_step = {k: v // GRAPH_STEPS for k, v in eager["launches"].items()}
+        captured = {k: graph["captured"].get(k, 0) for k in per_step}
+        check(captured == per_step and all(
+                  v == GRAPH_STEPS * per_step[k]
+                  for k, v in graph["launches"].items()),
+              f"{arch}: captured {captured}, replays launched "
+              f"{graph['launches']}, an eager step {per_step}")
+        check(all(torch.isfinite(graph[k]).all() for k in ("loss", "grad_norm")),
+              f"{arch}: non-finite {graph['loss']} {graph['grad_norm']}")
+        rows.append({"config": cfg.name, "family": cfg.family,
+                     "bit_equal": reproducible and not any(diff.values()),
+                     "eager_reproducible": reproducible,
+                     "graph_vs_eager_max_abs": diff,
+                     "eager_vs_eager_max_abs": spread,
+                     "loss": graph["loss"].tolist(),
+                     "captured_launches_per_step": {
+                         k: v for k, v in captured.items() if v},
+                     "replay_launches": {k: v for k, v in graph["launches"].items() if v},
+                     "capture_ms": graph["capture_ms"]})
+        launches[cfg.name] = graph["launches"]
+        spreads[arch] = spread
+        del eager, again, graph
+    torch.cuda.empty_cache()
+    emit({"phase": "train_graph", "steps": GRAPH_STEPS, "seq": 64, "batch": 4,
+          "dtype": "bfloat16", "remat": True, "results": rows})
+    return launches, spreads
 
 
 # ---------------------------------------------------------------------------
@@ -2634,8 +2866,8 @@ def windowed_bwd(dev, shape: tuple, window: int, copy_rate: float,
             "abs_err_dq_dk_dv": abs_errs, "rows": rows}
 
 
-def phase_families_train(dev, copy_rate: float) -> dict:
-    hybrid = train_run(dev, HYBRID_ARCH)
+def phase_families_train(dev, copy_rate: float, spreads: dict) -> dict:
+    hybrid = train_run(dev, HYBRID_ARCH, spreads[HYBRID_ARCH])
     emit({"phase": "families_train", **hybrid})
     cfg = configs.load_arch(HYBRID_ARCH)
     G = cfg.n_heads // cfg.n_kv_heads
@@ -2643,10 +2875,11 @@ def phase_families_train(dev, copy_rate: float) -> dict:
                              cfg.n_kv_heads, G, cfg.hd), cfg.sliding_window, copy_rate)
     emit({"phase": "families_train_windowed_bwd", **bwd})
     torch.cuda.empty_cache()
-    ssm_ = train_run(dev, SSM_ARCH)
+    ssm_ = train_run(dev, SSM_ARCH, spreads[SSM_ARCH])
     emit({"phase": "families_train", **ssm_})
     return {"hybrid": hybrid["launches"], "ssm": ssm_["launches"],
-            "window_bwd": bwd["rows"]}
+            "hybrid_graph": hybrid["graphed"]["launches"],
+            "ssm_graph": ssm_["graphed"]["launches"], "window_bwd": bwd["rows"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2990,14 +3223,15 @@ def phase_encdec_serve(dev) -> dict:
     return {"prefill": pre["launches"], "generate": gen["launches"]}
 
 
-def phase_encdec_train(dev) -> dict:
+def phase_encdec_train(dev, spreads: dict) -> dict:
     """whisper-tiny at full size: ENCDEC_TRAIN_B clips of enc_seq frames and
     ENCDEC_SEQ tokens, bf16 weights, f32 AdamW moments, remat; train_run's
-    warm-up, timed steps and profile, the loss falling."""
-    row = train_run(dev, ENCDEC_ARCH, batch=ENCDEC_TRAIN_B, seq_len=ENCDEC_SEQ,
-                    lr=ENCDEC_LR)
+    warm-up, timed steps and profile, the loss falling, eager and
+    graphed."""
+    row = train_run(dev, ENCDEC_ARCH, spreads[ENCDEC_ARCH], batch=ENCDEC_TRAIN_B,
+                    seq_len=ENCDEC_SEQ, lr=ENCDEC_LR, graph_batch=ENCDEC_GRAPH_B)
     emit({"phase": "encdec_train", **row})
-    return {"launches": row["launches"]}
+    return {"launches": row["launches"], "graph": row["graphed"]["launches"]}
 
 
 # ---------------------------------------------------------------------------
@@ -4156,6 +4390,7 @@ def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
         "granite8b_prefill": prefill["launches"],
         "granite8b_generate": serve["launches"],
         "tinyllama_train_3_steps": trained["launches"],
+        "tinyllama_train_graph_3_steps": trained["graph_launches"],
         "mixtral16L_prefill": paths["moe_serve"]["prefill"],
         "mixtral16L_generate": paths["moe_serve"]["generate"],
         "hymba_prefill": paths["hybrid_serve"]["prefill"],
@@ -4164,9 +4399,14 @@ def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
         "mamba2_generate": paths["ssm_serve"]["generate"],
         "hymba_train_3_steps": paths["families_train"]["hybrid"],
         "mamba2_train_3_steps": paths["families_train"]["ssm"],
+        "hymba_train_graph_3_steps": paths["families_train"]["hybrid_graph"],
+        "mamba2_train_graph_3_steps": paths["families_train"]["ssm_graph"],
         "whisper_prefill": paths["encdec_serve"]["prefill"],
         "whisper_generate": paths["encdec_serve"]["generate"],
         "whisper_train_3_steps": paths["encdec_train"]["launches"],
+        "whisper_train_graph_3_steps": paths["encdec_train"]["graph"],
+        **{f"{arch}_train_graph_{GRAPH_STEPS}_steps": v
+           for arch, v in paths["train_graph"].items()},
         **paths["dist"], **paths["tp"]["launches"],
         **paths["tp_families"]["launches"],
         "tooling_phase": paths["tooling"]}
@@ -4227,7 +4467,8 @@ def main() -> int:
     phase_lm_parity(dev)
     torch.cuda.empty_cache()
 
-    trained = phase_train(dev)
+    train_graph, spreads = phase_train_graph(dev)
+    trained = phase_train(dev, spreads)
     torch.cuda.empty_cache()
     phase_train_loop(dev)
     rows += phase_attention_bwd(dev, trained, copy_rate)
@@ -4242,7 +4483,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["ssm_serve"] = phase_ssm_serve(dev)
     torch.cuda.empty_cache()
-    paths["families_train"] = phase_families_train(dev, copy_rate)
+    paths["families_train"] = phase_families_train(dev, copy_rate, spreads)
     torch.cuda.empty_cache()
 
     phase_encdec_parity(dev)
@@ -4250,7 +4491,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["encdec_serve"] = phase_encdec_serve(dev)
     torch.cuda.empty_cache()
-    paths["encdec_train"] = phase_encdec_train(dev)
+    paths["encdec_train"] = phase_encdec_train(dev, spreads)
     torch.cuda.empty_cache()
     paths["dist"] = phase_dist(dev, smi)
     torch.cuda.empty_cache()
@@ -4258,6 +4499,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["tp_families"] = phase_tp_families(dev, smi, copy_rate)
     paths["tooling"] = tooling
+    paths["train_graph"] = train_graph
     add_family_paths(rows, prefill, serve, trained, paths)
     emit({"kernels": [{k: v for k, v in r.items()
                        if k != "copy_bound_ms"}

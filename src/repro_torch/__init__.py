@@ -14,14 +14,16 @@ Laid out module for module like ``repro``.  Ported so far:
   through the flash forward and both flash backward kernels, AdamW from
   ``optim``) and the fault-tolerant ``train.loop.train`` with ``data``'s
   synthetic pipeline and ``checkpoint``'s manager (the reference's on-disk
-  layout);
+  layout); on a card without a mesh the loop replays the whole step as a
+  CUDA graph (``train.step.GraphedTrainStep``);
 * the paper's host analysis in ``core`` (host numpy, the reference's own
   arithmetic): the MARS analysis, the layout ILP, the variable-width codec,
   the transfer-cycle model and the tiled-accelerator executor behind
   Table 1/2 and Fig. 10/11;
 * the obs exporters (``obs.sink``, ``python -m repro_torch.obs.report`` and
   ``python -m repro_torch.obs.regress``) with ``launch.report``'s table
-  helpers;
+  helpers, and ``python -m repro_torch.launch.report``'s roofline and
+  dry-run tables over ``launch.dryrun``'s records;
 * training on a mesh of torch.distributed ranks (``launch.mesh``): the
   sharding rules (``distributed.sharding``), the ``pod`` and ``data`` axes
   as data parallelism, and the paper's compressed cross-pod gradient

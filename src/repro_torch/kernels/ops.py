@@ -53,6 +53,24 @@ def reset_launch_counts() -> None:
         fn.launches = 0
 
 
+def take_back_launches(before: dict) -> dict:
+    """The launches each wrapper counted since ``before`` (a
+    ``launch_counts()``), its count set back to ``before``'s: what a CUDA
+    graph's capture recorded, for ``add_launches`` at each replay (the
+    capture itself launches nothing)."""
+    counted = {name: n - before[name] for name, n in launch_counts().items()
+               if n != before[name]}
+    for name in counted:
+        KERNELS[name].launches = before[name]
+    return counted
+
+
+def add_launches(counts: dict) -> None:
+    """Each wrapper's ``launches`` raised by ``counts[name]`` (a replay)."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n
+
+
 # ---------------------------------------------------------------------------
 # Analytic I/O models (read every input once, write every output once),
 # copies of the reference's.

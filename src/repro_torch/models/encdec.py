@@ -146,8 +146,8 @@ def _layers(body, layers, x: torch.Tensor, rc: RunConfig, *args) -> torch.Tensor
         return body(x, *a, shd.gathered(lp))
 
     for lp in layers:
-        x = checkpoint(shd.under, rules, run, x, *args, lp, use_reentrant=False) \
-            if remat else run(x, *args, lp)
+        x = checkpoint(shd.under, rules, run, x, *args, lp, use_reentrant=False,
+                       preserve_rng_state=False) if remat else run(x, *args, lp)
     return x
 
 

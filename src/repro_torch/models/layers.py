@@ -637,7 +637,8 @@ def fused_ce_loss(x: torch.Tensor, p: EmbedParams, cfg: ModelConfig,
               else torch.ones((B, hi - lo), dtype=F32, device=x.device))
         args = (x[:, lo:hi], w, labels[:, lo:hi], mc)
         if torch.is_grad_enabled():
-            t, c = checkpoint(fn, *args, use_reentrant=False)
+            t, c = checkpoint(fn, *args, use_reentrant=False,
+                              preserve_rng_state=False)
         else:
             t, c = fn(*args)
         total, count = total + t, count + c

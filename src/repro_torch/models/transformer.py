@@ -12,9 +12,12 @@ hybrid; hybrid averages the two branches after a norm each), an MLP
 keeps the outputs of the collectives named ``proj_out`` and
 ``kv_gathered`` (``collectives.SavePolicy``) and recomputes the rest, so
 that backward does not run them again (on one device there are none, and
-it is ``"full"``).  The encoder-decoder family is ``models/encdec.py``; the
-functions here refuse its configs (``check_family``), and
-``model_zoo.get_api`` dispatches to either module.
+it is ``"full"``).  No op of a layer draws random numbers, so the
+checkpoint keeps no RNG state (``preserve_rng_state=False``): setting a
+CUDA generator's state is what a graph capture cannot record
+(``train.step.GraphedTrainStep``).  The encoder-decoder family is
+``models/encdec.py``; the functions here refuse its configs
+(``check_family``), and ``model_zoo.get_api`` dispatches to either module.
 
 On a mesh (rules installed by ``train.step``) each layer reads its
 parameters through ``sharding.gathered`` (ZeRO-3 over ``data``) and, on a
@@ -244,7 +247,8 @@ def backbone(params: DenseParams, tokens: torch.Tensor, cfg: ModelConfig,
     for lp in params.layers:
         if remat:
             x, inc = checkpoint(shd.under, rules, _layer_fwd, cfg, rc, x, pos,
-                                lp, use_reentrant=False, **kw)
+                                lp, use_reentrant=False,
+                                preserve_rng_state=False, **kw)
         else:
             x, inc = _layer_fwd(cfg, rc, x, pos, lp)
         if inc is not None:

@@ -117,17 +117,19 @@ def update(grads: Mapping[str, torch.Tensor], state: AdamState,
     ``gnorm`` is ``global_norm(grads)`` when the caller has it already (a
     full f32 pass over the gradients); it is computed here otherwise.
     Returns ``(params, state)`` as the reference does: the same parameter
-    and moment tensors, and the advanced ``count``.
+    and moment tensors, and ``count`` advanced in place.  Every constant is
+    made on the device (``torch.full``), so a CUDA graph can capture the
+    update: it copies nothing from the host and reads no value back.
     """
-    count = state.count + 1
+    count = state.count.add_(1)
     c32 = count.to(F32)
     lr = schedule(cfg, count)
     if gnorm is None:
         gnorm = global_norm(grads.values())
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     # python float ** f32 tensor, as the reference's cfg.b1 ** count
-    bc1 = 1 - torch.pow(torch.tensor(cfg.b1, dtype=F32, device=c32.device), c32)
-    bc2 = 1 - torch.pow(torch.tensor(cfg.b2, dtype=F32, device=c32.device), c32)
+    bc1 = 1 - torch.pow(torch.full((), cfg.b1, dtype=F32, device=c32.device), c32)
+    bc2 = 1 - torch.pow(torch.full((), cfg.b2, dtype=F32, device=c32.device), c32)
     for name, p in params.items():
         m, v = state.mu[name], state.nu[name]
         g = grads[name].to(F32) * scale

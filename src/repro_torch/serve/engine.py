@@ -71,12 +71,7 @@ class GraphedDecodeStep:
             self.graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(self.graph):
                 self.logits, self.next_tokens = run()
-            # capture launched nothing: take its counts back
-            self.launches = {name: n - before[name]
-                             for name, n in ops.launch_counts().items()
-                             if n != before[name]}
-            for name in self.launches:
-                ops.KERNELS[name].launches = before[name]
+            self.launches = ops.take_back_launches(before)
         self.reset()
 
     def reset(self) -> None:
@@ -87,8 +82,7 @@ class GraphedDecodeStep:
         """One step on (B,) tokens: the static (logits, argmax) buffers."""
         self.tokens.copy_(tokens)
         self.graph.replay()
-        for name, n in self.launches.items():
-            ops.KERNELS[name].launches += n
+        ops.add_launches(self.launches)
         return self.logits, self.next_tokens
 
 

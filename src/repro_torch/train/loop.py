@@ -18,7 +18,14 @@ Port of ``repro.train.loop``:
   one leaf at a time) and every rank restores its blocks on the *current*
   mesh (it reads each whole leaf on the host and copies in its block), so
   a run checkpointed on one mesh resumes on another of other ``data`` and
-  ``model`` sizes (elastic re-mesh).
+  ``model`` sizes (elastic re-mesh);
+* the run keeps one ``TrainState``: a restore, or a restart with no
+  checkpoint yet, copies into its tensors in place;
+* on a CUDA device without a mesh each step replays the whole step as a
+  CUDA graph (``train.step.GraphedTrainStep``, captured once before the
+  first step; a failed capture raises), as the reference always runs its
+  jitted step; on a mesh the step runs eagerly (the gloo collectives stage
+  through host memory, which no graph captures), and on the CPU op by op.
 """
 from __future__ import annotations
 
@@ -69,7 +76,8 @@ def _run(cfg, rc, loop, mesh, device, failure_hook, log_every):
     mgr = CheckpointManager(loop.ckpt_dir, keep=loop.keep,
                             async_save=mesh is None)
     pipeline = SyntheticPipeline(cfg, rc)
-    step_fn = train_step_mod.make_train_step(api, cfg, rc, mesh)
+    # one state for the whole run: every restore copies into its tensors
+    state = train_step_mod.init_state(api, rc, 0, mesh)
 
     def save(state):
         if mesh is None:
@@ -81,21 +89,28 @@ def _run(cfg, rc, loop, mesh, device, failure_hook, log_every):
         if mesh is not None:
             dist.barrier()
 
-    def restore_latest():
-        state = train_step_mod.init_state(api, rc, 0, mesh)
+    def restore_latest(fresh: bool) -> None:
+        """The latest checkpoint into ``state``, in place; without one, a
+        fresh state (unless ``state`` is one)."""
         step_num = mgr.latest_step()
         if step_num is None:
-            return state
+            if not fresh:
+                train_step_mod.copy_state(
+                    state, train_step_mod.init_state(api, rc, 0, mesh))
+            return
         blocks = (None if mesh is None else
                   train_step_mod.checkpoint_blocks(api, rc, mesh))
         _, extra = mgr.restore(step_num, train_step_mod.checkpoint_tree(state),
                                blocks)
         pipeline.restore(extra)
         log.info("restored checkpoint at step %d", step_num)
-        return state
 
     try:
-        state = restore_latest()
+        restore_latest(fresh=True)
+        if mesh is None and state.step.device.type == "cuda":
+            step_fn = train_step_mod.GraphedTrainStep(api, cfg, rc, state)
+        else:
+            step_fn = train_step_mod.make_train_step(api, cfg, rc, mesh)
         history: Dict[str, list] = {"loss": [], "step_time": [],
                                     "stragglers": 0, "restarts": 0}
         restarts = 0
@@ -138,7 +153,7 @@ def _run(cfg, rc, loop, mesh, device, failure_hook, log_every):
                           restarts, loop.max_restarts)
                 if restarts > loop.max_restarts:
                     raise
-                state = restore_latest()
+                restore_latest(fresh=False)
         save(state)
         return history
     finally:

@@ -52,9 +52,15 @@ reference:
 path: f32, keyed by parameter name, each ``(1, *block)``, this rank's
 block of the reference's ``(n_pods, ...)`` leaf.
 
-The step updates the parameters, moments and residuals in place (the
-reference's jitted step donates its state): the returned ``TrainState``
-holds the same tensors.
+The step updates the parameters, moments, residuals and both counters
+(``opt.count``, ``step``) in place (the reference's jitted step donates
+its state): the returned ``TrainState`` holds the same tensors.  Without a
+mesh the step makes no tensor from host data and reads no value back, so
+on the card ``GraphedTrainStep`` captures it whole as a CUDA graph (the
+counterpart of the reference's ``jax.jit``); ``train.loop.train`` replays
+that graph on a CUDA device without a mesh.  On a mesh the step runs
+eagerly: the gloo collectives stage through host memory, which no graph
+captures.
 """
 from __future__ import annotations
 
@@ -68,9 +74,12 @@ import torch.distributed as dist
 from repro_torch.checkpoint.ckpt import Attrs, Stacked, flatten, leaf_shape, map_tree
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.distributed import collectives, sharding as shd
+from repro_torch.kernels import ops
+from repro_torch.models import model_zoo
 from repro_torch.models.encdec import DecLayer, EncDecParams, EncLayer
 from repro_torch.models.model_zoo import ModelApi, TensorSpec
 from repro_torch.models.transformer import LayerParams
+from repro_torch.obs import instrument as obs
 from repro_torch.optim import adamw
 
 F32 = torch.float32
@@ -360,7 +369,10 @@ def make_train_step(api: ModelApi, cfg: ModelConfig, rc: RunConfig, mesh=None):
         size = t.shape[-1] // mesh.size(axes)
         return t.narrow(-1, mesh.index(axes) * size, size)
 
-    def train_step(state: TrainState, batch) -> tuple:
+    def gradients(state: TrainState, batch) -> tuple:
+        """(gradients by name, metrics): the loss, its backward and, on a
+        mesh, the reduction or the exchange (which moves the residuals);
+        without a mesh the state is left as it was."""
         params = dict(state.params.named_parameters())
         if mesh is not None and not plan:
             plan.append(_plan(api, rc, mesh, compress))
@@ -377,14 +389,110 @@ def make_train_step(api: ModelApi, cfg: ModelConfig, rc: RunConfig, mesh=None):
             grads, loss = exchange(params, grads, loss, state.resid)
         groups = None if mesh is None else [plan[0].norm[n] for n in grads]
         gnorm = adamw.global_norm(grads.values(), groups)
-        _, opt = adamw.update(grads, state.opt, params, acfg, gnorm)
+        return grads, {"loss": loss, "grad_norm": gnorm}
+
+    def train_step(state: TrainState, batch) -> tuple:
+        params = dict(state.params.named_parameters())
+        grads, metrics = gradients(state, batch)
+        adamw.update(grads, state.opt, params, acfg, metrics["grad_norm"])
         for p in params.values():
             p.grad = None          # free the gradients before the next step
-        metrics = {"loss": loss, "grad_norm": gnorm}
-        return TrainState(params=state.params, opt=opt, resid=state.resid,
-                          step=state.step + 1), metrics
+        state.step.add_(1)
+        return state, metrics
 
+    train_step.gradients = gradients
     return train_step
+
+
+def state_tensors(state: TrainState) -> List[torch.Tensor]:
+    """Every tensor of the state, in a fixed order: the parameters, the
+    moments, ``count``, the residuals, ``step``."""
+    out = [p for _, p in state.params.named_parameters()]
+    out += list(state.opt.mu.values()) + list(state.opt.nu.values())
+    out.append(state.opt.count)
+    out += list((state.resid or {}).values())
+    out.append(state.step)
+    return out
+
+
+@torch.no_grad()
+def copy_state(dst: TrainState, src: TrainState) -> None:
+    """``src``'s values into ``dst``'s tensors, in place (one structure)."""
+    for d, s in zip(state_tensors(dst), state_tensors(src), strict=True):
+        d.copy_(s)
+
+
+def static_batch(cfg: ModelConfig, rc: RunConfig, device) -> Dict[str, torch.Tensor]:
+    """Zero tensors of the step's inputs (``model_zoo.input_specs``)."""
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+            for k, s in model_zoo.input_specs(cfg, rc).items()}
+
+
+class GraphedTrainStep:
+    """``make_train_step``'s single-device step on ``state``, captured as
+    one CUDA graph: the loss, its backward (with the per-layer remat), the
+    gradients' norm and the AdamW update in place; the reference's jitted
+    step with its state donated.
+
+    The graph reads and writes the tensors of ``state`` where they are
+    (the flash kernels' TMA descriptors, encoded at capture, hold their
+    addresses), so the state lives as long as the object and changes only
+    in place: a restore copies into it (``copy_state``,
+    ``CheckpointManager.restore`` on its ``checkpoint_tree``).  The batch is
+    copied into static buffers (``static_batch``) before each replay; the
+    metrics ``loss`` and ``grad_norm`` are static 0-dim buffers that the
+    next replay overwrites.  Activations, saved tensors and gradients live
+    in the graph's private memory pool.
+
+    Built as ``serve.engine.GraphedDecodeStep`` is: a warm-up on a side
+    stream (the step up to the update: the kernels' libraries, cuBLAS and
+    the allocator set up, the state untouched), then the capture.  Each
+    wrapper's ``launches`` counts what the graph launches at every replay,
+    and not at capture; ``kernels/*`` obs series are published at capture
+    only.  A failed capture or replay raises.
+    """
+
+    def __init__(self, api: ModelApi, cfg: ModelConfig, rc: RunConfig,
+                 state: TrainState):
+        dev = state.step.device
+        if dev.type != "cuda":
+            raise ValueError(f"a CUDA graph needs a CUDA device, the state "
+                             f"is on {dev}")
+        self.state = state
+        step = make_train_step(api, cfg, rc)
+        with torch.cuda.device(dev):
+            self.batch = static_batch(cfg, rc, dev)
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side), obs.disabled_scope():
+                step.gradients(state, self.batch)
+                for p in state.params.parameters():
+                    p.grad = None
+            torch.cuda.current_stream(dev).wait_stream(side)
+
+            before = ops.launch_counts()
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                _, self.metrics = step(state, self.batch)
+            self.launches = ops.take_back_launches(before)
+
+    def __call__(self, state: TrainState, batch) -> tuple:
+        """One step on ``batch`` (the device's tensors of
+        ``data.pipeline.device_batch``): ``(state, metrics)`` as the
+        eager step returns them; ``state`` must be the graph's."""
+        if state.step is not self.state.step:
+            raise ValueError("the graph steps the state it was captured on")
+        if batch.keys() != self.batch.keys():
+            raise ValueError(f"batch holds {sorted(batch)}, the graph "
+                             f"{sorted(self.batch)}")
+        for k, buf in self.batch.items():
+            if batch[k].shape != buf.shape or batch[k].dtype != buf.dtype:
+                raise ValueError(f"{k}: {batch[k].dtype} {tuple(batch[k].shape)}, "
+                                 f"the graph's {buf.dtype} {tuple(buf.shape)}")
+            buf.copy_(batch[k])
+        self.graph.replay()
+        ops.add_launches(self.launches)
+        return self.state, self.metrics
 
 
 def whole_tree(state: TrainState, api: ModelApi, rc: RunConfig,
