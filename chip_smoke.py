@@ -6,7 +6,7 @@ Run from the repository root, on a machine with an NVIDIA Hopper card:
 
     python3 chip_smoke.py
 
-Fourteen paths, each driven with the launch counts set to 0 just before it
+Fifteen paths, each driven with the launch counts set to 0 just before it
 and read just after:
 
 * stencil and codec: a 2^26-cell f32 field (256 MiB, seeded with numpy)
@@ -62,7 +62,8 @@ and read just after:
   tokens (the batch cut from Whisper's 256 by memory): the flash forward
   twice and both backward kernels once per attention call (4 encoder, 4
   decoder self, 4 cross);
-* training tinyllama-1.1b at full size on two ranks of the one card (two
+* training tinyllama-1.1b at full width, 11 of its 22 layers (by time),
+  on two ranks of the one card (two
   processes, a gloo group: NCCL refuses two ranks on one GPU), the mesh
   (2, 1, 1) over (pod, data, model), a global batch of 4 x 4096 tokens
   (2 a pod), 3 steps each at ``grad_compress_bits`` 0, 8 and 16 through
@@ -70,7 +71,7 @@ and read just after:
   compressed cross-pod exchange (quantize, bitplane-pack, gather the packed
   planes and scales, dequantize the pods' mean) with error feedback; the
   flash forward twice and both backward kernels once per layer and step;
-* training tinyllama-1.1b at full width, 8 of its 22 layers (by time), on
+* training tinyllama-1.1b at full width, 4 of its 22 layers (by time), on
   four ranks of the one card (four processes, gloo), the mesh (2, 2) over
   (data, model): tensor
   parallelism over heads, ff and vocab (16 query heads, 2 KV heads, ff
@@ -81,8 +82,8 @@ and read just after:
   policy; the flash forward twice and both backward kernels once per layer
   and step on every rank, at its local heads;
 * the ``model`` axis for the ssm, hybrid and encdec families on the same
-  four ranks: mamba2-130m at full width, 12 of its 24 layers, and
-  hymba-1.5b at full width, 4 of its 32 layers (both by time), on (2, 2)
+  four ranks: mamba2-130m at full width, 6 of its 24 layers, and
+  hymba-1.5b at full width, 2 of its 32 layers (both by time), on (2, 2)
   over (data, model), and whisper-tiny
   at full size on (1, 4), each 2 steps of a global batch of 4 (mamba2 and
   hymba 4096 tokens, whisper 448 tokens and 1500 frames); the SSD on a
@@ -91,6 +92,15 @@ and read just after:
   rank (13 computed), whisper's at 1.5 (2 computed) with its stream whole
   over ``model``; the flash forward twice and both backward kernels once
   per attention call and step on every rank;
+* serving on a mesh of gloo ranks of the one card: granite-8b at full
+  width, 12 of its 36 layers, on (2, 2) over (data, model), and hymba-1.5b
+  at full width, 16 of its 32 layers, on (1, 2); ``decode_step`` on each
+  rank's blocks of the weights and of the decode state
+  (``init_decode_state(batch, mesh=)``: the batch over data, the int8
+  cache's slots over model), the rank that
+  holds a row's slot storing it (kv_quant_store once and kv_dequant twice
+  a layer and step on every rank, at its block of the slots), the softmax
+  combined over model, the logits gathered whole;
 * the port's tooling on the card: the access walk and the byte audit of
   the kernel routes of ``pack``, ``unpack``, ``jacobi_chunked``,
   ``kv_quant``, ``kv_dequant`` (the reference's grid) and
@@ -171,6 +181,10 @@ Phases, one JSON line each:
                stencil kernel within 1e-5 of ``ref.jacobi_chunked_ref``, the
                serve example's int8 / bf16 agreement, the train example's
                loss lower after its 10 steps; every wrapper launched;
+               and the dry run of one full-size decode cell
+               (``DRYRUN_CELL``, granite-8b's decode_32k on the (16, 16)
+               mesh: rank 0's step over the fake process group, nothing
+               allocated; its walked parameter bytes equal to the rules');
 8. lm_init   — the granite-8b weights on the card (count, GiB, seconds);
 9. prefill   — the prefill path: 36 flash launches, finite logits (4, 49152),
                a profile of one more prefill (device ops, idle share);
@@ -379,14 +393,36 @@ Phases, one JSON line each:
                64) non-causal, cross (4, 448, 1500, ...) and decoder (4,
                448, 448, ...) causal) against their plain versions, timed
                beside SDPA;
-32. the ``{"kernels": [...]}`` line, then the card line, then the result line.
+32. tp_decode — the serving path on a mesh above (each process
+               ``--tp-decode-rank <r> <dir>``; hymba's mesh on the first two):
+               each rank fed the tokens of a one-card run from the same
+               weights (seeded 8-token prompts, then its greedy tokens,
+               TPD_STEPS steps): the logits whole on every rank within
+               the step's bf16 rule (of the largest logit: lm_parity's 3e-2,
+               or sqrt(2) times the one-card bf16 run's own distance from
+               an f32 run of the same weights and tokens where larger: two
+               independent bf16 roundings lie that far apart), no greedy token
+               apart where the one-card top-2 margin exceeds FLIP_MARGIN of
+               the largest logit; the kv launches exact (a layer and step:
+               one kv_quant_store, two kv_dequant); seq_len 32, so that
+               both model ranks hold slots the 24 steps write (each rank's
+               count of them above 0); after every step each rank's cache
+               rows changed in the step's slot where it holds it and
+               nowhere else (bit-equal elsewhere); ``kv_cache_bytes`` of a
+               rank, its state's bytes and the dry run's decode-state
+               bytes (``launch.dryrun.walk_rank``) equal to the one-card
+               state's cut by the layout (kv rows over data, slots over
+               model; the SSM state's rows over data); step ms of the
+               ranks and of one card, the bytes handed to each collective
+               a step;
+33. the ``{"kernels": [...]}`` line, then the card line, then the result line.
                The kv and flash rows add ``launches_by_path`` (their
                launches on every LM path run), the flash rows
                ``at_hymba_window`` (the windowed times and bounds),
                ``at_whisper_shapes`` (times and bounds at whisper's three)
                ``at_tp_rank_shape`` and ``at_tp_families_rank_shapes``;
-               ``launches_by_path`` counts every rank of the dist, tp and
-               tp_families paths, the tooling phase's launches, and the
+               ``launches_by_path`` counts every rank of the dist, tp,
+               tp_families and tp_decode paths, the tooling phase's launches, and the
                graphed train steps' replays (``*_train_graph_3_steps``).
 
 The three tensor-core rows (flash forward, dK/dV, dQ), the jacobi row, the
@@ -409,6 +445,7 @@ import copy
 import dataclasses
 import io
 import json
+import math
 import os
 import re
 import runpy
@@ -580,11 +617,12 @@ ENCDEC_TRAIN_B, ENCDEC_LR = 128, 1e-2
 ENCDEC_GRAPH_B = 64
 GRAD_F32_REL = 1e-4          # each f32 gradient leaf, of its largest magnitude
 
-#: the distributed path: tinyllama-1.1b at full size on two ranks of the
+#: the distributed path: tinyllama-1.1b at full width on two ranks of the
 #: one card, the mesh (2, 1, 1) over (pod, data, model), gloo (NCCL refuses
 #: two ranks on one GPU); train_4k's sequences, the global batch cut from
-#: 256 to 4 (2 a pod) by time; 3 steps at each bits
-DIST_ARCH, DIST_SHAPE = TRAIN_ARCH, (2, 1, 1)
+#: 256 to 4 (2 a pod) and the depth from 22 layers to DIST_LAYERS, by time;
+#: 3 steps at each bits (the codec phase keeps the whole tree)
+DIST_ARCH, DIST_SHAPE, DIST_LAYERS = TRAIN_ARCH, (2, 1, 1), 11
 DIST_NAMES = ("pod", "data", "model")
 DIST_B, DIST_STEPS, DIST_BITS = 4, 3, (0, 8, 16)
 DIST_EQUAL_BITS = 8          # held torch.equal to the one-process emulation
@@ -606,22 +644,37 @@ DIST_TIMEOUT_S = 600
 #: card, the mesh (2, 2) over (data, model), gloo: tensor and sequence
 #: parallelism over ``model`` (16 query heads, 2 KV heads, ff 2816 and vocab
 #: 16000 a rank), ZeRO-3 over ``data``; train_4k's sequences, the global
-#: batch cut from 256 to 4 and the depth from 22 layers to 8, by time;
+#: batch cut from 256 to 4 and the depth from 22 layers to 4, by time;
 #: remat, bf16 weights, f32 moments
 TP_ARCH, TP_SHAPE, TP_NAMES = TRAIN_ARCH, (2, 2), ("data", "model")
-TP_B, TP_STEPS, TP_LAYERS = 4, 3, 8
+TP_B, TP_STEPS, TP_LAYERS = 4, 3, 4
 TP_LOSS_TOL = 5e-3           # tests/_distributed_main.py's dist_equivalence
 TP_RANK_THREADS = 2
 TP_TIMEOUT_S = 700
 #: the ``model`` axis for the ssm, hybrid and encdec families on the same
 #: four ranks: (arch, mesh over (data, model), layers kept (0: all),
 #: sequence); a global batch of 4 (cut from train_4k's 256 by time), 2
-#: steps each; hymba's depth cut from 32 layers to 4, mamba2's from 24 to
-#: 12, by time
-TPF_RUNS = (("mamba2-130m", (2, 2), 12, 4096), ("hymba-1.5b", (2, 2), 4, 4096),
+#: steps each; hymba's depth cut from 32 layers to 2, mamba2's from 24 to
+#: 6, by time
+TPF_RUNS = (("mamba2-130m", (2, 2), 6, 4096), ("hymba-1.5b", (2, 2), 2, 4096),
             ("whisper-tiny", (1, 4), 0, ENCDEC_SEQ))
 TPF_B, TPF_STEPS = 4, 2
 TPF_TIMEOUT_S = 600
+#: serving on a mesh: (arch, mesh over (data, model), layers kept (0: all),
+#: ZeRO-3 over data), each on the same four processes (hymba's (1, 2) on
+#: the first two): granite-8b at full width, 12 of its 36 layers (by
+#: memory: each rank builds the whole model from the seed before it keeps
+#: its blocks), its weights whole over data (ZeRO-3's gather of every
+#: layer's weights a step through host memory would take ~0.3 s a layer,
+#: by time; the ZeRO-3 decode is held on CPU ranks by
+#: tests/test_torch_decode_mesh.py's (2, 2) cases); hymba-1.5b at full
+#: width, 16 of its 32 layers (by time: a step took 0.96 s on the ranks at
+#: 32); kv_cache_bits 8, a global batch of 4 (2 a data rank) at seq_len
+#: 32, so that each of the two model ranks holds 16 slots and the
+#: TPD_STEPS positions from 0 fall in both ranks' blocks; 8-token prompts
+TPD_RUNS = (("granite-8b", (2, 2), 12, False), ("hymba-1.5b", (1, 2), 16, True))
+TPD_B, TPD_SEQ, TPD_PROMPT, TPD_STEPS, TPD_BITS = 4, 32, 8, 24, 8
+TPD_TIMEOUT_S = 500
 
 #: the tooling phase: each walked case's wrapper and its kernel, by its
 #: demangled name in the profiler; the Jacobi wrapper also zero-fills its
@@ -635,6 +688,8 @@ TOOLING_KERNELS = {
     "kv_quant_store": ("kvpack.kv_quant_store", r"\bquant_store_kernel\b"),
     "jacobi1d": ("jacobi_mars.jacobi_chunked", r"\bjacobi_wavefront_kernel\b")}
 TOOLING_WORKSPACE = {"jacobi1d": r"FillFunctor|Memset"}
+#: the full-size cell the tooling phase dry-runs: (arch, shape, mesh)
+DRYRUN_CELL = ("granite-8b", "decode_32k", "single")
 #: each walked wrapper's profiled calls, and the spin kernels that open the
 #: session ahead of them (``wrapper_device_ops``), ~6 us each on an H100
 WRAPPER_CALLS, SENTINELS, SENTINEL_CYCLES = 50, 8, 10_000
@@ -1095,7 +1150,8 @@ def launch_costs(fn, kernel_key: str, n: int = 200) -> dict:
             "profiler_sessions": sessions}
 
 
-def device_profile(fn, watch: dict, top: int | None = 5) -> dict:
+def device_profile(fn, watch: dict, top: int | None = 5,
+                   expect: dict | None = None) -> dict:
     """Run fn under torch.profiler: top device ops by self time, idle share.
 
     The idle share is 1 - (union of device-op intervals) / (first device-op
@@ -1115,8 +1171,19 @@ def device_profile(fn, watch: dict, top: int | None = 5) -> dict:
     once on an H100: a profile of 8 replayed decode steps kept 122 of 128
     ``kv_quant_store`` and 244 of 256 ``kv_dequant`` records, the last
     six layers of the last step, while the launch counts were exact).
+
+    ``expect`` maps a watched label to the launches that fn is known to
+    make.  A session that keeps fewer records of a watched kernel is taken
+    again, fn run once more, up to three sessions, and the short counts
+    are returned under ``short_sessions``: the profiler has also dropped
+    a single record away from the window's end (seen once on an H100: 31
+    of 32 ``kv_quant_store`` records of 8 replayed whisper-tiny steps,
+    with all 64 ``kv_dequant`` records that follow the stores kept).  A
+    session that keeps more is not taken again, and the caller holds the
+    counts of the last session to its exact want.
     """
     from torch.profiler import ProfilerActivity, profile
+    short = []
     for sessions in range(1, 4):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1129,8 +1196,18 @@ def device_profile(fn, watch: dict, top: int | None = 5) -> dict:
         spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                        if e.device_type == torch.autograd.DeviceType.CUDA
                        and e.time_range.end > e.time_range.start)
-        if spans:
+        if not spans:
+            continue
+        # device-side entries only: a CPU op's own entry repeats the device
+        # time of the kernels it launched
+        ops_ = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=dev_us, reverse=True)
+        kept = {label: sum(e.count for e in ops_ if key in e.key)
+                for label, key in watch.items()}
+        if all(kept[label] >= n for label, n in (expect or {}).items()):
             break
+        short.append(kept)
     if not spans:
         return {"profiled_wall_ms": wall_ms, "top_device_ops": None,
                 "device_idle_share": None, "profiler_sessions": sessions,
@@ -1144,18 +1221,14 @@ def device_profile(fn, watch: dict, top: int | None = 5) -> dict:
             cur_e = max(cur_e, e0)
     busy += cur_e - cur_s
     window_us = spans[-1][1] - spans[0][0]
-    # device-side entries only: a CPU op's own entry repeats the device
-    # time of the kernels it launched
-    ops_ = sorted((e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA),
-                  key=dev_us, reverse=True)
     return {"profiled_wall_ms": wall_ms, "profiler_sessions": sessions,
+            **({"short_sessions": short} if expect is not None else {}),
             "device_window_ms": window_us / 1e3,
             "device_busy_ms": busy / 1e3, "device_ops": len(spans),
             "device_idle_share": 1 - busy / window_us,
             "watched": {label: {
                 "device_ms": sum(dev_us(e) for e in ops_ if key in e.key) / 1e3,
-                "launches": sum(e.count for e in ops_ if key in e.key),
+                "launches": kept[label],
                 "share_of_busy": sum(dev_us(e) for e in ops_ if key in e.key) / busy}
                 for label, key in watch.items()},
             "top_device_ops": [{"name": e.key[:120], "device_ms": dev_us(e) / 1e3,
@@ -1505,12 +1578,13 @@ def generate_run(dev, cfg, rc, params, prompts: list, max_new: int) -> tuple:
     def steps_fn():
         for _ in range(PROFILE_STEPS):
             step(cur)[1].cpu()                           # as generate syncs
-    prof = device_profile(steps_fn, {"kv_quant_store": "quant_store_kernel",
-                                     "kv_quant": "::quant_kernel",
-                                     "kv_dequant": "dequant_kernel"}, top=8)
-    seen = {k: v["launches"] for k, v in (prof.get("watched") or {}).items()}
     want = {"kv_quant_store": n_attn * PROFILE_STEPS, "kv_quant": 0,
             "kv_dequant": 2 * n_attn * PROFILE_STEPS}
+    prof = device_profile(steps_fn, {"kv_quant_store": "quant_store_kernel",
+                                     "kv_quant": "::quant_kernel",
+                                     "kv_dequant": "dequant_kernel"}, top=8,
+                          expect=want)
+    seen = {k: v["launches"] for k, v in (prof.get("watched") or {}).items()}
     check(seen == want, f"profile of {PROFILE_STEPS} replayed steps: kernels "
           f"{seen}, want {want}")
     # without the profiler (whose per-kernel records stretch a replay): the
@@ -3238,8 +3312,10 @@ def phase_encdec_train(dev, spreads: dict) -> dict:
 # The distributed path: the compressed cross-pod exchange on two ranks
 # ---------------------------------------------------------------------------
 
-def dist_config(bits: int = 0) -> tuple:
+def dist_config(bits: int = 0, n_layers: int = 0) -> tuple:
     cfg = configs.load_arch(DIST_ARCH)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     return cfg, configs.run_config_for("train_4k", cfg, global_batch=DIST_B,
                                        grad_compress_bits=bits)
 
@@ -3485,7 +3561,7 @@ def dist_run(dev, mesh, bits: int) -> dict:
     """DIST_STEPS steps of ``make_train_step`` on this rank's rows at
     ``bits``; at DIST_EQUAL_BITS the comparison with the emulation; then
     the exchange's pieces timed."""
-    cfg, rc = dist_config(bits)
+    cfg, rc = dist_config(bits, DIST_LAYERS)
     check(rc.remat and rc.opt_dtype == "float32" and rc.param_dtype == "bfloat16",
           f"dist config {rc}")
     api = model_zoo.get_api(cfg, rc, dev)
@@ -3583,7 +3659,7 @@ def phase_dist(dev, smi: str) -> dict:
         c = cpu[bits]
         check(c["planes_equal"] and c["scales_equal"] and c["resid_equal"],
               f"bits {bits}: the card's codec differs from the CPU's: {c}")
-    cfg, _ = dist_config()
+    cfg, _ = dist_config(n_layers=DIST_LAYERS)
     calls = attention_calls(cfg)
     want = {"flash_attention.flash_fwd": 2 * calls * DIST_STEPS,
             "flash_attention.flash_bwd_dkv": calls * DIST_STEPS,
@@ -3613,7 +3689,8 @@ def phase_dist(dev, smi: str) -> dict:
     emit({"phase": "dist", "arch": DIST_ARCH, "mesh": dict(zip(DIST_NAMES, DIST_SHAPE)),
           "backend": ranks[0]["backend"], "batch": DIST_B,
           "seq": configs.SHAPES["train_4k"][0],
-          "reduced": {"global_batch": [configs.SHAPES["train_4k"][1], DIST_B]},
+          "reduced": {"global_batch": [configs.SHAPES["train_4k"][1], DIST_B],
+                      "n_layers": [configs.load_arch(DIST_ARCH).n_layers, DIST_LAYERS]},
           "ranks_s": ranks_s, "codec_cpu": cpu,
           "equal_to_emulation": {"bits": DIST_EQUAL_BITS, **equal},
           "last_loss_from_bits0": track,
@@ -4213,6 +4290,272 @@ def phase_tp_families(dev, smi: str, copy_rate: float) -> dict:
                       for label, rows in flash.items()}}
 
 
+def tpd_config(arch: str, n_layers: int, fsdp: bool) -> tuple:
+    cfg = configs.load_arch(arch)
+    if n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg, configs.run_config_for("decode_32k", cfg, seq_len=TPD_SEQ,
+                                       global_batch=TPD_B, kv_cache_bits=TPD_BITS,
+                                       fsdp=fsdp)
+
+
+def tpd_one_card(dev, cfg, rc) -> dict:
+    """The one-card run the ranks are held to: seeded prompts of
+    TPD_PROMPT tokens, then greedy decoding, TPD_STEPS ``decode_step``
+    calls from a fresh state; the tokens fed at every step and the
+    logits, on the host.  Then the same tokens through an f32 copy of the
+    same weights: ``bf16_drift``, each step's largest distance of the
+    bf16 logits from the f32 ones over the largest f32 logit (what bf16
+    itself costs at this depth)."""
+    api = model_zoo.get_api(cfg, rc, dev)
+    params = api.init(SEED)
+    prompts = np.random.default_rng(SEED).integers(0, cfg.vocab, (TPD_B, TPD_PROMPT))
+    state = api.init_decode_state(TPD_B)
+    cur = torch.from_numpy(prompts[:, 0]).to(dev)
+    kv_bytes, ssm_bytes = (sum(t.numel() * t.element_size() for c in state.caches
+                               if getattr(c, part) is not None
+                               for t in getattr(c, part) if t is not None)
+                           for part in ("kv", "ssm"))
+    fed, logits, ms = [], [], []
+    for t in range(TPD_STEPS):
+        fed.append(cur.cpu())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, state = api.decode_step(params, state, cur)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        logits.append(lg.float().cpu())
+        cur = torch.from_numpy(prompts[:, t + 1]).to(dev) if t + 1 < TPD_PROMPT \
+            else torch.argmax(lg, dim=-1)
+    del state
+    rc32 = dataclasses.replace(rc, param_dtype="float32")
+    api32 = model_zoo.get_api(cfg, rc32, dev)
+    params = params.float()
+    state = api32.init_decode_state(TPD_B)
+    drift = []
+    for t in range(TPD_STEPS):
+        lg, state = api32.decode_step(params, state, fed[t].to(dev))
+        lg = lg.float().cpu()
+        drift.append(float((logits[t] - lg).abs().max() / lg.abs().max()))
+    del params, state
+    torch.cuda.empty_cache()
+    return {"tokens": torch.stack(fed), "logits": torch.stack(logits),
+            "step_ms": ms, "bf16_drift": drift, "kv_bytes": kv_bytes,
+            "ssm_bytes": ssm_bytes}
+
+
+def tpd_run(dev, mesh, arch: str, n_layers: int, fsdp: bool, workdir: str) -> dict:
+    """One rank's decode of one TPD_RUNS entry: this rank's blocks of the
+    weights and of the decode state, the one-card run's tokens fed at
+    every step; its logits against the one-card run's, the bytes handed to
+    each collective a step, its kv launches and step ms.  After every step
+    each layer's cache leaves differ from before the step in the written
+    slot's rows if this rank holds that slot and nowhere else
+    (``cache_faults``: (step, leaf, the rows that changed) where not);
+    ``held_steps`` counts the steps whose slot the rank held."""
+    from repro_torch.distributed import sharding as shd
+    cfg, rc = tpd_config(arch, n_layers, fsdp)
+    api = model_zoo.get_api(cfg, rc, dev)
+    params = api.init(SEED)
+    specs = train_step.param_partition(api, rc, mesh)
+    for n, p in params.named_parameters():
+        shd.shard_parameter(p, specs[n], mesh)
+    torch.cuda.empty_cache()
+    state = api.init_decode_state(TPD_B, mesh=mesh)
+    one = torch.load(Path(workdir, f"{arch}.pt"))
+    rules = train_step.rules_for(rc, mesh)
+    def kv_leaves(st):
+        return [t for c in st.caches for t in c.kv if t is not None]
+
+    s_all, S = transformer.cache_len(cfg, rc), state.caches[0].kv.k.shape[1]
+    lo = mesh.coords["model"] * S if S < s_all else 0
+    held_steps, faults = 0, []
+    ops.reset_launch_counts()
+    errs, flips, all_flips, margins, ms, moved = [], 0, 0, [], [], []
+    with shd.use_rules(rules):
+        for t in range(TPD_STEPS):
+            check(bool((state.pos == state.pos[0]).all()), "rows at different positions")
+            slot = int(state.pos[0]) % s_all
+            want_rows = torch.zeros(S, dtype=torch.bool, device=dev)
+            if lo <= slot < lo + S:
+                want_rows[slot - lo] = True
+                held_steps += 1
+            before = [x.clone() for x in kv_leaves(state)]
+            collectives.reset_collective_bytes()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, state = api.decode_step(params, state, one["tokens"][t].to(dev))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            moved.append(collectives.collective_bytes())
+            for i, (a, b) in enumerate(zip(before, kv_leaves(state))):
+                changed = (a != b).flatten(2).any(-1)     # (rows, slots)
+                if not torch.equal(changed, want_rows.expand_as(changed)):
+                    faults.append((t, i, changed.nonzero().tolist()[:4]))
+            del before
+            want = one["logits"][t]
+            got = lg.float().cpu()
+            errs.append(float((got - want).abs().max() / want.abs().max()))
+            top2 = torch.topk(want, 2, dim=-1).values
+            margin = (top2[:, 0] - top2[:, 1]) / want.abs().max()
+            apart = got.argmax(-1) != want.argmax(-1)
+            flips += int(apart[margin > FLIP_MARGIN].sum())
+            margins.append(float(margin.min()))
+            all_flips += int(apart.sum())
+    held = ServeEngine(cfg, rc, params=params, device=str(dev)).kv_cache_bytes(
+        TPD_B, mesh)
+    return {"coords": mesh.coords, "rel_err": errs, "clear_flips": flips,
+            "flips": all_flips,
+            "min_margin": margins, "step_ms": ms, "moved": moved,
+            "launches": {k: v for k, v in ops.launch_counts().items() if v},
+            "kv_cache_bytes": held, "held_steps": held_steps,
+            "cache_faults": faults[:8],
+            "state_bytes": sum(x.numel() * x.element_size()
+                               for x in api.cache_leaves(state)),
+            "local_cache": list(next(iter(api.cache_leaves(state))).shape),
+            "peak_GiB": torch.cuda.max_memory_allocated(dev) / 2**30}
+
+
+def tpd_child(rank: int, workdir: str) -> int:
+    """One of the four processes: each TPD_RUNS mesh over a gloo group of
+    its size in turn (the processes past a mesh's size wait it out)."""
+    import torch.distributed as dist
+    dev = torch.device("cuda", 0)
+    torch.set_num_threads(TP_RANK_THREADS)
+    out = {"rank": rank, "runs": {}}
+    for i, (arch, shape, n_layers, fsdp) in enumerate(TPD_RUNS):
+        world = int(np.prod(shape))
+        if rank >= world:
+            continue
+        dist.init_process_group("gloo", init_method=f"file://{workdir}/store{i}",
+                                rank=rank, world_size=world)
+        try:
+            mesh = make_mesh(shape, TP_NAMES, dev)
+            out["runs"][arch] = tpd_run(dev, mesh, arch, n_layers, fsdp, workdir)
+            out["backend"] = dist.get_backend(mesh.get_group("model"))
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    Path(workdir, f"rank{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def phase_tp_decode(dev, smi: str) -> dict:
+    """Serving on a mesh: each TPD_RUNS model decoded on gloo ranks of the
+    one card, its decode state cut by ``decode_state_specs`` (the cache's
+    slots over ``model``), against the one-card ``decode_step`` from the
+    same weights and tokens; each rank's cache bytes against the dry run's
+    walk of the same rank."""
+    from repro_torch.launch import dryrun
+    procs, runs = [], {}
+    t0 = time.perf_counter()
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tpd_") as d:
+            for arch, shape, n_layers, fsdp in TPD_RUNS:
+                cfg, rc = tpd_config(arch, n_layers, fsdp)
+                one = tpd_one_card(dev, cfg, rc)
+                torch.save({k: one[k] for k in ("tokens", "logits")}, Path(d, f"{arch}.pt"))
+                runs[arch] = {"one_card_step_ms": one["step_ms"],
+                              "bf16_drift": one["bf16_drift"],
+                              "one_card_bytes": (one["kv_bytes"], one["ssm_bytes"])}
+            one_s = time.perf_counter() - t0
+            env = dict(os.environ, PYTHONUNBUFFERED="1")
+            procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                       "--tp-decode-rank", str(r), d], env=env)
+                     for r in range(4)]
+            deadline = time.monotonic() + TPD_TIMEOUT_S
+            for p in procs:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            codes = [p.returncode for p in procs]
+            check(codes == [0] * len(procs), f"tp_decode ranks exited {codes}")
+            ranks = [json.loads(Path(d, f"rank{r}.json").read_text()) for r in range(4)]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0 - one_s
+    launches = {}
+    for arch, shape, n_layers, fsdp in TPD_RUNS:
+        cfg, rc = tpd_config(arch, n_layers, fsdp)
+        t1 = time.perf_counter()
+        walked = dryrun.walk_rank(cfg, rc, shape, TP_NAMES)
+        walk_s = time.perf_counter() - t1
+        per_rank = [r["runs"][arch] for r in ranks if arch in r["runs"]]
+        check(len(per_rank) == int(np.prod(shape)), f"{arch}: {len(per_rank)} ranks")
+        n_attn = cfg.n_layers if transformer._has_attn(cfg) else 0
+        want_launch = {"kvpack.kv_quant_store": n_attn * TPD_STEPS,
+                       "kvpack.kv_dequant": 2 * n_attn * TPD_STEPS}
+        # a rank's bf16 rounding is another bf16 run's: two runs whose
+        # errors from f32 are independent and of one size lie sqrt(2) times
+        # that size apart; lm_parity's bf16 rule where it is the larger
+        tol = [max(BF16_REL, math.sqrt(2) * d) for d in runs[arch]["bf16_drift"]]
+        # a rank's share of the one-card state's bytes by the layout alone:
+        # the kv caches' rows over data and slots over model, the SSM
+        # state's rows over data (whole over model)
+        kv_bytes, ssm_bytes = runs[arch].pop("one_card_bytes")
+        want_bytes = kv_bytes // (shape[0] * shape[1]) + ssm_bytes // shape[0]
+        check(walked["decode_state_bytes_per_rank"] == want_bytes,
+              f"tp_decode {arch}: the dry run's decode state "
+              f"{walked['decode_state_bytes_per_rank']} B a rank, the layout's "
+              f"{want_bytes}")
+        for d in range(shape[0]):
+            held = [r["held_steps"] for r in per_rank if r["coords"]["data"] == d]
+            check(min(held) > 0 and sum(held) == TPD_STEPS,
+                  f"tp_decode {arch}: steps whose slot each model rank held {held}, "
+                  f"want each above 0 and {TPD_STEPS} in all")
+        for i, r in enumerate(per_rank):
+            who = f"tp_decode {arch} rank {i}"
+            over = [(t, e, tol[t]) for t, e in enumerate(r["rel_err"]) if e >= tol[t]]
+            check(not over, f"{who}: logits apart beyond the step's bf16 rule "
+                  f"(step, of the largest, rule): {over[:4]}")
+            check(r["clear_flips"] == 0, f"{who}: {r['clear_flips']} greedy tokens "
+                  f"differ with a top-2 margin above {FLIP_MARGIN}")
+            check(r["launches"] == want_launch, f"{who} launched {r['launches']}, "
+                  f"want {want_launch}")
+            check(r["cache_faults"] == [], f"{who}: cache rows changed away from "
+                  f"the step's held slot (step, leaf, rows): {r['cache_faults']}")
+            check(r["kv_cache_bytes"] == r["state_bytes"] == want_bytes,
+                  f"{who}: kv_cache_bytes {r['kv_cache_bytes']}, its state "
+                  f"{r['state_bytes']}, the layout's {want_bytes}")
+            check(all(m == r["moved"][0] for m in r["moved"]),
+                  f"{who}: the collectives' bytes vary by step")
+            moved = {k.replace("_", "-"): v for k, v in r["moved"][0].items()}
+            check(moved == walked["collectives"], f"{who}: handed the "
+                  f"collectives {moved} a step, the dry run {walked['collectives']}")
+        launches[f"{arch}_{cfg.n_layers}L_decode_tp_{shape[0]}x{shape[1]}_"
+                 f"{TPD_STEPS}_steps"] = {
+            k: sum(r["launches"].get(k, 0) for r in per_rank) for k in ops.launch_counts()}
+        runs[arch].update({
+            "mesh": dict(zip(TP_NAMES, shape)), "n_layers": cfg.n_layers,
+            "fsdp": fsdp, "batch": TPD_B, "seq_len": TPD_SEQ, "steps": TPD_STEPS,
+            "kv_cache_bits": TPD_BITS,
+            "reduced": {"global_batch": [configs.SHAPES["decode_32k"][1], TPD_B],
+                        "seq_len": [configs.SHAPES["decode_32k"][0], TPD_SEQ],
+                        **({"n_layers": [configs.load_arch(arch).n_layers, n_layers]}
+                           if n_layers else {})},
+            "local_cache": per_rank[0]["local_cache"],
+            "held_steps": [r["held_steps"] for r in per_rank],
+            "rel_err_max": [max(r["rel_err"]) for r in per_rank],
+            "rel_err_rank0": per_rank[0]["rel_err"], "rule": tol,
+            "greedy_apart": [r["flips"] for r in per_rank],
+            "min_top2_margin": min(per_rank[0]["min_margin"]),
+            "step_ms": [r["step_ms"] for r in per_rank],
+            "step_ms_median": float(np.median([t for r in per_rank
+                                               for t in r["step_ms"][1:]])),
+            "one_card_step_ms_median": float(np.median(runs[arch]["one_card_step_ms"][1:])),
+            "moved_per_step": per_rank[0]["moved"][0],
+            "dryrun_collectives": walked["collectives"],
+            "kv_cache_bytes_per_rank": per_rank[0]["kv_cache_bytes"],
+            "dryrun_decode_state_bytes_per_rank": walked["decode_state_bytes_per_rank"],
+            "dryrun_walk_s": walk_s, "launches_per_rank": per_rank[0]["launches"],
+            "peak_GiB": [r["peak_GiB"] for r in per_rank]})
+        del runs[arch]["one_card_step_ms"]
+    emit({"phase": "tp_decode", "backend": ranks[0]["backend"], "ranks_s": ranks_s,
+          "one_card_s": one_s, "runs": runs, "nvidia_smi": smi})
+    return launches
+
+
 def wrapper_device_ops(case) -> dict:
     """The device ops of WRAPPER_CALLS back-to-back calls of a walked
     wrapper, by ``device_profile``: its kernel once a call and nothing else
@@ -4304,6 +4647,18 @@ def phase_tooling(dev) -> dict:
     check(report_["ok"], "audit diverged on the card: " + json.dumps(
         [c for c in report_["checks"] if c["diverged"]]))
     walk_s = time.perf_counter() - t0
+    # one full-size decode cell's dry run: a rank of the (16, 16) mesh over
+    # the fake process group, nothing allocated
+    from repro_torch.launch import dryrun
+    cell = dryrun.run_cell(*DRYRUN_CELL)
+    check(cell["ok"] and cell["chips"] == 256
+          and cell["param_bytes_held"] == cell["param_bytes_per_rank"],
+          f"the dry run of {DRYRUN_CELL}: {cell.get('error', cell.get('chips'))}")
+    dry = {k: cell[k] for k in ("arch", "shape", "mesh", "chips", "ops",
+                                "flops_per_device", "bytes_per_device",
+                                "collectives", "argument_size_in_bytes",
+                                "decode_state_bytes_per_rank", "param_bytes_per_rank",
+                                "roofline", "walk_s", "total_s")}
     # the examples at their small sizes on the card (quickstart also on the
     # CPU: every host number equal)
     t1 = time.perf_counter()
@@ -4348,7 +4703,7 @@ def phase_tooling(dev) -> dict:
     launches = ops.launch_counts()
     for name, count in launches.items():
         check(count >= 1, f"the tooling phase never launched {name}: {launches}")
-    emit({"phase": "tooling", "walk_and_audit_s": walk_s,
+    emit({"phase": "tooling", "walk_and_audit_s": walk_s, "dryrun": dry,
           "examples_s": time.perf_counter() - t1,
           "seconds": time.perf_counter() - t0,
           "access_findings": len(findings), "cases": len(cases),
@@ -4408,7 +4763,7 @@ def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
         **{f"{arch}_train_graph_{GRAPH_STEPS}_steps": v
            for arch, v in paths["train_graph"].items()},
         **paths["dist"], **paths["tp"]["launches"],
-        **paths["tp_families"]["launches"],
+        **paths["tp_families"]["launches"], **paths["tp_decode"],
         "tooling_phase": paths["tooling"]}
     windowed = {"flash_attention.flash_fwd": paths["hybrid_serve"]["window_fwd"],
                 **paths["families_train"]["window_bwd"]}
@@ -4443,6 +4798,8 @@ def main() -> int:
         return tp_child(int(sys.argv[2]), sys.argv[3])
     if sys.argv[1:2] == ["--tp-families-rank"]:   # one of phase_tp_families'
         return tpf_child(int(sys.argv[2]), sys.argv[3])
+    if sys.argv[1:2] == ["--tp-decode-rank"]:     # one of phase_tp_decode's
+        return tpd_child(int(sys.argv[2]), sys.argv[3])
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 parity: full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -4498,6 +4855,8 @@ def main() -> int:
     paths["tp"] = phase_tp(dev, smi, copy_rate)
     torch.cuda.empty_cache()
     paths["tp_families"] = phase_tp_families(dev, smi, copy_rate)
+    torch.cuda.empty_cache()
+    paths["tp_decode"] = phase_tp_decode(dev, smi)
     paths["tooling"] = tooling
     paths["train_graph"] = train_graph
     add_family_paths(rows, prefill, serve, trained, paths)

@@ -28,6 +28,10 @@ Laid out module for module like ``repro``.  Ported so far:
   sharding rules (``distributed.sharding``), the ``pod`` and ``data`` axes
   as data parallelism, and the paper's compressed cross-pod gradient
   exchange with error feedback (``distributed.collectives``);
+* serving on such a mesh: ``decode_step`` on a rank's blocks of the
+  decode state (``ModelApi.decode_state_specs``,
+  ``init_decode_state(batch, mesh=)``), the KV cache's slots split over
+  ``model``;
 
 with hand-written CUDA kernels for Hopper (sm_90a) in ``kernels/csrc``.
 

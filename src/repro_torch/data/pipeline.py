@@ -99,6 +99,18 @@ class SyntheticPipeline:
         return x.astype(np.float32)
 
 
+def batch_rows(B: int, mesh) -> slice:
+    """This rank's rows of a global batch of ``B`` on ``mesh`` (see
+    ``device_batch``)."""
+    for axes in (("pod", "data"), ("pod",)):
+        axes = tuple(a for a in axes if a in mesh.axis_names)
+        n = mesh.size(axes)
+        if axes and B % n == 0:
+            i = mesh.index(axes)
+            return slice(i * B // n, (i + 1) * B // n)
+    return slice(None)
+
+
 def device_batch(batch: Dict[str, Any], cfg: ModelConfig, rc: RunConfig,
                  device="cuda", mesh=None) -> Dict[str, torch.Tensor]:
     """Cast to the cell's input dtypes (``model_zoo.input_specs``) on ``device``.
@@ -113,15 +125,8 @@ def device_batch(batch: Dict[str, Any], cfg: ModelConfig, rc: RunConfig,
     replicate it.
     """
     specs = model_zoo.input_specs(cfg, rc)
-    rows = slice(None)
     B = len(next(iter(batch.values())))
-    for axes in ((("pod", "data"), ("pod",)) if mesh is not None else ()):
-        axes = tuple(a for a in axes if a in mesh.axis_names)
-        n = mesh.size(axes)
-        if axes and B % n == 0:
-            i = mesh.index(axes)
-            rows = slice(i * B // n, (i + 1) * B // n)
-            break
+    rows = slice(None) if mesh is None else batch_rows(B, mesh)
     return {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(
                 device=device, dtype=specs[k].dtype)
             for k, v in batch.items()}

@@ -179,13 +179,13 @@ def _gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 
 def _scatter_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     """The sum over ``group`` of ``x`` in f32, this rank's block of it
-    along ``dim`` (``x``'s dtype): a reduce-scatter on NCCL; on gloo an
+    along ``dim`` (``x``'s dtype): a reduce-scatter; on gloo an
     all-reduce, then the block (gloo's reduce-scatter of host tensors is
     the slower of the two)."""
     _moved["reduce_scatter"] += x.numel() * 4
     n, i = dist.get_world_size(group), dist.get_rank(group)
     size = x.shape[dim] // n
-    if dist.get_backend(group) != "nccl":
+    if dist.get_backend(group) == "gloo":
         return _reduce(x, group).narrow(dim, i * size, size).contiguous()
     buf = x.to(F32).movedim(dim, 0).contiguous()
     out = torch.empty((size, *buf.shape[1:]), dtype=F32, device=x.device)

@@ -58,7 +58,7 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.ckpt import Stacked, leaf_shape, map_tree
+from repro_torch.checkpoint.ckpt import Stacked, flatten, leaf_shape, map_tree
 
 class PartitionSpec(tuple):
     """One mesh axis (a name, a tuple of names, or ``None``) a dimension:
@@ -168,6 +168,39 @@ def tp_block(logical: str, full: int):
         return None
     size = full // tp
     return r.mesh.coords["model"] * size, size
+
+
+def batch_block(B: int):
+    """``(start, size)`` of this rank's rows of a batch of ``B`` where the
+    rules split it (the ``batch`` rule: ``pod`` and ``data``, where their
+    product divides B and is above 1); ``None`` where every rank holds all
+    B rows."""
+    r = get_rules()
+    if r is None or r.mesh is None:
+        return None
+    axes = r.resolve("batch", B)
+    n = r.mesh.size(axes) if axes else 1
+    if n == 1:
+        return None
+    return r.mesh.index(axes) * (B // n), B // n
+
+
+def rank_rows(x, B: int):
+    """``x``, whose first dimension is a batch of ``B`` rows or already
+    this rank's rows of it, as this rank's rows (``batch_block``)."""
+    block = batch_block(B)
+    return x if block is None or x.shape[0] != B else x.narrow(0, *block)
+
+
+def whole_batch(x, B: int):
+    """``x``, this rank's rows of a batch of ``B`` along its first
+    dimension, gathered whole over the batch axes (``batch_block``); ``x``
+    itself where the batch is not split."""
+    if batch_block(B) is None:
+        return x
+    from repro_torch.distributed import collectives
+    r = get_rules()
+    return collectives.gather(x, 0, r.mesh.get_group(r.resolve("batch", B)))
 
 
 def seq_split(S: int) -> bool:
@@ -404,6 +437,30 @@ def spec_tree(logicals, shapes):
         return map_tree(lambda _: P(), logicals)
     return map_tree(lambda log, shp: r.spec(_shape_of(shp), log),
                     logicals, shapes)
+
+
+def local_state(whole, tree, logical, mesh, device):
+    """A state of zeros holding this rank's block of every leaf: ``whole``
+    is the state at its full size (on the ``meta`` device: nothing
+    allocated), ``tree`` the same tensors as the reference's tree (a
+    per-layer list as a ``Stacked`` leaf), ``logical`` the reference's
+    logical axes of that tree.  Each leaf's spec is resolved on its whole
+    shape under ``Rules(mesh)`` (a ``Stacked`` leaf's part takes the spec
+    without its layer axis) and the leaf cut to ``local_slice``'s block;
+    the result has ``whole``'s structure (NamedTuples and lists), its
+    tensors on ``device``."""
+    from torch.utils._pytree import tree_map
+
+    with use_rules(Rules(mesh=mesh)):
+        specs = spec_tree(logical, tree)
+    blocks = {}
+    for (_, leaf), (_, spec) in zip(flatten(tree), flatten(specs), strict=True):
+        parts, spec = ((leaf.parts, P(*spec[1:])) if isinstance(leaf, Stacked)
+                       else ([leaf], spec))
+        for t in parts:
+            blocks[id(t)] = torch.zeros(local_slice(t, spec, mesh).shape,
+                                        dtype=t.dtype, device=device)
+    return tree_map(lambda t: None if t is None else blocks[id(t)], whole)
 
 
 def _shape_of(x) -> tuple:

@@ -1,23 +1,43 @@
 """Dry run of every (arch x shape x mesh) cell without hardware (port of
 ``repro.launch.dryrun``).
 
-The reference lowers and compiles each cell's step against abstract
-inputs on 512 host devices and reads XLA's analyses.  The port builds the
-cell's model under ``FakeTensorMode`` — tensors with ``meta`` storage that
-report the device they would live on, so nothing is allocated and the
-kernel wrappers take their plain routes, as on a CPU tensor — and runs the
-step (``train.step.make_train_step``, ``prefill`` or ``decode_step``) once
-under ``launch.op_walk``.  It records
+The reference lowers and compiles each cell's step with explicit in / out
+shardings on 512 host devices and reads XLA's per-device analyses.  The
+port walks one rank's step instead.  It starts the fake process group
+that torch ships (``torch.testing._internal.distributed.fake_pg``: every
+collective returns at once, nothing crosses a wire) as rank 0 of the
+production mesh's size, builds the mesh (``launch.mesh.make_mesh``:
+``single`` (16, 16) over ``data, model``, ``multi`` (2, 16, 16) over
+``pod, data, model``), installs the rules (``train.step.rules_for``) and,
+under ``FakeTensorMode`` (tensors with ``meta`` storage: nothing is
+allocated, and the kernel wrappers take their plain routes, as on a CPU
+tensor), builds what the rank holds: its blocks of the train state
+(``train.step.init_state(..., mesh)``), or of the parameters
+(``param_partition``) and the decode state
+(``init_decode_state(batch, mesh=)``), and its rows of the batch.  It runs
+the step (``make_train_step(..., mesh)``, ``prefill`` or ``decode_step``)
+once under ``launch.op_walk`` and records, for that rank:
 
-  * the FLOPs (``FlopCounterMode``) and the inputs + outputs of every op
-    (``op_bytes``, traffic before any fusion), per device;
-  * parameter and optimizer bytes;
+  * ``chips`` (the mesh's size), the FLOPs (``FlopCounterMode``) and the
+    inputs + outputs of every op (``op_bytes``, traffic before any fusion);
+  * ``collectives``: the bytes the step handed each collective
+    (``roofline.collective_bytes``, by the reference's op names);
+  * ``argument_size_in_bytes``: the step's arguments (the state, or the
+    parameters and the decode state, and the batch block), and
+    ``decode_state_bytes_per_rank`` (its caches, as
+    ``ServeEngine.kv_cache_bytes`` counts them);
+  * the parameter and optimizer bytes the rank holds, walked
+    (``param_bytes_held``) and from the rules (``rank_bytes``), which must
+    agree; the whole model's count and bytes;
   * ``roofline.kernelized_io_bytes`` and ``model_flops_for``, and the
-    roofline terms with the card's constants;
-  * for the ``multi`` mesh (2 pods x 16 x 16 over ``pod``, ``data``,
-    ``model``), each rank's parameter and optimizer bytes from the port's
-    sharding rules (``train.step.param_partition``), without running a
-    collective; the step itself is walked once on one device.
+    roofline terms with the card's constants, the collective term
+    included.
+
+The fake group's backend is neither NCCL nor gloo.  The walk models NCCL,
+the production route: ``distributed.collectives`` issues a reduce-scatter
+(not gloo's all-reduce and slice) on it.  XLA's ``lower_s``,
+``compile_s`` and ``temp_size_in_bytes`` have no counterpart.  A rank's
+walk is every rank's up to its coordinates: the blocks divide evenly.
 
 An op that fails on the fake device (one that needs data, such as a
 data-dependent shape) fails the cell: its record holds the error and names
@@ -32,6 +52,7 @@ Results land in benchmarks/out/dryrun_torch/<arch>__<shape>__<mesh>.json.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -57,7 +78,11 @@ def _nbytes(tensors) -> int:
 def rank_bytes(cfg, rc, shape, names) -> dict:
     """Parameter and optimizer bytes a rank holds on a mesh of ``shape``
     over ``names`` under the port's rules: each leaf's block is its whole
-    size over the sizes of the axes its resolved spec names."""
+    size over the sizes of the axes its resolved spec names, in the leaf's
+    own dtype (the SSD's ``a_log``, ``dt_bias`` and ``d_skip`` are f32
+    whatever the model's)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
     from repro_torch.launch.mesh import abstract_mesh
     from repro_torch.models import model_zoo
     from repro_torch.train import step as train_step
@@ -65,28 +90,126 @@ def rank_bytes(cfg, rc, shape, names) -> dict:
     api = model_zoo.get_api(cfg, rc, "cpu")
     sizes = dict(zip(names, shape))
     specs = train_step.param_partition(api, rc, abstract_mesh(shape, names))
-    held = 0
-    for n, full in train_step.full_shapes(api).items():
+    with FakeTensorMode():
+        params = dict(api.init(0).named_parameters())
+    held = nbytes = 0
+    for n, p in params.items():
         div = int(np.prod([sizes[a] for part in specs[n]
                            for a in ((part,) if isinstance(part, str)
                                      else part or ())]))
-        held += int(np.prod(full)) // div
-    p_item = torch.empty((), dtype=rc.torch_dtype).element_size()
+        held += p.numel() // div
+        nbytes += p.numel() // div * p.element_size()
     o_item = 2 if rc.opt_dtype == "bfloat16" else 4
-    return {"params_per_rank": held,
-            "param_bytes_per_rank": held * p_item,
+    return {"params_per_rank": held, "param_bytes_per_rank": nbytes,
             "opt_bytes_per_rank": (2 * held * o_item
                                    if rc.kind == "train" else 0)}
 
 
-def run_cell(arch: str, shape: str, mesh_kind: str = "single",
-             overrides=None, smoke: bool = False) -> dict:
+def walk_step(cfg, rc, mesh=None) -> dict:
+    """One rank's step of ``cfg`` under ``rc`` on ``mesh`` (a
+    ``launch.mesh.Mesh`` of the initialized process group; ``None``: the
+    whole step on one device), built and walked under ``FakeTensorMode``:
+    the record's step fields (see the module's docstring)."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from repro_torch.configs import base
-    from repro_torch.launch import cells, op_walk, roofline
+    from repro_torch.data.pipeline import batch_rows
+    from repro_torch.distributed import collectives, sharding as shd
+    from repro_torch.launch import op_walk, roofline
     from repro_torch.models import model_zoo
     from repro_torch.train import step as train_step
+
+    rec = {"chips": 1 if mesh is None else int(np.prod(list(mesh.shape.values())))}
+    rules = train_step.rules_for(rc, mesh)
+    with FakeTensorMode():
+        api = model_zoo.get_api(cfg, rc, "cpu")
+        B = rc.global_batch
+        batch = {k: torch.zeros(s.shape, dtype=s.dtype)
+                 for k, s in model_zoo.input_specs(cfg, rc).items()}
+        if mesh is not None and rc.kind != "decode":
+            rows = batch_rows(B, mesh)
+            batch = {k: v[rows] for k, v in batch.items()}
+        t0 = time.time()
+        dstate = None
+        if rc.kind == "train":
+            state = train_step.init_state(api, rc, 0, mesh)
+            params = dict(state.params.named_parameters())
+            opt = list(state.opt.mu.values()) + list(state.opt.nu.values())
+            args = train_step.state_tensors(state)
+            fn = train_step.make_train_step(api, cfg, rc, mesh)
+            walked = (state, batch)
+        else:
+            model = api.init(0)
+            if mesh is not None:
+                specs = train_step.param_partition(api, rc, mesh)
+                for n, p in model.named_parameters():
+                    shd.shard_parameter(p, specs[n], mesh)
+            params = dict(model.named_parameters())
+            opt, args = [], list(params.values())
+            if rc.kind == "prefill":
+                step, walked = api.prefill, (model, batch)
+            else:
+                dstate = api.init_decode_state(B, mesh=mesh)
+                with shd.use_rules(rules):     # the rows the state holds
+                    tokens = shd.rank_rows(batch["tokens"], B)
+                batch = {"tokens": tokens}
+                args += list(api.cache_leaves(dstate)) + [dstate.pos]
+                step, walked = api.decode_step, (model, dstate, tokens)
+
+            def fn(*a):
+                with shd.use_rules(rules):
+                    return step(*a)
+        args += list(batch.values())
+        rec["init_s"] = round(time.time() - t0, 2)
+        rec["param_bytes_held"] = _nbytes(params.values())
+        rec["opt_bytes_held"] = _nbytes(opt)
+        rec["argument_size_in_bytes"] = _nbytes(args)
+        if dstate is not None:
+            rec["decode_state_bytes_per_rank"] = _nbytes(api.cache_leaves(dstate))
+        collectives.reset_collective_bytes()
+        collectives.reset_wire_bytes()
+        t0 = time.time()
+        w = op_walk.walk(fn, *walked)
+        rec["walk_s"] = round(time.time() - t0, 2)
+        rec["collectives"] = roofline.collective_bytes()
+    rec["ops"] = len(w.ops)
+    rec["flops_per_device"] = float(w.flops)
+    rec["flops_by_op"] = w.flops_by_op
+    rec["bytes_per_device"] = float(w.op_bytes)
+    return rec
+
+
+@contextlib.contextmanager
+def fake_mesh(shape, names, rank: int = 0):
+    """A ``launch.mesh.Mesh`` of ``shape`` over ``names`` whose process
+    group is the fake one, this process its rank ``rank``: started here
+    (refused if a default process group exists) and destroyed on exit."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.mesh import make_mesh
+
+    if dist.is_initialized():
+        raise RuntimeError("the dry run starts its own fake process group: a "
+                           "default process group already exists")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=int(np.prod(shape)))
+    try:
+        yield make_mesh(shape, names, device="cpu")
+    finally:
+        dist.destroy_process_group()
+
+
+def walk_rank(cfg, rc, shape, names, rank: int = 0) -> dict:
+    """``walk_step`` of rank ``rank`` on a mesh of ``shape`` over
+    ``names``, over the fake process group (``fake_mesh``)."""
+    with fake_mesh(shape, names, rank) as mesh:
+        return walk_step(cfg, rc, mesh)
+
+
+def run_cell(arch: str, shape: str, mesh_kind: str = "single",
+             overrides=None, smoke: bool = False) -> dict:
+    from repro_torch.configs import base
+    from repro_torch.launch import cells, roofline
 
     t_start = time.time()
     overrides = dict(overrides or {})
@@ -96,59 +219,38 @@ def run_cell(arch: str, shape: str, mesh_kind: str = "single",
     if cfg_over:
         cfg = dataclasses.replace(cfg, **cfg_over)
     rc = cells.resolve_run_config(arch, shape, **overrides)
+    mshape, names = MESHES[mesh_kind]
     rec = {"arch": arch, "shape": shape, "mesh": mesh_kind, "kind": rc.kind,
-           "smoke": smoke, "chips": 1, "ok": False}
-
-    with FakeTensorMode():
-        api = model_zoo.get_api(cfg, rc, "cpu")
-        batch = {k: torch.zeros(s.shape, dtype=s.dtype)
-                 for k, s in model_zoo.input_specs(cfg, rc).items()}
-        t0 = time.time()
-        if rc.kind == "train":
-            state = train_step.init_state(api, rc, 0)
-            params = dict(state.params.named_parameters())
-            opt = list(state.opt.mu.values()) + list(state.opt.nu.values())
-            step = train_step.make_train_step(api, cfg, rc)
-            fn, args = step, (state, batch)
-        else:
-            model = api.init(0)
-            params = dict(model.named_parameters())
-            opt = []
-            if rc.kind == "prefill":
-                fn, args = api.prefill, (model, batch)
-            else:
-                dstate = api.init_decode_state(rc.global_batch)
-                fn, args = api.decode_step, (model, dstate, batch["tokens"])
-        rec["init_s"] = round(time.time() - t0, 2)
-        rec["params"] = sum(p.numel() for p in params.values())
-        rec["param_bytes"] = _nbytes(params.values())
-        rec["opt_bytes"] = _nbytes(opt)
-        t0 = time.time()
-        w = op_walk.walk(fn, *args)
-        rec["walk_s"] = round(time.time() - t0, 2)
-    rec["ops"] = len(w.ops)
-    rec["flops_per_device"] = float(w.flops)
-    rec["flops_by_op"] = w.flops_by_op
-    rec["bytes_per_device"] = float(w.op_bytes)
-    kio = roofline.kernelized_io_bytes(cfg, rc, 1)
+           "smoke": smoke, "ok": False}
+    rec.update(walk_rank(cfg, rc, mshape, names))
+    chips = rec["chips"]
+    whole = rank_bytes(cfg, rc, (1, 1), ("data", "model"))
+    rec["params"], rec["param_bytes"] = (whole["params_per_rank"],
+                                         whole["param_bytes_per_rank"])
+    rec["opt_bytes"] = (2 * rec["params"] * (2 if rc.opt_dtype == "bfloat16" else 4)
+                        if rc.kind == "train" else 0)
+    kio = roofline.kernelized_io_bytes(cfg, rc, chips)
     rec["kernelized_io_bytes"] = kio
     rec["model_flops"] = roofline.model_flops_for(cfg, rc)
     rl = roofline.analyze(rec["flops_per_device"], rec["bytes_per_device"],
-                          {}, 1, rec["model_flops"])
-    rlk = roofline.analyze(rec["flops_per_device"], kio, {}, 1,
-                           rec["model_flops"])
+                          rec["collectives"], chips, rec["model_flops"])
+    rlk = roofline.analyze(rec["flops_per_device"], kio, rec["collectives"],
+                           chips, rec["model_flops"])
     rec["roofline"] = {
         "compute_s": rl.compute_s, "memory_s": rl.memory_s,
-        "memory_s_kernelized": rlk.memory_s,
+        "memory_s_kernelized": rlk.memory_s, "collective_s": rl.collective_s,
         "dominant": rl.dominant, "dominant_kernelized": rlk.dominant,
         "model_flops_ratio": rl.model_flops_ratio,
         "mfu_bound": rl.mfu_bound, "mfu_bound_kernelized": rlk.mfu_bound,
-        "peak_flops": roofline.PEAK_FLOPS, "hbm_bw": roofline.HBM_BW}
-    if mesh_kind in MESHES:
-        mshape, names = MESHES[mesh_kind]
-        rec["mesh_shape"] = list(mshape)
-        rec["mesh_chips"] = int(np.prod(mshape))
-        rec.update(rank_bytes(cfg, rc, mshape, names))
+        "peak_flops": roofline.PEAK_FLOPS, "hbm_bw": roofline.HBM_BW,
+        "link_bw": roofline.LINK_BW}
+    rec["mesh_shape"] = list(mshape)
+    rec["mesh_chips"] = chips
+    rec.update(rank_bytes(cfg, rc, mshape, names))
+    if rec["param_bytes_held"] != rec["param_bytes_per_rank"]:
+        raise RuntimeError(f"the walked rank holds {rec['param_bytes_held']} "
+                           f"parameter bytes, the rules give "
+                           f"{rec['param_bytes_per_rank']}")
     rec["ok"] = True
     rec["total_s"] = round(time.time() - t_start, 2)
     return rec

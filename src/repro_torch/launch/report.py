@@ -5,12 +5,13 @@ of ``repro.launch.report``).
 [--table roofline|dryrun|both] [--mesh single] [--tag T]``
 
 The records are ``launch.dryrun``'s, one JSON file a cell
-(``<arch>__<shape>__<mesh>[__<tag>].json``).  The port walks each step
-under ``FakeTensorMode`` instead of lowering it through XLA, so its
-records hold ``walk_s`` and each rank's parameter and optimizer bytes, and
-no ``lower_s``, ``compile_s``, XLA memory analysis or collective bytes:
-each table keeps the reference's columns, renders ``-`` for a field the
-record lacks, and adds the port's own after them.  ``fmt_s``, ``pct`` and
+(``<arch>__<shape>__<mesh>[__<tag>].json``).  The port walks one rank's
+step under ``FakeTensorMode`` on the fake process group instead of
+lowering it through XLA, so its records hold the rank's collective bytes,
+its argument bytes, ``walk_s`` and its parameter and optimizer bytes, and
+no ``lower_s``, ``compile_s`` or XLA's temporary bytes: each table keeps
+the reference's columns, renders ``-`` for a field the record lacks, and
+adds the port's own after them.  ``fmt_s``, ``pct`` and
 ``md_table`` are shared with ``repro_torch.obs.report`` and
 ``repro_torch.obs.regress``.
 """

@@ -36,7 +36,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.checkpoint.ckpt import Attrs, map_tree
+from repro_torch.checkpoint.ckpt import Attrs, Stacked, map_tree
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.distributed import sharding as shd
 from . import layers as L
@@ -241,11 +241,38 @@ class EncDecDecodeState(NamedTuple):
     pos: torch.Tensor         # (B,) next position per sequence
 
 
+def decode_state_specs(cfg: ModelConfig, rc: RunConfig) -> Attrs:
+    """Logical axes of the decode state, the reference's
+    ``EncDecDecodeState`` tree (the self-attention caches stacked): the
+    cross K/V split over the batch only."""
+    return Attrs(
+        self_kv=map_tree(lambda t: (None,) + t, L.cache_specs(rc.kv_cache_bits)),
+        cross_k=(None, "batch", None, None, None),
+        cross_v=(None, "batch", None, None, None),
+        pos=(None,))
+
+
+def state_tree(state: EncDecDecodeState) -> Attrs:
+    """The state as the reference's tree, for ``decode_state_specs``: each
+    field of the per-layer self-attention caches one ``Stacked`` leaf."""
+    first = state.self_kv[0]
+    kv = Attrs((f, None if getattr(first, f) is None else Stacked(
+        [getattr(c, f) for c in state.self_kv])) for f in L.KVCache._fields)
+    return Attrs(self_kv=kv, cross_k=state.cross_k, cross_v=state.cross_v,
+                 pos=state.pos)
+
+
 def init_decode_state(cfg: ModelConfig, rc: RunConfig, batch: int,
-                      device="cuda") -> EncDecDecodeState:
+                      device="cuda", mesh=None) -> EncDecDecodeState:
     """Every leaf zero, the kv scales included, as the reference's.  The
     reference binds one zero array as both cross_k and cross_v; here they
-    are two tensors."""
+    are two tensors.  With ``mesh``, this rank's block of every leaf
+    (``sharding.local_state``), as ``transformer.init_decode_state``."""
+    if mesh is not None:
+        whole = init_decode_state(cfg, rc, batch, "meta")
+        return shd.local_state(whole, state_tree(whole),
+                               decode_state_specs(cfg, rc), mesh, device)
+
     def kv():
         return L.KVCache(*(None if t is None else torch.zeros_like(t) for t in
                            L.init_cache(cfg, batch, rc.seq_len, rc.kv_cache_bits,
@@ -280,16 +307,13 @@ def reset_decode_state(state: EncDecDecodeState) -> EncDecDecodeState:
 def _cross_decode(h: torch.Tensor, p: L.AttnParams, ck: torch.Tensor,
                   cv: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """One query against the cached cross K/V (B, enc_seq, KV, hd): the
-    reference's f32 softmax, K and V cast to f32 at every step."""
-    B = h.shape[0]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = (h @ p.wq).reshape(B, 1, H, hd)
-    qg = q.reshape(B, 1, KV, H // KV, hd).to(F32)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg, ck.to(F32))
-    p_attn = torch.softmax(s * hd ** -0.5, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bkgqd", p_attn, cv.to(F32))
-    o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, H * hd)
-    return o.to(h.dtype) @ p.wo
+    reference's f32 softmax, K and V cast to f32 at every step.  On a
+    ``model`` axis above 1 each rank runs its own heads (``layers._heads``)
+    against the cross K/V of its rows, every KV head."""
+    q0, q1 = L._heads(cfg).q
+    q = L.decode_queries(h, p, cfg)[:, :, q0:q1]
+    o = L._attend(q, ck, cv, q0, cfg.n_heads // cfg.n_kv_heads, round_p=False)
+    return L.decode_out(o.to(h.dtype), p, cfg, q0)
 
 
 def decode_step(params: EncDecParams, state: EncDecDecodeState,
@@ -298,17 +322,23 @@ def decode_step(params: EncDecParams, state: EncDecDecodeState,
 
     The self-attention caches advance in place (``layers.update_cache``);
     the returned state holds the same tensors and the advanced positions.
+    On a mesh, as ``transformer.decode_step``: this rank's rows and blocks,
+    the logits whole on every rank.
     """
-    x = L.embed(tokens[:, None], params.embed)            # (B, 1, d)
+    B = state.pos.shape[0]
+    pos, tokens = shd.rank_rows(state.pos, B), shd.rank_rows(tokens, B)
+    embed = shd.gathered(params.embed)
+    x = L.embed(tokens[:, None], embed, cfg)              # (B, 1, d)
     for i, (lp, kv) in enumerate(zip(params.dec_layers, state.self_kv)):
+        lp = shd.gathered(lp)
         h = L.rmsnorm(x, lp.ln1, cfg.norm_eps)
-        a, _ = L.decode_attention(h, lp.self_attn, cfg, kv, state.pos,
-                                  rc.kv_cache_bits)
+        a, _ = L.decode_attention(h, lp.self_attn, cfg, kv, pos,
+                                  rc.kv_cache_bits, s_cache=rc.seq_len)
         x = x + a
         h = L.rmsnorm(x, lp.ln_x, cfg.norm_eps)
         x = x + _cross_decode(h, lp.cross_attn, state.cross_k[i],
                               state.cross_v[i], cfg)
         h = L.rmsnorm(x, lp.ln2, cfg.norm_eps)
-        x = x + L.mlp(h, lp.mlp, cfg.mlp_act)
-    lg = L.logits(x, params.embed, cfg)[:, 0]
-    return lg, state._replace(pos=state.pos + 1)
+        x = x + L.mlp(h, lp.mlp, cfg.mlp_act, cfg.d_ff)
+    lg = L.logits(x, embed, cfg)[:, 0]
+    return shd.whole_batch(lg, B), state._replace(pos=state.pos + 1)

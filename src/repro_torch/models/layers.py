@@ -373,6 +373,15 @@ class KVCache(NamedTuple):
     v_scale: Optional[torch.Tensor]
 
 
+def cache_specs(bits: int = 16) -> Attrs:
+    """Logical axes of a ``KVCache``, the reference's tree: each row's
+    batch and slot (``cache_seq``); the scales only where the cache is
+    packed."""
+    s = ("batch", "cache_seq", None, None) if bits != 16 else None
+    return Attrs(k=("batch", "cache_seq", None, None),
+                 v=("batch", "cache_seq", None, None), k_scale=s, v_scale=s)
+
+
 def init_cache(cfg: ModelConfig, batch: int, s_cache: int, bits: int,
                dtype=torch.bfloat16, device="cuda") -> KVCache:
     KV, hd = cfg.n_kv_heads, cfg.hd
@@ -419,22 +428,143 @@ def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
+def _store_held(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
+                slot: torch.Tensor, bits: int, lo: int) -> None:
+    """``update_cache`` on this rank's block of the cache's slots, ``[lo,
+    lo + S)`` of the whole cache: each row is written only where the
+    rank holds its slot (``slot``, already within the whole cache).  The
+    store itself clamps a slot past the block to its last slot, as the
+    reference's update does, so a row whose slot another rank holds is put
+    back as it was: its cache rows stay bit-unchanged."""
+    S = cache.k.shape[1]
+    local = slot - lo
+    held = ((local >= 0) & (local < S))[:, None, None]
+    at = torch.clamp(local, 0, S - 1)
+    b = torch.arange(slot.shape[0], device=slot.device)
+    old = [None if t is None else t[b, at] for t in cache]
+    update_cache(cache, k_new, v_new, at, bits)
+    for t, o in zip(cache, old):
+        if t is not None:
+            t[b, at] = torch.where(held, t[b, at], o)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q0: int,
+            G: int, valid: Optional[torch.Tensor] = None,
+            round_p: bool = True, group=None) -> torch.Tensor:
+    """One query a row against cached keys: q (B, 1, n, hd) the query heads
+    ``[q0, q0 + n)`` of ``G`` a KV head, k and v (B, S, KV, hd) every KV
+    head, ``valid`` (B, S) the slots each row may read (``None``: all).
+
+    The reference's decode softmax: the scores in f32, the probabilities
+    rounded to the cache's dtype before P·V where ``round_p`` (the
+    self-attention's; the cross-attention keeps them f32).  With ``group``
+    (the ``model`` axis, each rank holding a block of the slots) the
+    softmax is taken over the slots of every rank: the scores' max and the
+    sum of their exponentials all-reduced before the probabilities are
+    formed, so that each is the single device's value up to the order of
+    the sum, and P·V's partial sums all-reduced.  -> o (B, 1, n * hd) f32.
+    """
+    B, _, n, hd = q.shape
+    k0, k1 = q0 // G, (q0 + n - 1) // G + 1
+    if (q0 % G == 0 and n % G == 0) or k1 - k0 == 1:
+        k, v = k[:, :, k0:k1], v[:, :, k0:k1]
+    else:   # a head cut between KV heads' groups: one KV head a query head
+        idx = torch.tensor([h // G for h in range(q0, q0 + n)], device=q.device)
+        k, v = k.index_select(2, idx), v.index_select(2, idx)
+    qg = q.reshape(B, 1, k.shape[2], -1, hd).to(k.dtype)   # (B,1,KV,G,D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(F32), k.to(F32)) * (hd ** -0.5)
+    if valid is not None:
+        s = torch.where(valid[:, None, None, None, :], s,
+                        torch.full_like(s, NEG_INF))
+    if group is None:
+        p_attn = torch.softmax(s, dim=-1)
+    else:
+        m = collectives.all_reduce_max(s.amax(dim=-1, keepdim=True), group)
+        e = torch.exp(s - m)
+        p_attn = e / collectives.all_reduce(e.sum(dim=-1, keepdim=True), group)
+    if round_p:
+        p_attn = p_attn.to(k.dtype)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p_attn.to(F32), v.to(F32))
+    if group is not None:
+        o = collectives.all_reduce(o, group)
+    return o.permute(0, 3, 1, 2, 4).reshape(B, 1, n * hd)  # (B,KV,G,1,D) ->
+
+
+def decode_queries(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
+                   pos: Optional[torch.Tensor] = None):
+    """q, k and v of one token a row for every head: (B, 1, heads, hd),
+    k and v ``None`` for the cross-attention (``pos`` None: no bias, no
+    RoPE).  Each product on this rank's columns is gathered whole over
+    ``model`` where the ``heads`` rule cuts it."""
+    B, hd = x.shape[0], cfg.hd
+    names = ("q",) if pos is None else ("q", "k", "v")
+    out = []
+    for name in names:
+        t = x @ getattr(p, "w" + name)
+        if pos is not None and p.bq is not None:
+            t = t + getattr(p, "b" + name)
+        heads = cfg.n_heads if name == "q" else cfg.n_kv_heads
+        if shd.tp_block("heads", heads * hd) is not None:
+            t = shd.act(t, "batch", None, None, src=("batch", None, "heads"))
+        t = t.reshape(B, 1, -1, hd)
+        out.append(t if pos is None or name == "v" else
+                   rope(t, pos[:, None], cfg.rope_theta))
+    return out[0] if pos is None else tuple(out)
+
+
+def decode_out(o: torch.Tensor, p: AttnParams, cfg: ModelConfig,
+               q0: int = 0) -> torch.Tensor:
+    """o (B, 1, n * hd), the query heads from ``q0``, through ``wo`` where
+    the residual stream lives: the plain product where ``wo`` is whole (o
+    holds every head), else this rank's rows of it through
+    ``shd.tp_out_proj``."""
+    rows = _heads(cfg).rows
+    if rows is None:
+        return o @ p.wo
+    lo = rows[0] - q0 * cfg.hd
+    return shd.tp_out_proj(o[..., lo:lo + rows[1]], p.wo)
+
+
 def decode_attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
                      cache: KVCache, pos: torch.Tensor, bits: int,
-                     window: int = 0) -> Tuple[torch.Tensor, KVCache]:
+                     window: int = 0, s_cache: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, KVCache]:
     """One-token attention against the cache.  x: (B, 1, d); pos: (B,).
 
     When the cache is shorter than the sequence (sliding-window models) it is
     a ring buffer: slot j holds the key written at global position
     ``pos - ((pos - j) mod S_cache)``.
+
+    On a ``model`` axis above 1 (rules installed) the cache holds this
+    rank's block of the ``s_cache`` slots of the whole cache where the
+    ``cache_seq`` rule splits them (``decode_state_specs``), every KV head
+    (without one, the cache's own length is the whole cache's).
+    q, k and v are gathered for every head (``decode_queries``), the row's
+    new k and v are stored only by the rank that holds its slot
+    (``_store_held``; slots and the validity mask in the whole cache's
+    indices), and each rank attends every head over its slots, the softmax
+    combined over ``model`` (``_attend``).  Where the slots are whole (one
+    device among them), every rank stores the row (each holds the same
+    cache) and attends its own heads (``_heads``: all of them on one
+    device) over every slot.  The out-projection then runs on this rank's
+    rows of ``wo`` (``decode_out``).
     """
-    B = x.shape[0]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    H, KV = cfg.n_heads, cfg.n_kv_heads
     S = cache.k.shape[1]
-    ring = window > 0 and S <= window
-    slot = pos % S if ring else pos
-    q, k_new, v_new = _qkv(x, p, cfg, pos[:, None], _heads(cfg))
-    cache = update_cache(cache, k_new, v_new, slot, bits)
+    group = shd.model_group()
+    S_all = S if s_cache is None or group is None else s_cache
+    ring = window > 0 and S_all <= window
+    slot = pos % S_all if ring else pos
+    q, k_new, v_new = decode_queries(x, p, cfg, pos)
+    block = shd.tp_block("cache_seq", S_all)
+    if block is None:
+        update_cache(cache, k_new, v_new, slot, bits)
+        lo, (q0, q1) = 0, _heads(cfg).q
+        q, group = q[:, :, q0:q1], None
+    else:
+        lo, q0 = block[0], 0
+        _store_held(cache, k_new, v_new, torch.clamp(slot, 0, S_all - 1),
+                    bits, lo)
 
     cdt = x.dtype
     if bits == 16:
@@ -443,9 +573,9 @@ def decode_attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
         k = _dequant_rows(cache.k, cache.k_scale, bits).to(cdt)
         v = _dequant_rows(cache.v, cache.v_scale, bits).to(cdt)
 
-    j = torch.arange(S, device=x.device)[None, :]          # (1, S)
+    j = lo + torch.arange(S, device=x.device)[None, :]    # (1, S)
     if ring:
-        k_pos = pos[:, None] - torch.remainder(pos[:, None] - j, S)
+        k_pos = pos[:, None] - torch.remainder(pos[:, None] - j, S_all)
         valid = k_pos >= 0
     else:
         k_pos = j
@@ -455,14 +585,8 @@ def decode_attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
     # the reference multiplies in the cache dtype with f32 accumulation; the
     # product of two bf16 values is exact in f32, so f32 operands are the
     # same product
-    qg = _grouped(q, KV).to(k.dtype)                      # (B,1,KV,G,D)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(F32), k.to(F32)) * (hd ** -0.5)
-    s = torch.where(valid[:, None, None, None, :], s, torch.full_like(s, NEG_INF))
-    p_attn = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgqs,bskd->bkgqd", p_attn.to(k.dtype).to(F32),
-                     v.to(F32))                            # (B,KV,G,1,D)
-    o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, H * hd)
-    return o.to(x.dtype) @ p.wo, cache
+    o = _attend(q, k, v, q0, H // KV, valid, group=group)
+    return decode_out(o.to(x.dtype), p, cfg, q0), cache
 
 
 # ---------------------------------------------------------------------------

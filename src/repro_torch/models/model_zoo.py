@@ -2,11 +2,13 @@
 
 Port of ``repro.models.model_zoo`` for every family: the encoder-decoder
 family runs in ``encdec``, the decoder-only ones in ``transformer``.
-``param_specs`` gives the logical axes of the parameters in the
-reference's tree (``distributed.sharding`` resolves them).  The reference's
-``abstract_params`` and ``decode_state_specs`` serve its dry-run tooling;
-the port's dry run (``launch.dryrun``) builds the model under
-``FakeTensorMode`` instead.  The port adds ``cache_leaves`` and
+``param_specs`` and ``decode_state_specs`` give the logical axes of the
+parameters and of the decode state in the reference's trees
+(``distributed.sharding`` resolves them; ``state_tree`` lays a state out
+as that tree).  The reference's ``abstract_params`` serves its dry-run
+tooling; the port's dry run (``launch.dryrun``) builds the model under
+``FakeTensorMode`` instead.  ``init_decode_state(batch, mesh=)`` gives this
+rank's blocks of the state on a mesh.  The port adds ``cache_leaves`` and
 ``reset_decode_state``, which the serving engine's CUDA graph needs (the
 reference rebuilds its state).
 """
@@ -26,7 +28,9 @@ class ModelApi(NamedTuple):
     loss_fn: Callable            # (params, batch) -> scalar f32 loss
     prefill: Callable            # (params, batch) -> logits (B, V)
     decode_step: Callable        # (params, state, tokens) -> (logits, state)
-    init_decode_state: Callable  # (batch) -> state
+    init_decode_state: Callable  # (batch, mesh=None) -> state (a rank's blocks)
+    decode_state_specs: Callable  # () -> logical axes, the reference's tree
+    state_tree: Callable         # (state) -> the reference's tree of it
     cache_leaves: Callable       # (state) -> every tensor of it but pos
     reset_decode_state: Callable  # (state) -> the state, zeroed in place
 
@@ -64,8 +68,10 @@ def get_api(cfg: ModelConfig, rc: RunConfig, device="cuda") -> ModelApi:
         loss_fn=lambda params, batch: m.loss_fn(params, batch, cfg, rc),
         prefill=prefill,
         decode_step=decode_step,
-        init_decode_state=lambda batch: m.init_decode_state(cfg, rc, batch,
-                                                            device),
+        init_decode_state=lambda batch, mesh=None: m.init_decode_state(
+            cfg, rc, batch, device, mesh),
+        decode_state_specs=lambda: m.decode_state_specs(cfg, rc),
+        state_tree=m.state_tree,
         cache_leaves=m.cache_leaves,
         reset_decode_state=m.reset_decode_state,
     )

@@ -249,15 +249,31 @@ def init_ssm_state(cfg: ModelConfig, batch: int, device="cuda") -> SsmState:
                          device=device))
 
 
+def ssm_state_specs() -> Attrs:
+    """Logical axes of an ``SsmState``, the reference's tree: split over
+    the batch only, whole over ``model``."""
+    return Attrs(h=("batch", None, None, None), conv=("batch", None, None))
+
+
 def ssd_decode(params: SsmParams, x: torch.Tensor, state: SsmState,
                cfg: ModelConfig) -> Tuple[torch.Tensor, SsmState]:
-    """x: (B, 1, d) -> (y (B, 1, d), new state in new tensors)."""
+    """x: (B, 1, d) -> (y (B, 1, d), new state in new tensors).
+
+    The state is whole over ``model`` (``ssm_state_specs``), so on a
+    ``model`` axis above 1 every rank runs the step on every head, as one
+    device does: the ``in_proj`` product, the conv's weights and
+    ``gate_norm`` gathered whole (``_whole``), and every rank ends the step
+    with the same ``h`` and ``conv``; the out-projection then sums this
+    rank's rows of ``out_proj`` with ``shd.tp_out_proj``."""
     B = x.shape[0]
     di, N, H, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head
-    z, xin, b, c, dt_raw = _split(x @ params.in_proj, cfg)
+    z, xin, b, c, dt_raw = _split(_whole(x @ params.in_proj,
+                                         2 * di + 2 * N + H, -1), cfg)
     xbc = torch.cat([xin, b, c], dim=-1)                         # (B,1,di+2N)
     conv_in = torch.cat([state.conv.to(x.dtype), xbc], dim=1)
-    xbc_out = L.silu(_conv_sum(conv_in, params.conv_w, 1) + params.conv_b)
+    conv_w = _whole(params.conv_w, di + 2 * N, 1)
+    conv_b = _whole(params.conv_b, di + 2 * N, 0)
+    xbc_out = L.silu(_conv_sum(conv_in, conv_w, 1) + conv_b)
     new_conv = conv_in[:, 1:, :].to(F32)
     xin, b, c = xbc_out[..., :di], xbc_out[..., di:di + N], xbc_out[..., di + N:]
 
@@ -269,5 +285,9 @@ def ssd_decode(params: SsmParams, x: torch.Tensor, state: SsmState,
     yh = torch.einsum("bm,bhmp->bhp", c[:, 0].to(F32), h)
     yh = yh + params.d_skip[None, :, None] * xh
     y = yh.reshape(B, 1, di).to(x.dtype) * L.silu(z)
-    y = L.rmsnorm(y, params.gate_norm, cfg.norm_eps)
-    return y @ params.out_proj, SsmState(h=h, conv=new_conv)
+    y = L.rmsnorm(y, _whole(params.gate_norm, di, 0), cfg.norm_eps)
+    rows = shd.tp_block("tp", di)
+    if rows is None:
+        return y @ params.out_proj, SsmState(h=h, conv=new_conv)
+    y = y[..., rows[0]:rows[0] + rows[1]]
+    return shd.tp_out_proj(y, params.out_proj), SsmState(h=h, conv=new_conv)

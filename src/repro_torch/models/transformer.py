@@ -42,7 +42,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.checkpoint.ckpt import Attrs, map_tree
+from repro_torch.checkpoint.ckpt import Attrs, Stacked, map_tree
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as shd
@@ -304,12 +304,53 @@ def cache_leaves(state: DecodeState) -> Iterator[torch.Tensor]:
                 yield from (t for t in part if t is not None)
 
 
-def init_decode_state(cfg: ModelConfig, rc: RunConfig, batch: int,
-                      device="cuda") -> DecodeState:
-    check_family(cfg)
-    s_cache = rc.seq_len
+def cache_len(cfg: ModelConfig, rc: RunConfig) -> int:
+    """Slots of a layer's whole KV cache: the sequence, or the window of a
+    sliding-window model (a ring)."""
     if cfg.sliding_window:
-        s_cache = min(s_cache, cfg.sliding_window)
+        return min(rc.seq_len, cfg.sliding_window)
+    return rc.seq_len
+
+
+def decode_state_specs(cfg: ModelConfig, rc: RunConfig) -> Attrs:
+    """Logical axes of the decode state, the reference's ``DecodeState``
+    tree (its per-layer caches stacked: a leading ``None`` for the layer
+    axis)."""
+    one = Attrs(kv=L.cache_specs(rc.kv_cache_bits) if _has_attn(cfg) else None,
+                ssm=S.ssm_state_specs() if _has_ssm(cfg) else None)
+    return Attrs(caches=map_tree(lambda t: (None,) + t, one), pos=(None,))
+
+
+def state_tree(state: DecodeState) -> Attrs:
+    """The state as the reference's tree, for ``decode_state_specs``: each
+    leaf of the per-layer caches one ``Stacked`` leaf of the layers'
+    tensors."""
+    def stacked(part: str, fields) -> Optional[Attrs]:
+        first = getattr(state.caches[0], part)
+        if first is None:
+            return None
+        return Attrs((f, None if getattr(first, f) is None else Stacked(
+            [getattr(getattr(c, part), f) for c in state.caches]))
+            for f in fields)
+
+    return Attrs(caches=Attrs(kv=stacked("kv", L.KVCache._fields),
+                              ssm=stacked("ssm", S.SsmState._fields)),
+                 pos=state.pos)
+
+
+def init_decode_state(cfg: ModelConfig, rc: RunConfig, batch: int,
+                      device="cuda", mesh=None) -> DecodeState:
+    """A zero decode state for ``batch`` sequences.  With ``mesh`` (a
+    ``launch.mesh.Mesh``) this rank's block of it, each leaf cut by its
+    resolved ``decode_state_specs`` (``sharding.local_state``): the batch
+    split over ``pod`` and ``data`` where they divide it, the cache's slots
+    over ``model`` where it divides them, ``pos`` whole."""
+    check_family(cfg)
+    if mesh is not None:
+        whole = init_decode_state(cfg, rc, batch, "meta")
+        return shd.local_state(whole, state_tree(whole),
+                               decode_state_specs(cfg, rc), mesh, device)
+    s_cache = cache_len(cfg, rc)
 
     def layer():
         # every leaf zero, the kv scales included (the reference zero-fills
@@ -344,15 +385,27 @@ def decode_step(params: DenseParams, state: DecodeState, tokens: torch.Tensor,
     the SSM state (h, conv) by a copy into its own tensors, so a CUDA graph
     captured on the state advances it at every replay.  The returned state
     holds the same caches and the advanced positions.
+
+    On a mesh (rules installed, the parameters cut by
+    ``train.step.param_partition``, ``state`` this rank's blocks from
+    ``init_decode_state(..., mesh=)``) the step runs on this rank's rows of
+    the batch (``tokens`` whole or already cut), each layer reading its
+    parameters through ``sharding.gathered``, and returns the logits whole
+    on every rank: gathered over the vocabulary and over the batch axes.
     """
     check_family(cfg)
-    x = L.embed(tokens[:, None], params.embed)            # (B, 1, d)
+    B = state.pos.shape[0]
+    pos, tokens = shd.rank_rows(state.pos, B), shd.rank_rows(tokens, B)
+    s_cache = cache_len(cfg, rc)
+    x = L.embed(tokens[:, None], shd.gathered(params.embed), cfg)  # (B, 1, d)
     for lp, cache in zip(params.layers, state.caches):
+        lp = shd.gathered(lp)
         h = L.rmsnorm(x, lp.ln1, cfg.norm_eps)
         a = s = None
         if cache.kv is not None:
-            a, _ = L.decode_attention(h, lp.attn, cfg, cache.kv, state.pos,
-                                      rc.kv_cache_bits, cfg.sliding_window)
+            a, _ = L.decode_attention(h, lp.attn, cfg, cache.kv, pos,
+                                      rc.kv_cache_bits, cfg.sliding_window,
+                                      s_cache)
         if cache.ssm is not None:
             s, new = S.ssd_decode(lp.ssm, h, cache.ssm, cfg)
             cache.ssm.h.copy_(new.h)
@@ -360,8 +413,9 @@ def decode_step(params: DenseParams, state: DecodeState, tokens: torch.Tensor,
         x = x + _merge(cfg, lp, a, s)
         if lp.ln2 is not None:
             x, _ = _ffn(cfg, x, lp)
-    lg = L.logits(x, params.embed, cfg)[:, 0]
-    return lg, DecodeState(caches=state.caches, pos=state.pos + 1)
+    lg = L.logits(x, shd.gathered(params.embed), cfg)[:, 0]
+    return shd.whole_batch(lg, B), DecodeState(caches=state.caches,
+                                               pos=state.pos + 1)
 
 
 def prefill(params: DenseParams, tokens: torch.Tensor, cfg: ModelConfig,

@@ -114,19 +114,23 @@ class ServeEngine:
         self._kv_bytes: dict = {}
         self._graphs: dict = {}
 
-    def kv_cache_bytes(self, batch: int) -> int:
+    def kv_cache_bytes(self, batch: int, mesh=None) -> int:
         """Bytes of the decode state's caches for ``batch`` sequences: every
         leaf, the kv caches and their scales, the SSM state (h, conv), the
-        encoder-decoder's cross K/V (two tensors).
+        encoder-decoder's cross K/V (two tensors).  With ``mesh``, the
+        blocks this rank holds (``init_decode_state(batch, mesh=)``).
 
         Counted on PyTorch's meta device: shapes and dtypes, no allocation.
         """
-        cached = self._kv_bytes.get(batch)
+        key = (batch, None if mesh is None else (tuple(mesh.shape.items()),
+                                                  tuple(mesh.coords.items())))
+        cached = self._kv_bytes.get(key)
         if cached is None:
             api = model_zoo.get_api(self.cfg, self.rc, "meta")
+            state = api.init_decode_state(batch, mesh=mesh)
             cached = sum(t.numel() * t.element_size()
-                         for t in api.cache_leaves(api.init_decode_state(batch)))
-            self._kv_bytes[batch] = cached
+                         for t in api.cache_leaves(state))
+            self._kv_bytes[key] = cached
         return cached
 
     def graphed_step(self, batch: int) -> GraphedDecodeStep:

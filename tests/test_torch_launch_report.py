@@ -4,10 +4,13 @@ The same synthetic dry-run records, written in the reference's shape (XLA's
 lowering and compile seconds, memory analysis and collective bytes), are
 loaded and rendered by both modules: the roofline rows are equal, and each
 dry-run row's cells are the reference's up to the port's added columns
-(walk seconds, ops walked, bytes a rank holds).  A record of the port's own
-dry run (``repro_torch.launch.dryrun`` on a smoke cell) renders through
-``python -m repro_torch.launch.report``'s ``main``, with ``-`` where it
-holds no field of the reference.
+(walk seconds, ops walked, bytes a rank holds).  Records of the port's own
+dry run (``repro_torch.launch.dryrun``: one rank's step of smoke cells on
+the production meshes) render through ``python -m
+repro_torch.launch.report``'s ``main`` with the collective term, args/dev
+and the top collectives filled and ``-`` where the port has no value
+(XLA's lowering and compile seconds and temporary bytes), and both modules
+render them alike in every column both fill.
 """
 import json
 
@@ -108,10 +111,36 @@ def test_main_renders_a_port_dry_run_record(tmp_path, capsys):
     assert row[2] == "train" and row[3] == report.fmt_s(rl["compute_s"])
     assert row[4] == (f"{report.fmt_s(rl['memory_s'])} / "
                       f"{report.fmt_s(rl['memory_s_kernelized'])}")
-    assert row[5] == "-"                         # no collective term walked
+    assert row[5] == report.fmt_s(rl["collective_s"]) != "-"   # the walked bytes
     assert row[8] == report.pct(rl["mfu_bound_kernelized"])
     (drow,) = _rows(dry)
     held = (rec["param_bytes_per_rank"] + rec["opt_bytes_per_rank"]) / 1e9
-    assert drow[:8] == ["tinyllama-1.1b", "train_4k", "multi", "-", "-", "-",
-                        "-", "-"]
+    top = ", ".join(f"{k}:{v / 1e9:.2f}GB" for k, v in sorted(
+        rec["collectives"].items(), key=lambda kv: -kv[1]))
+    assert drow[:8] == ["tinyllama-1.1b", "train_4k", "multi", "-", "-",
+                        f"{rec['argument_size_in_bytes'] / 1e9:.2f}GB", "-", top]
     assert drow[8:] == [f"{rec['walk_s']}s", str(rec["ops"]), f"{held:.2f}GB"]
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_port_records_render_as_the_reference_renders_them(tmp_path, mesh):
+    """A train, a prefill and a decode cell of the port's dry run: the
+    roofline rows equal to the reference's, and each dry-run row equal in
+    every column both fill (all but lower, compile and temp/dev, which the
+    port renders ``-`` and the reference ``-s`` / ``0.00GB``)."""
+    over = {"seq_len": 128, "global_batch": 64}
+    for arch, shape in (("tinyllama-1.1b", "train_4k"),
+                        ("granite-8b", "prefill_32k"), ("granite-8b", "decode_32k")):
+        rec = dryrun.run_and_write(arch, shape, mesh, str(tmp_path), dict(over),
+                                   smoke=True)
+        assert rec["ok"], rec.get("error")
+    recs = report.load(str(tmp_path))
+    got = _rows(report.roofline_table(recs, mesh))
+    assert got == _rows(jreport.roofline_table(recs, mesh))
+    assert all(r[5] != "-" for r in got[:3])
+    got, want = _rows(report.dryrun_table(recs)), _rows(jreport.dryrun_table(recs))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert g[3:5] == ["-", "-"] and w[3:5] == ["-s", "-s"] and g[6] == "-"
+        assert g[:3] + g[5:6] + g[7:8] == w[:3] + w[5:6] + w[7:8]
+        assert g[7].startswith("all-") or g[7].startswith("reduce-")

@@ -3,8 +3,14 @@
 ``cells`` (the 40-cell grid, its skips, each cell's RunConfig) and the
 roofline formulas ``model_flops_for`` / ``kernelized_io_bytes`` must equal
 the reference's exactly; the roofline's constants must be the H100's data
-sheet, never the TPU's; the dry run builds smoke-config cells on the fake
-device with the reference's parameter count.  Every comparison is exact.
+sheet, never the TPU's; the dry run walks one rank's step of smoke-config
+cells on the production meshes (the fake process group, the fake device)
+with the reference's parameter count: ``chips`` the mesh's size, fewer
+FLOPs than the step on one device, the parameter bytes the rank holds
+equal to ``rank_bytes``' from the rules, the decode state's bytes a rank
+equal to ``ServeEngine.kv_cache_bytes`` on that rank, and the bytes handed
+to each collective equal to ``chip_smoke.tp_bytes``' formula for the train
+cells it covers.  Every comparison is exact.
 """
 import dataclasses
 import json
@@ -19,8 +25,10 @@ from repro.configs import base as jbase
 from repro.launch import cells as jcells
 from repro.launch import roofline as jroofline
 from repro.models import model_zoo as jzoo
+import chip_smoke
 from repro_torch.configs import base
 from repro_torch.launch import cells, dryrun, roofline
+from repro_torch.serve import ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -30,6 +38,8 @@ DRY_CELLS = (("tinyllama-1.1b", "train_4k", "single"),
              ("granite-8b", "decode_32k", "multi"),
              ("mixtral-8x7b", "prefill_32k", "single"))
 DRY_OVERRIDES = {"seq_len": 128, "global_batch": 2}
+#: a global batch that splits over multi's 32 batch ranks (pod x data)
+RANK_OVERRIDES = {"seq_len": 128, "global_batch": 64}
 
 
 def test_the_grid_equals_the_references():
@@ -120,14 +130,18 @@ def test_dryrun_on_smoke_cells(arch, shape, mesh, tmp_path):
     assert rec["opt_bytes"] == (2 * rec["params"] * 4 if rc.kind == "train" else 0)
     assert rec["flops_per_device"] > 0 and rec["ops"] > 0
     cfg = base.load_smoke(arch)
+    chips = {"single": 256, "multi": 512}[mesh]
+    assert rec["chips"] == rec["mesh_chips"] == chips
+    assert rec["mesh_shape"] == list(dryrun.MESHES[mesh][0])
     assert rec["model_flops"] == roofline.model_flops_for(cfg, rc)
-    assert rec["kernelized_io_bytes"] == roofline.kernelized_io_bytes(cfg, rc, 1)
+    assert rec["kernelized_io_bytes"] == roofline.kernelized_io_bytes(cfg, rc, chips)
     assert rec["roofline"]["compute_s"] == rec["flops_per_device"] / 989e12
     assert rec["roofline"]["memory_s"] == rec["bytes_per_device"] / 3.35e12
-    if mesh == "multi":
-        assert rec["mesh_shape"] == [2, 16, 16] and rec["mesh_chips"] == 512
-        assert 0 < rec["params_per_rank"] <= rec["params"]
-        assert rec["param_bytes_per_rank"] == rec["params_per_rank"] * 2
+    assert rec["roofline"]["collective_s"] == sum(rec["collectives"].values()) / 450e9
+    assert set(rec["collectives"]) == {"all-gather", "reduce-scatter", "all-reduce"}
+    assert 0 < rec["params_per_rank"] <= rec["params"]
+    assert rec["param_bytes_per_rank"] == rec["params_per_rank"] * 2
+    assert rec["param_bytes_held"] == rec["param_bytes_per_rank"]
 
 
 def test_dryrun_names_a_cell_that_fails_to_trace(tmp_path, monkeypatch):
@@ -141,3 +155,55 @@ def test_dryrun_names_a_cell_that_fails_to_trace(tmp_path, monkeypatch):
     rec = json.loads((tmp_path / "yi-9b__prefill_32k__single.json").read_text())
     assert not rec["ok"] and (rec["arch"], rec["shape"]) == ("yi-9b", "prefill_32k")
     assert "op needs data on the fake device" in rec["error"]
+
+
+#: a train, a prefill and a decode cell of the smoke configs on ``multi``
+RANK_CELLS = (("tinyllama-1.1b", "train_4k"), ("granite-8b", "prefill_32k"),
+              ("granite-8b", "decode_32k"), ("hymba-1.5b", "decode_32k"))
+
+
+@pytest.mark.parametrize("arch,shape", RANK_CELLS)
+def test_dryrun_walks_one_rank_of_multi(arch, shape, tmp_path):
+    rec = dryrun.run_and_write(arch, shape, "multi", str(tmp_path),
+                               dict(RANK_OVERRIDES), smoke=True)
+    assert rec["ok"], rec.get("error")
+    assert rec["chips"] == 512
+    cfg = base.load_smoke(arch)
+    rc = cells.resolve_run_config(arch, shape, **RANK_OVERRIDES)
+    one = dryrun.walk_step(cfg, rc)            # the whole step on one device
+    assert one["chips"] == 1
+    assert 0 < rec["flops_per_device"] < one["flops_per_device"]
+    assert rec["param_bytes_held"] == rec["param_bytes_per_rank"] == \
+        dryrun.rank_bytes(cfg, rc, (2, 16, 16), ("pod", "data", "model"))[
+            "param_bytes_per_rank"] < rec["param_bytes"]
+    assert sum(rec["collectives"].values()) > 0
+    assert rec["argument_size_in_bytes"] < one["argument_size_in_bytes"]
+    if rc.kind == "decode":
+        with dryrun.fake_mesh((2, 16, 16), ("pod", "data", "model")) as mesh:
+            engine = ServeEngine(cfg, rc, params=object(), device="meta")
+            held = engine.kv_cache_bytes(rc.global_batch, mesh)
+        assert rec["decode_state_bytes_per_rank"] == held
+        assert held < one["decode_state_bytes_per_rank"] == \
+            engine.kv_cache_bytes(rc.global_batch)
+
+
+@pytest.mark.parametrize("arch,mesh", [
+    ("tinyllama-1.1b", "single"), ("tinyllama-1.1b", "multi"),
+    ("mamba2-130m", "multi"), ("hymba-1.5b", "multi"), ("whisper-tiny", "multi")])
+def test_dryrun_collectives_equal_the_formula(arch, mesh, tmp_path):
+    """A train cell's bytes a rank hands each collective a step, walked on
+    the fake process group, against ``chip_smoke.tp_bytes``."""
+    rec = dryrun.run_cell(arch, "train_4k", mesh, dict(RANK_OVERRIDES), smoke=True)
+    rc = cells.resolve_run_config(arch, "train_4k", **RANK_OVERRIDES)
+    want = chip_smoke.tp_bytes(base.load_smoke(arch), rc, *dryrun.MESHES[mesh])
+    assert rec["collectives"] == {"all-gather": want["all_gather"],
+                                  "reduce-scatter": want["reduce_scatter"],
+                                  "all-reduce": want["all_reduce"]}
+
+
+def test_dryrun_refuses_an_existing_process_group():
+    with dryrun.fake_mesh((2, 2), ("data", "model")):
+        with pytest.raises(RuntimeError, match="process group already exists"):
+            dryrun.walk_rank(base.load_smoke("tinyllama-1.1b"),
+                             cells.resolve_run_config("tinyllama-1.1b", "decode_32k"),
+                             (2, 2), ("data", "model"))
