@@ -449,6 +449,7 @@ import math
 import os
 import re
 import runpy
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -578,6 +579,11 @@ SM90_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_sm90.cu"
 GRAPH_ARCHES = ("tinyllama-1.1b", "internvl2-76b", "mixtral-8x7b",
                 "mamba2-130m", "hymba-1.5b", "whisper-tiny")
 GRAPH_STEPS = 3
+#: the graphed step on an NCCL mesh, on the one card: tinyllama-1.1b at full
+#: width on a (1, 1) data x model mesh of an NCCL world of one, train_4k's
+#: sequences, the batch cut from 256 to NCCL_B by time; NCCL_STEPS eager
+#: steps, then as many replays from the same seeded state
+NCCL_B, NCCL_STEPS = 2, 2
 
 #: the moe, ssm and hybrid families: their smoke configs against the CPU,
 #: and the ring generate (seq_len 128 past a 64-slot ring: 100 steps)
@@ -622,7 +628,7 @@ GRAD_F32_REL = 1e-4          # each f32 gradient leaf, of its largest magnitude
 #: two ranks on one GPU); train_4k's sequences, the global batch cut from
 #: 256 to 4 (2 a pod) and the depth from 22 layers to DIST_LAYERS, by time;
 #: 3 steps at each bits (the codec phase keeps the whole tree)
-DIST_ARCH, DIST_SHAPE, DIST_LAYERS = TRAIN_ARCH, (2, 1, 1), 11
+DIST_ARCH, DIST_SHAPE, DIST_LAYERS = TRAIN_ARCH, (2, 1, 1), 8
 DIST_NAMES = ("pod", "data", "model")
 DIST_B, DIST_STEPS, DIST_BITS = 4, 3, (0, 8, 16)
 DIST_EQUAL_BITS = 8          # held torch.equal to the one-process emulation
@@ -690,8 +696,8 @@ TOOLING_KERNELS = {
 TOOLING_WORKSPACE = {"jacobi1d": r"FillFunctor|Memset"}
 #: the full-size cell the tooling phase dry-runs: (arch, shape, mesh)
 DRYRUN_CELL = ("granite-8b", "decode_32k", "single")
-#: each walked wrapper's profiled calls, and the spin kernels that open the
-#: session ahead of them (``wrapper_device_ops``), ~6 us each on an H100
+#: each walked wrapper's profiled calls, and the spin kernels that open and
+#: close every profiler session (``device_profile``), ~6 us each on an H100
 WRAPPER_CALLS, SENTINELS, SENTINEL_CYCLES = 50, 8, 10_000
 SENTINEL_KERNEL = r"\bspin_kernel\b"
 #: the examples at their small sizes, with the arguments they run with
@@ -1181,27 +1187,42 @@ def device_profile(fn, watch: dict, top: int | None = 5,
     with all 64 ``kv_dequant`` records that follow the stores kept).  A
     session that keeps more is not taken again, and the caller holds the
     counts of the last session to its exact want.
+
+    SENTINELS spin kernels (``torch.cuda._sleep``, which nothing measured
+    launches) open and close each session around fn, and their records are
+    left out of every number: late in a whole run sessions have lost their
+    first three or four device events (``wrapper_device_ops``), and a
+    record at either end of the window is the one at risk.
     """
     from torch.profiler import ProfilerActivity, profile
+
+    def sentinels():
+        for _ in range(SENTINELS):
+            torch.cuda._sleep(SENTINEL_CYCLES)
+        torch.cuda.synchronize()
+
+    def measured(e) -> bool:
+        return (e.device_type == torch.autograd.DeviceType.CUDA
+                and not re.search(SENTINEL_KERNEL, e.key))
     short = []
     for sessions in range(1, 4):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             time.sleep(PROFILE_PAD_S)
+            sentinels()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
+            sentinels()
             time.sleep(PROFILE_PAD_S)
         spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                       if e.device_type == torch.autograd.DeviceType.CUDA
-                       and e.time_range.end > e.time_range.start)
+                       if measured(e) and e.time_range.end > e.time_range.start)
         if not spans:
             continue
         # device-side entries only: a CPU op's own entry repeats the device
         # time of the kernels it launched
-        ops_ = sorted((e for e in prof.key_averages()
-                       if e.device_type == torch.autograd.DeviceType.CUDA),
+        ops_ = sorted((e for e in prof.key_averages() if measured(e)),
                       key=dev_us, reverse=True)
         kept = {label: sum(e.count for e in ops_ if key in e.key)
                 for label, key in watch.items()}
@@ -1899,16 +1920,22 @@ def phase_kvpack(dev, serve: dict, copy_rate: float) -> list:
     one = torch.zeros(1, device=dev)
     floor = launch_costs(lambda: one.fill_(1.0), "FillFunctor")["kernel_device_us"]
     check(floor is not None, "the profiler recorded no fill_ kernel")
+    # int8 codes x their f32 row scales: one PyTorch call computes the
+    # dequant (the int8 -> f32 promotion is exact, as the kernel's); no
+    # single call computes the absmax quantization or the fused store
+    library = lambda: torch.mul(codes, scales)   # noqa: E731
+    check(torch.equal(library(), kvpack.kv_dequant(codes, scales, 8)),
+          "torch.mul(codes, scales) differs from kv_dequant")
     rows_out, costs = [], {}
-    for name, line, fn, plain, io, nops, key in (
+    for name, line, fn, plain, lib, io, nops, key in (
         ("kvpack.kv_quant", 26, lambda: kvpack.kv_quant(x, 8),
-         lambda: kvpack.kv_quant_plain(x, 8),
+         lambda: kvpack.kv_quant_plain(x, 8), None,
          ops.kv_quant_io_bytes(64, 128, 8, 2), 64 * 128 * 7, "::quant_kernel"),
         ("kvpack.kv_dequant", 40, lambda: kvpack.kv_dequant(codes, scales, 8),
-         lambda: kvpack.kv_dequant_plain(codes, scales, 8),
+         lambda: kvpack.kv_dequant_plain(codes, scales, 8), library,
          ops.kv_dequant_io_bytes(16384, 128, 8), 16384 * 128 * 2, "dequant_kernel"),
         ("kvpack.kv_quant_store", 26, lambda: kvpack.kv_quant_store(*store, 8),
-         lambda: kvpack.kv_quant_store_plain(*store, 8),
+         lambda: kvpack.kv_quant_store_plain(*store, 8), None,
          ops.kv_quant_store_io_bytes(B, KV, D, 8, 2), 2 * B * KV * D * 7,
          "quant_store_kernel"),
     ):
@@ -1918,7 +1945,8 @@ def phase_kvpack(dev, serve: dict, copy_rate: float) -> list:
                          "replaces": f"src/repro/kernels/kvpack.py:{line}",
                          "launches": serve["launches"][name], "max_abs_err": 0.0,
                          "ms": time_ms(fn, reps=50), "plain_ms": time_ms(plain, reps=20),
-                         **bound(sum(io), nops, copy_rate), "library_ms": None,
+                         **bound(sum(io), nops, copy_rate),
+                         "library_ms": None if lib is None else time_ms(lib, reps=50),
                          "ms_back_to_back": stream_ms(fn),
                          "profile_ms": (costs[name]["kernel_device_us"] or 0) / 1e3,
                          "launch_floor_ms": floor / 1e3})
@@ -1931,7 +1959,8 @@ def phase_kvpack(dev, serve: dict, copy_rate: float) -> list:
                     "kv_dequant": [16384, 128, "int8"],
                     "kv_quant_store": [B, S, KV, D, "bfloat16", 8]},
           "library_ms_null": "no single PyTorch call computes per-row absmax "
-                             "int8/int4 packing or its inverse",
+                             "int8/int4 packing or the fused cache store",
+          "library": {"kv_dequant": "torch.mul(codes int8, scales f32 [rows, 1])"},
           "rows": rows_out})
     return rows_out
 
@@ -2227,22 +2256,24 @@ def kept_on_host(run: dict) -> dict:
             "tensors": [t.detach().to("cpu", copy=True) for t in run["tensors"]]}
 
 
-def run_steps(dev, api, cfg, rc, batches: list, graphed: bool, warm=None) -> dict:
-    """A fresh state from SEED; with ``warm``, one eager step on that batch
-    first (its loss and ms); then ``len(batches)`` steps, eager
-    (``make_train_step``) or replayed (``GraphedTrainStep``, built after
-    the warm-up: its own warm-up and capture ms), each timed on the host's
-    clock, synchronized.  Returns the losses and grad norms (device
-    tensors), the state, its tensors (``state_tensors``) and the step that
-    ran it, the steps' launches (a graph's: of its replays), the captured
-    counts, and peak memory from after the warm-up step (the state, then a
-    graph's warm-up and private pool; before a graph is built, the cached
-    blocks are released)."""
+def run_steps(dev, api, cfg, rc, batches: list, graphed: bool, warm=None,
+              mesh=None) -> dict:
+    """A fresh state from SEED (on ``mesh``, this rank's blocks); with
+    ``warm``, one eager step on that batch first (its loss and ms); then
+    ``len(batches)`` steps, eager (``make_train_step``) or replayed
+    (``GraphedTrainStep``, built after the warm-up: its own warm-up and
+    capture ms), each timed on the host's clock, synchronized.  Returns
+    the losses and grad norms (device tensors), the state, its tensors
+    (``state_tensors``) and the step that ran it, the steps' launches and
+    collective bytes (``collectives.byte_counts``; a graph's: of its
+    replays), the captured counts, and peak memory from after the warm-up
+    step (the state, then a graph's warm-up and private pool; before a
+    graph is built, the cached blocks are released)."""
     t0 = time.perf_counter()
-    state = train_step.init_state(api, rc, SEED)
+    state = train_step.init_state(api, rc, SEED, mesh)
     torch.cuda.synchronize()
     out = {"init_s": time.perf_counter() - t0}
-    eager = train_step.make_train_step(api, cfg, rc)
+    eager = train_step.make_train_step(api, cfg, rc, mesh)
     if warm is not None:
         t0 = time.perf_counter()
         state, m = eager(state, warm)
@@ -2252,10 +2283,12 @@ def run_steps(dev, api, cfg, rc, batches: list, graphed: bool, warm=None) -> dic
         torch.cuda.empty_cache()            # the warm-up step's blocks
     torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    step = train_step.GraphedTrainStep(api, cfg, rc, state) if graphed else eager
+    step = train_step.GraphedTrainStep(api, cfg, rc, state, mesh) if graphed else eager
     torch.cuda.synchronize()
     capture_ms = (time.perf_counter() - t0) * 1e3
     ops.reset_launch_counts()
+    collectives.reset_collective_bytes()
+    collectives.reset_wire_bytes()
     times, losses, gnorms = [], [], []
     for b in batches:
         t0 = time.perf_counter()
@@ -2269,6 +2302,7 @@ def run_steps(dev, api, cfg, rc, batches: list, graphed: bool, warm=None) -> dic
             "tensors": train_step.state_tensors(state),
             "n_params": sum(1 for _ in state.params.parameters()),
             "launches": ops.launch_counts(),
+            "bytes": collectives.byte_counts(),
             "captured": step.launches if graphed else None,
             "capture_ms": capture_ms if graphed else None,
             "peak_GiB": torch.cuda.max_memory_allocated(dev) / 2**30}
@@ -2532,6 +2566,74 @@ def trajectory_diff(a: dict, b: dict) -> dict:
     return out
 
 
+def probed_loss(loss_fn, group):
+    """``loss_fn`` whose loss goes through ``collectives``' all-reduce, then
+    its gather, on ``group`` (one rank: its own value, bit for bit), and
+    back through their adjoints (an all-reduce, a reduce-scatter): a step
+    on a one-rank mesh issues no collective of its own (every axis has one
+    rank), so these put NCCL calls into its graph."""
+    def fn(params, batch):
+        loss = collectives._AllReduce.apply(loss_fn(params, batch), group, None)
+        return collectives._Gather.apply(loss.reshape(1), 0, group, None)[0]
+    return fn
+
+
+def train_graph_nccl(dev) -> dict:
+    """The mesh step's graph over NCCL on the one card: tinyllama-1.1b at
+    full width on a (1, 1) mesh of an NCCL world of one (NCCL refuses two
+    ranks on one GPU), its loss through ``probed_loss``; NCCL_STEPS eager
+    steps, then NCCL_STEPS replays of ``GraphedTrainStep(..., mesh)`` from
+    the same state.  Held bit-equal (losses, grad norms, every parameter
+    and moment, the counters); each replay counts the eager step's
+    launches and collective bytes, the replays' launches the captured
+    counts x NCCL_STEPS."""
+    import torch.distributed as dist
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), dev)
+        cfg = configs.load_arch(TRAIN_ARCH)
+        rc = configs.run_config_for("train_4k", cfg, global_batch=NCCL_B)
+        api = model_zoo.get_api(cfg, rc, dev)
+        api = api._replace(loss_fn=probed_loss(
+            api.loss_fn, mesh.get_group(("data", "model"))))
+        pipe = SyntheticPipeline(cfg, rc, seed=SEED)
+        batches = [device_batch(pipe.next(), cfg, rc, dev, mesh)
+                   for _ in range(NCCL_STEPS)]
+        eager = run_steps(dev, api, cfg, rc, batches, False, mesh=mesh)
+        held = torch.cuda.memory_allocated(dev)     # the eager run's state
+        graph = run_steps(dev, api, cfg, rc, batches, True, mesh=mesh)
+        diff = trajectory_diff(eager, graph)
+        check(not any(diff.values()), f"NCCL mesh: graphed against eager {diff}")
+        per_step = {k: n // NCCL_STEPS for k, n in eager["launches"].items()}
+        check(graph["captured"] == {k: n for k, n in per_step.items() if n}
+              and graph["launches"] == eager["launches"],
+              f"NCCL mesh: captured {graph['captured']}, replays launched "
+              f"{graph['launches']}, eager steps {eager['launches']}")
+        moved = graph["bytes"]
+        check(moved == eager["bytes"] and all(
+                  moved[k] for k in ("all_reduce", "all_gather", "reduce_scatter")),
+              f"NCCL mesh: the replays handed {moved}, the eager steps "
+              f"{eager['bytes']}")
+        row = {"config": cfg.name, "mesh": [1, 1], "backend": "nccl",
+               "world": dist.get_world_size(), "batch": NCCL_B, "seq": rc.seq_len,
+               "steps": NCCL_STEPS, "bit_equal": True,
+               "reduced": {"global_batch": [256, NCCL_B]},
+               "loss": graph["loss"].tolist(),
+               "launches_per_step": graph["captured"],
+               "bytes_per_step": {k: n // NCCL_STEPS for k, n in moved.items()},
+               "eager_step_ms": eager["step_ms"], "graphed_step_ms": graph["step_ms"],
+               "capture_ms": graph["capture_ms"],
+               "peak_GiB": {"eager": eager["peak_GiB"],
+                            "graphed": graph["peak_GiB"] - held / 2**30}}
+        del eager, graph
+        return row
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+
+
 def phase_train_graph(dev) -> tuple:
     """Each family's smoke config (bf16, remat): GRAPH_STEPS eager steps
     twice from SEED, then GRAPH_STEPS replays of ``GraphedTrainStep`` from
@@ -2586,8 +2688,12 @@ def phase_train_graph(dev) -> tuple:
         spreads[arch] = spread
         del eager, again, graph
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    nccl = train_graph_nccl(dev)
+    nccl["seconds"] = time.perf_counter() - t0
     emit({"phase": "train_graph", "steps": GRAPH_STEPS, "seq": 64, "batch": 4,
-          "dtype": "bfloat16", "remat": True, "results": rows})
+          "dtype": "bfloat16", "remat": True, "results": rows,
+          "nccl_mesh": nccl})
     return launches, spreads
 
 
@@ -4562,9 +4668,8 @@ def wrapper_device_ops(case) -> dict:
     (the Jacobi wrapper's workspace fill apart, ``TOOLING_WORKSPACE``); the
     wrapper's launch count adds one a call.  On an H100, sessions of 50
     such calls after the script's earlier phases lost their first three or
-    four device events, so SENTINELS spin kernels (``torch.cuda._sleep``,
-    a kernel no wrapper launches) open each session ahead of the calls to
-    take that loss, and the kernel's count must then be exact."""
+    four device events, hence ``device_profile``'s sentinels, and the
+    kernel's count must be exact."""
     key = case.name.split("/")[1]
     name, pattern = TOOLING_KERNELS[key]
     wrapper = ops.KERNELS[name]
@@ -4574,8 +4679,6 @@ def wrapper_device_ops(case) -> dict:
     before = wrapper.launches
 
     def calls():
-        for _ in range(SENTINELS):
-            torch.cuda._sleep(SENTINEL_CYCLES)
         for _ in range(WRAPPER_CALLS):
             case.fn(*case.args)
 
@@ -4583,10 +4686,9 @@ def wrapper_device_ops(case) -> dict:
     launched = wrapper.launches - before
     seen = {e["name"]: e["count"] for e in prof["top_device_ops"] or []}
     kernel = {n: c for n, c in seen.items() if re.search(pattern, n)}
-    sentinel = {n: c for n, c in seen.items() if re.search(SENTINEL_KERNEL, n)}
     workspace = {n: c for n, c in seen.items() if n not in kernel
                  and space and re.search(space, n)}
-    other = sorted(set(seen) - set(kernel) - set(sentinel) - set(workspace))
+    other = sorted(set(seen) - set(kernel) - set(workspace))
     check(sum(kernel.values()) == WRAPPER_CALLS and not other
           and launched == WRAPPER_CALLS * prof["profiler_sessions"],
           f"{case.name}: {launched} launches in {prof['profiler_sessions']} "
@@ -4594,7 +4696,6 @@ def wrapper_device_ops(case) -> dict:
           f"of its kernel and {other[:5]}")
     return {"kernel": next(iter(kernel))[:100], "calls": WRAPPER_CALLS,
             "kernel_events": sum(kernel.values()),
-            "sentinel_events": sum(sentinel.values()),
             "workspace_events": sum(workspace.values()), "other_ops": len(other),
             "profiler_sessions": prof["profiler_sessions"]}
 
@@ -4803,63 +4904,63 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 parity: full f32
     torch.backends.cudnn.allow_tf32 = False
+    seconds = {}
 
-    phase_build(dev)
-    smi, copy_rate = phase_card(dev)
-    main_out = phase_main(dev)
-    rows = [phase_stencil(dev, main_out, copy_rate),
-            *phase_codec(dev, main_out, copy_rate)]
+    def run(name, fn, *args):
+        """``fn(*args)``, its wall seconds kept under ``name``; then the
+        allocator's cached blocks released."""
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
+
+    run("build", phase_build, dev)
+    smi, copy_rate = run("card", phase_card, dev)
+    main_out = run("main", phase_main, dev)
+    rows = [run("stencil", phase_stencil, dev, main_out, copy_rate),
+            *run("codec", phase_codec, dev, main_out, copy_rate)]
     del main_out                                    # the stencil buffers
     torch.cuda.empty_cache()
-    phase_paper(dev, smi)
-    tooling = phase_tooling(dev)
+    run("paper", phase_paper, dev, smi)
+    tooling = run("tooling", phase_tooling, dev)
 
-    lm = phase_lm_init(dev)
-    prefill = phase_prefill(dev, lm)
-    serve = phase_serve(dev, lm)
+    lm = run("lm_init", phase_lm_init, dev)
+    prefill = run("prefill", phase_prefill, dev, lm)
+    serve = run("serve", phase_serve, dev, lm)
     del lm
     torch.cuda.empty_cache()
-    rows += phase_kvpack(dev, serve, copy_rate)
-    rows.append(phase_attention(dev, prefill, copy_rate))
-    phase_lm_parity(dev)
-    torch.cuda.empty_cache()
+    rows += run("kvpack", phase_kvpack, dev, serve, copy_rate)
+    rows.append(run("attention", phase_attention, dev, prefill, copy_rate))
+    run("lm_parity", phase_lm_parity, dev)
 
-    train_graph, spreads = phase_train_graph(dev)
-    trained = phase_train(dev, spreads)
-    torch.cuda.empty_cache()
-    phase_train_loop(dev)
-    rows += phase_attention_bwd(dev, trained, copy_rate)
-    phase_train_parity(dev)
-    phase_roofline(copy_rate, prefill, serve, trained)
-    torch.cuda.empty_cache()
+    train_graph, spreads = run("train_graph", phase_train_graph, dev)
+    trained = run("train", phase_train, dev, spreads)
+    run("train_loop", phase_train_loop, dev)
+    rows += run("attention_bwd", phase_attention_bwd, dev, trained, copy_rate)
+    run("train_parity", phase_train_parity, dev)
+    run("roofline", phase_roofline, copy_rate, prefill, serve, trained)
 
-    phase_families_parity(dev)
-    paths = {"moe_serve": phase_moe_serve(dev)}
-    torch.cuda.empty_cache()
-    paths["hybrid_serve"] = phase_hybrid_serve(dev, copy_rate)
-    torch.cuda.empty_cache()
-    paths["ssm_serve"] = phase_ssm_serve(dev)
-    torch.cuda.empty_cache()
-    paths["families_train"] = phase_families_train(dev, copy_rate, spreads)
-    torch.cuda.empty_cache()
+    run("families_parity", phase_families_parity, dev)
+    paths = {"moe_serve": run("moe_serve", phase_moe_serve, dev)}
+    paths["hybrid_serve"] = run("hybrid_serve", phase_hybrid_serve, dev, copy_rate)
+    paths["ssm_serve"] = run("ssm_serve", phase_ssm_serve, dev)
+    paths["families_train"] = run("families_train", phase_families_train, dev,
+                                  copy_rate, spreads)
 
-    phase_encdec_parity(dev)
-    paths["encdec_flash"] = phase_encdec_flash(dev, copy_rate)
-    torch.cuda.empty_cache()
-    paths["encdec_serve"] = phase_encdec_serve(dev)
-    torch.cuda.empty_cache()
-    paths["encdec_train"] = phase_encdec_train(dev, spreads)
-    torch.cuda.empty_cache()
-    paths["dist"] = phase_dist(dev, smi)
-    torch.cuda.empty_cache()
-    paths["tp"] = phase_tp(dev, smi, copy_rate)
-    torch.cuda.empty_cache()
-    paths["tp_families"] = phase_tp_families(dev, smi, copy_rate)
-    torch.cuda.empty_cache()
-    paths["tp_decode"] = phase_tp_decode(dev, smi)
+    run("encdec_parity", phase_encdec_parity, dev)
+    paths["encdec_flash"] = run("encdec_flash", phase_encdec_flash, dev, copy_rate)
+    paths["encdec_serve"] = run("encdec_serve", phase_encdec_serve, dev)
+    paths["encdec_train"] = run("encdec_train", phase_encdec_train, dev, spreads)
+    paths["dist"] = run("dist", phase_dist, dev, smi)
+    paths["tp"] = run("tp", phase_tp, dev, smi, copy_rate)
+    paths["tp_families"] = run("tp_families", phase_tp_families, dev, smi, copy_rate)
+    paths["tp_decode"] = run("tp_decode", phase_tp_decode, dev, smi)
     paths["tooling"] = tooling
     paths["train_graph"] = train_graph
     add_family_paths(rows, prefill, serve, trained, paths)
+    emit({"phase_seconds": seconds})
     emit({"kernels": [{k: v for k, v in r.items()
                        if k != "copy_bound_ms"}
                       for r in rows]})

@@ -117,7 +117,11 @@ def all_gather(t: torch.Tensor, group) -> torch.Tensor:
         return all_gather(t.cpu(), group).to(t.device)
     out = torch.empty((dist.get_world_size(group), *t.shape), dtype=t.dtype,
                       device=t.device)
-    dist.all_gather(list(out.unbind(0)), t.contiguous(), group=group)
+    if dist.get_backend(group) == "nccl":
+        # straight into ``out``: no flat buffer copied out on NCCL's stream
+        dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    else:
+        dist.all_gather(list(out.unbind(0)), t.contiguous(), group=group)
     return out
 
 
@@ -162,6 +166,37 @@ def collective_bytes() -> dict:
 def reset_collective_bytes() -> None:
     for k in _moved:
         _moved[k] = 0
+
+
+def byte_counts() -> dict:
+    """Both byte counters: ``collective_bytes()`` by kind, and
+    ``wire_bytes_sent()`` under ``"wire"``."""
+    return {**_moved, "wire": _sent[0]}
+
+
+def take_back_bytes(before: dict) -> dict:
+    """The bytes each counter counted since ``before`` (a
+    ``byte_counts()``), the counters set back to ``before``'s: what a CUDA
+    graph's capture recorded, for ``add_bytes`` at each replay (as
+    ``kernels.ops.take_back_launches`` does for the launches)."""
+    counted = {k: n - before[k] for k, n in byte_counts().items()
+               if n != before[k]}
+    for k, n in counted.items():
+        _count(k, -n)
+    return counted
+
+
+def add_bytes(counts: dict) -> None:
+    """Each byte counter raised by ``counts[kind]`` (a replay)."""
+    for k, n in counts.items():
+        _count(k, n)
+
+
+def _count(kind: str, n: int) -> None:
+    if kind == "wire":
+        _sent[0] += n
+    else:
+        _moved[kind] += n
 
 
 def _reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:

@@ -21,11 +21,14 @@ Port of ``repro.train.loop``:
   ``model`` sizes (elastic re-mesh);
 * the run keeps one ``TrainState``: a restore, or a restart with no
   checkpoint yet, copies into its tensors in place;
-* on a CUDA device without a mesh each step replays the whole step as a
-  CUDA graph (``train.step.GraphedTrainStep``, captured once before the
-  first step; a failed capture raises), as the reference always runs its
-  jitted step; on a mesh the step runs eagerly (the gloo collectives stage
-  through host memory, which no graph captures), and on the CPU op by op.
+* on a CUDA device, without a mesh or on a mesh whose collectives are
+  NCCL's, each step replays the whole step as a CUDA graph
+  (``train.step.GraphedTrainStep``, captured once before the first step,
+  on a mesh by every rank at once; a failed capture raises), as the
+  reference always runs its jitted step; on a gloo mesh the step runs
+  eagerly (gloo stages a CUDA tensor's collectives through host memory,
+  which no graph captures), and on the CPU op by op.  Checkpoints are
+  written outside the graph, between replays.
 """
 from __future__ import annotations
 
@@ -107,8 +110,9 @@ def _run(cfg, rc, loop, mesh, device, failure_hook, log_every):
 
     try:
         restore_latest(fresh=True)
-        if mesh is None and state.step.device.type == "cuda":
-            step_fn = train_step_mod.GraphedTrainStep(api, cfg, rc, state)
+        if (state.step.device.type == "cuda"
+                and train_step_mod.graph_backend(mesh) is None):
+            step_fn = train_step_mod.GraphedTrainStep(api, cfg, rc, state, mesh)
         else:
             step_fn = train_step_mod.make_train_step(api, cfg, rc, mesh)
         history: Dict[str, list] = {"loss": [], "step_time": [],

@@ -54,13 +54,16 @@ block of the reference's ``(n_pods, ...)`` leaf.
 
 The step updates the parameters, moments, residuals and both counters
 (``opt.count``, ``step``) in place (the reference's jitted step donates
-its state): the returned ``TrainState`` holds the same tensors.  Without a
-mesh the step makes no tensor from host data and reads no value back, so
-on the card ``GraphedTrainStep`` captures it whole as a CUDA graph (the
-counterpart of the reference's ``jax.jit``); ``train.loop.train`` replays
-that graph on a CUDA device without a mesh.  On a mesh the step runs
-eagerly: the gloo collectives stage through host memory, which no graph
-captures.
+its state): the returned ``TrainState`` holds the same tensors.  The step
+makes no tensor from host data and reads no value back, so on the card
+``GraphedTrainStep`` captures it whole as a CUDA graph (the counterpart of
+the reference's ``jax.jit``): without a mesh, and on a mesh whose
+collectives are NCCL's, which are device ops (the tensor-parallel and
+ZeRO-3 collectives, the plain path's all-reduce, the compressed path's
+gathers of planes and scales, the norm's sums).  ``train.loop.train``
+replays that graph on a CUDA device without a mesh and on an NCCL mesh.
+On a gloo mesh the step runs eagerly: gloo stages a CUDA tensor's
+collectives through host memory, which no graph captures.
 """
 from __future__ import annotations
 
@@ -73,6 +76,7 @@ import torch.distributed as dist
 
 from repro_torch.checkpoint.ckpt import Attrs, Stacked, flatten, leaf_shape, map_tree
 from repro_torch.configs.base import ModelConfig, RunConfig
+from repro_torch.data.pipeline import batch_rows
 from repro_torch.distributed import collectives, sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.models import model_zoo
@@ -422,64 +426,104 @@ def copy_state(dst: TrainState, src: TrainState) -> None:
         d.copy_(s)
 
 
-def static_batch(cfg: ModelConfig, rc: RunConfig, device) -> Dict[str, torch.Tensor]:
-    """Zero tensors of the step's inputs (``model_zoo.input_specs``)."""
-    return {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+def static_batch(cfg: ModelConfig, rc: RunConfig, device,
+                 mesh=None) -> Dict[str, torch.Tensor]:
+    """Zero tensors of the step's inputs (``model_zoo.input_specs``), on a
+    mesh this rank's rows of them (``data.pipeline.device_batch``)."""
+    rows = rc.global_batch if mesh is None else \
+        len(range(rc.global_batch)[batch_rows(rc.global_batch, mesh)])
+    return {k: torch.zeros((rows, *s.shape[1:]), dtype=s.dtype, device=device)
             for k, s in model_zoo.input_specs(cfg, rc).items()}
 
 
+def graph_backend(mesh) -> Optional[str]:
+    """Why ``GraphedTrainStep`` cannot capture the step on ``mesh``: the
+    backend of its groups where that is not NCCL (gloo stages a CUDA
+    tensor's collectives through host memory); ``None`` where it can."""
+    if mesh is None:
+        return None
+    backend = dist.get_backend()
+    return None if backend == "nccl" else backend
+
+
 class GraphedTrainStep:
-    """``make_train_step``'s single-device step on ``state``, captured as
-    one CUDA graph: the loss, its backward (with the per-layer remat), the
-    gradients' norm and the AdamW update in place; the reference's jitted
-    step with its state donated.
+    """``make_train_step``'s step on ``state``, captured as one CUDA graph:
+    the loss, its backward (with the per-layer remat), on a mesh the
+    reduction or the compressed exchange, the gradients' norm and the
+    AdamW update in place; the reference's jitted step with its state
+    donated.  On a ``mesh`` the step's collectives must be NCCL's (device
+    ops a graph captures; ``graph_backend``), every rank builds its graph
+    at once (the warm-up and the capture issue the step's collectives), and
+    the replays run in step on every rank, as the eager steps would.
 
     The graph reads and writes the tensors of ``state`` where they are
     (the flash kernels' TMA descriptors, encoded at capture, hold their
     addresses), so the state lives as long as the object and changes only
     in place: a restore copies into it (``copy_state``,
-    ``CheckpointManager.restore`` on its ``checkpoint_tree``).  The batch is
-    copied into static buffers (``static_batch``) before each replay; the
+    ``CheckpointManager.restore`` on its ``checkpoint_tree``, on a mesh
+    with ``checkpoint_blocks``).  The batch is copied into static buffers
+    (``static_batch``: on a mesh this rank's rows) before each replay; the
     metrics ``loss`` and ``grad_norm`` are static 0-dim buffers that the
-    next replay overwrites.  Activations, saved tensors and gradients live
-    in the graph's private memory pool.
+    next replay overwrites.  Activations, saved tensors, gradients and, on
+    a mesh, the gathered blocks and planes live in the graph's private
+    memory pool.
 
     Built as ``serve.engine.GraphedDecodeStep`` is: a warm-up on a side
-    stream (the step up to the update: the kernels' libraries, cuBLAS and
-    the allocator set up, the state untouched), then the capture.  Each
-    wrapper's ``launches`` counts what the graph launches at every replay,
-    and not at capture; ``kernels/*`` obs series are published at capture
-    only.  A failed capture or replay raises.
+    stream (the step up to the update: the kernels' libraries, cuBLAS,
+    the allocator and, on a mesh, the plan's process groups and every NCCL
+    communicator the step uses set up; the state as it was, the residuals
+    the compressed exchange moves put back), then the capture.  Each
+    wrapper's ``launches`` and the byte counters of
+    ``distributed.collectives`` (``byte_counts``) count what the graph
+    launches and hands to the collectives at every replay, as the eager
+    step counts, and not at capture; ``kernels/*`` and ``collectives/*``
+    obs series are published at capture only.  A failed capture or replay
+    raises.
     """
 
     def __init__(self, api: ModelApi, cfg: ModelConfig, rc: RunConfig,
-                 state: TrainState):
+                 state: TrainState, mesh=None):
+        backend = graph_backend(mesh)
+        if backend is not None:
+            raise ValueError(f"a CUDA graph of the mesh step needs NCCL "
+                             f"collectives, the mesh's groups are {backend}")
         dev = state.step.device
         if dev.type != "cuda":
             raise ValueError(f"a CUDA graph needs a CUDA device, the state "
                              f"is on {dev}")
         self.state = state
-        step = make_train_step(api, cfg, rc)
+        step = make_train_step(api, cfg, rc, mesh)
         with torch.cuda.device(dev):
-            self.batch = static_batch(cfg, rc, dev)
+            self.batch = static_batch(cfg, rc, dev, mesh)
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side), obs.disabled_scope():
+                resid = [r.clone() for r in (state.resid or {}).values()]
                 step.gradients(state, self.batch)
                 for p in state.params.parameters():
                     p.grad = None
+                for r, kept in zip((state.resid or {}).values(), resid):
+                    r.copy_(kept)
+                del resid
             torch.cuda.current_stream(dev).wait_stream(side)
 
-            before = ops.launch_counts()
+            launches, moved = ops.launch_counts(), collectives.byte_counts()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
+            # On a mesh, NCCL's watchdog thread queries the events of the
+            # warm-up's collectives while the step is captured; a global
+            # capture would fail that query (and the capture with it), so
+            # the capture forbids unsafe calls on this thread only.
+            mode = "global" if mesh is None else "thread_local"
+            with torch.cuda.graph(self.graph, capture_error_mode=mode):
                 _, self.metrics = step(state, self.batch)
-            self.launches = ops.take_back_launches(before)
+            self.launches = ops.take_back_launches(launches)
+            self.moved = collectives.take_back_bytes(moved)
 
     def __call__(self, state: TrainState, batch) -> tuple:
         """One step on ``batch`` (the device's tensors of
-        ``data.pipeline.device_batch``): ``(state, metrics)`` as the
-        eager step returns them; ``state`` must be the graph's."""
+        ``data.pipeline.device_batch``, on a mesh this rank's rows):
+        ``(state, metrics)`` as the eager step returns them; ``state`` must
+        be the graph's."""
         if state.step is not self.state.step:
             raise ValueError("the graph steps the state it was captured on")
         if batch.keys() != self.batch.keys():
@@ -492,6 +536,7 @@ class GraphedTrainStep:
             buf.copy_(batch[k])
         self.graph.replay()
         ops.add_launches(self.launches)
+        collectives.add_bytes(self.moved)
         return self.state, self.metrics
 
 

@@ -15,6 +15,7 @@ on fewer than 1% of the entries (``tests/test_kernels.py``'s ``kv_quant``
 rule).  bf16 against the port's own single-device step: losses within
 5e-3 (the reference's ``tests/_distributed_main.py``).
 """
+import contextlib
 import math
 import os
 import subprocess
@@ -27,6 +28,7 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
 
+from _torch_ops_seen import OpsSeen
 from repro_torch import convert
 from repro_torch.checkpoint import ckpt
 from repro_torch.configs import base as tbase
@@ -102,16 +104,26 @@ def _job_parity(job: dict) -> dict:
         step = tstep.make_train_step(api, cfg, rc, mesh)
         pipe = tpipe.SyntheticPipeline(cfg, rc, seed=3)
         losses, wire = [], []
-        for _ in range(STEPS):
+        seen = OpsSeen()                  # the first step, as a graph captures it
+        for i in range(STEPS):
             batch = tpipe.device_batch(pipe.next(), cfg, rc, "cpu", mesh)
+            if not i:
+                static = tstep.static_batch(cfg, rc, "cpu", mesh)
+                layout = [{k: (t.shape, t.dtype) for k, t in b.items()}
+                          for b in (static, batch)]
             collectives.reset_wire_bytes()
-            state, m = step(state, batch)
+            with seen if not i else contextlib.nullcontext():
+                state, m = step(state, batch)
             wire.append(collectives.wire_bytes_sent())
             losses.append(float(m["loss"]))
         whole = tstep.whole_tree(state, api, rc, mesh)
+        ops = seen.summary()
         out[bits] = {"loss": losses, "wire": wire,
                      "local_resid_shape": None if state.resid is None else
-                     tuple(next(iter(state.resid.values())).shape)}
+                     tuple(next(iter(state.resid.values())).shape),
+                     "ops": dict(ops, names=sorted(set(ops["names"])),
+                                 n_ops=len(ops["names"])),
+                     "static_batch": layout}
         if mesh.rank == 0:
             out[bits]["tree"] = _host_tree(whole)
             out[bits]["stats"] = collectives.exchange_stats(
@@ -300,6 +312,30 @@ def test_mesh_layout_and_wire_bytes(shape, parity):
             assert r[bits]["local_resid_shape"][0] == 1
     assert ranks[0][8]["stats"].compressed_leaves > 0
     assert ranks[0][8]["stats"].raw_leaves > 0
+
+
+@pytest.mark.parametrize("shape", PARITY_MESHES)
+@pytest.mark.parametrize("bits", PARITY_BITS)
+def test_step_makes_no_host_tensor_and_reads_no_scalar(shape, bits, parity):
+    """The mesh step, as ``GraphedTrainStep`` captures it on an NCCL mesh
+    (``tests/test_torch_train_graph.py`` holds the single-device step):
+    under a ``TorchDispatchMode`` in every rank's first step it makes no
+    tensor from host data and reads no scalar (tinyllama calls no
+    ``F.one_hot``; on CPU tensors gloo stages nothing); the plain path's
+    all-reduce or the compressed exchange's gathers ran in it; the graph's
+    static batch is the rank's rows that ``device_batch`` gives."""
+    for r in parity[shape]:
+        ops = r[bits]["ops"]
+        assert "aten.mm.default" in ops["names"] and ops["n_ops"] > 1000
+        assert "c10d.allreduce_.default" in ops["names"]
+        if bits:
+            assert "c10d.allgather_.default" in ops["names"] \
+                or "c10d._allgather_base_.default" in ops["names"]
+        assert not ops["host_tensors"], ops["host_tensors"]
+        assert not ops["reads_outside"] and not ops["reads_inside"]
+        static, batch = r[bits]["static_batch"]
+        assert static == batch
+        assert batch["tokens"][0][0] == RC["global_batch"] // (shape[0] * shape[1])
 
 
 def test_sharded_step_equals_single_device(tmp_path):

@@ -20,13 +20,15 @@ one smoke config of each of the six families:
   uninterrupted run's losses.
 
 The graph itself runs only on the card (``chip_smoke.py``'s ``train_graph``
-phase holds it to the eager step); on the CPU it raises.
+phase holds it to the eager step, ``tools/nccl_tp_check.py`` on an NCCL
+mesh); on the CPU and on a gloo mesh it raises.  A capture's launches and
+collective bytes are taken back and added again at each replay.
 """
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
+from _torch_ops_seen import OpsSeen
 from repro_torch.configs import base as tbase
 from repro_torch.data import pipeline as tpipe
 from repro_torch.models import model_zoo
@@ -36,8 +38,6 @@ from repro_torch.train.loop import LoopConfig, train
 #: one smoke config of each family: dense, vlm, moe, ssm, hybrid, encdec
 FAMILIES = ("tinyllama-1.1b", "internvl2-76b", "mixtral-8x7b", "mamba2-130m",
             "hymba-1.5b", "whisper-tiny")
-HOST_TENSOR_OPS = ("aten.lift_fresh.default", "aten.lift_fresh_copy.default")
-SCALAR_READ = "aten._local_scalar_dense.default"
 
 
 def _setup(arch, remat=True):
@@ -51,33 +51,6 @@ def _setup(arch, remat=True):
     return cfg, rc, api, state, batch
 
 
-class _Ops(TorchDispatchMode):
-    """Records each aten op, and whether it ran inside ``F.one_hot``
-    (``one_hot``, which ``install`` puts in its place, counts the calls
-    under way; a ``TorchFunctionMode`` would miss the remat's recompute)."""
-
-    def __init__(self):
-        super().__init__()
-        self.seen, self.depth, self.calls = [], 0, 0
-
-    def install(self, monkeypatch):
-        plain = torch.nn.functional.one_hot
-
-        def one_hot(*args, **kw):
-            self.calls += 1
-            self.depth += 1
-            try:
-                return plain(*args, **kw)
-            finally:
-                self.depth -= 1
-        monkeypatch.setattr(torch.nn.functional, "one_hot", one_hot)
-        return self
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.seen.append((str(func), self.depth > 0))
-        return func(*args, **(kwargs or {}))
-
-
 #: ``F.one_hot`` calls in mixtral's smoke step: two in each of its two
 #: layers (``assign``'s capacity slots and ``_aux``'s balance loss), in the
 #: forward and again in remat's recompute
@@ -88,16 +61,15 @@ MIXTRAL_ONE_HOTS = 8
 def test_step_makes_no_host_tensor_and_reads_no_scalar(arch, monkeypatch):
     cfg, rc, api, state, batch = _setup(arch)
     step = tstep_mod.make_train_step(api, cfg, rc)
-    ops = _Ops().install(monkeypatch)
+    ops = OpsSeen().install(monkeypatch)
     with ops:
         step(state, batch)
-    names = [f for f, _ in ops.seen]
-    assert "aten.mm.default" in names and len(names) > 1000   # backward too
-    assert not [f for f in names if f in HOST_TENSOR_OPS]
-    reads = [inside for f, inside in ops.seen if f == SCALAR_READ]
-    assert all(reads), "a scalar read outside F.one_hot"
+    seen = ops.summary()
+    assert "aten.mm.default" in seen["names"] and len(seen["names"]) > 1000  # backward too
+    assert not seen["host_tensors"]
+    assert not seen["reads_outside"], "a scalar read outside F.one_hot"
     # the CPU one_hot's range check reads its min and max
-    assert len(reads) == 2 * ops.calls
+    assert seen["reads_inside"] == 2 * ops.calls
     want = MIXTRAL_ONE_HOTS if arch == "mixtral-8x7b" else 0
     assert ops.calls == want
 
@@ -169,31 +141,87 @@ def test_copy_state_copies_every_tensor_in_place():
     assert int(state.step) == 1
 
 
-def test_capture_counts_are_taken_back_and_added_at_replay():
-    """What a graph does with the wrappers' counts: a capture's launches
-    are taken back (it launched nothing) and added again at each replay."""
+def _launch_counter():
     from repro_torch.kernels import ops
-    ops.reset_launch_counts()
-    ops.KERNELS["flash_attention.flash_fwd"].launches = 3
-    before = ops.launch_counts()
-    ops.KERNELS["flash_attention.flash_fwd"].launches += 4
-    ops.KERNELS["flash_attention.flash_bwd_dq"].launches += 2
-    counted = ops.take_back_launches(before)
-    assert counted == {"flash_attention.flash_fwd": 4,
-                       "flash_attention.flash_bwd_dq": 2}
-    assert ops.launch_counts() == before
+
+    def bump(name, n):
+        ops.KERNELS[name].launches += n
+    return (ops.launch_counts, ops.reset_launch_counts, ops.take_back_launches,
+            ops.add_launches, bump,
+            ("flash_attention.flash_fwd", "flash_attention.flash_bwd_dq"))
+
+
+def _byte_counter(first, second):
+    from repro_torch.distributed import collectives as coll
+
+    def reset():
+        coll.reset_collective_bytes()
+        coll.reset_wire_bytes()
+
+    def bump(name, n):
+        if name == "wire":     # what a gather of n bytes of words counts
+            coll._gather_words([torch.zeros(n // 4, dtype=torch.int32)], None)
+        else:
+            coll._moved[name] += n
+    return (coll.byte_counts, reset, coll.take_back_bytes, coll.add_bytes, bump,
+            (first, second))
+
+
+#: each host-side counter a replay advances as the eager step would: how
+#: to read it, reset it, take back a capture's counts, add them at a
+#: replay and raise one of its entries, and two of its entries
+COUNTERS = {"launches": _launch_counter,
+            "collective_bytes": lambda: _byte_counter("all_gather", "reduce_scatter"),
+            "wire_bytes": lambda: _byte_counter("wire", "all_reduce")}
+
+
+@pytest.mark.parametrize("counter", COUNTERS)
+def test_capture_counts_are_taken_back_and_added_at_replay(counter, monkeypatch):
+    """What a graph does with the wrappers' launches and the collectives'
+    byte counters: a capture's counts are taken back (it launched and
+    moved nothing) and added again at each replay."""
+    read, reset, take_back, add, bump, (a, b) = COUNTERS[counter]()
+    if counter == "wire_bytes":      # a gather of one rank: its own words
+        from repro_torch.distributed import collectives as coll
+        monkeypatch.setattr(coll, "all_gather", lambda t, group: t[None])
+    reset()
+    bump(a, 12)
+    before = read()
+    bump(a, 16)
+    bump(b, 8)
+    counted = take_back(before)
+    assert counted == {a: 16, b: 8}
+    assert read() == before
     for _ in range(3):
-        ops.add_launches(counted)
-    want = dict(before, **{"flash_attention.flash_fwd": 15,
-                           "flash_attention.flash_bwd_dq": 6})
-    assert ops.launch_counts() == want
-    ops.reset_launch_counts()
+        add(counted)
+    assert read() == dict(before, **{a: 60, b: 24})
+    reset()
+    assert not any(read().values())
 
 
-def test_graphed_step_needs_a_cuda_device():
+@pytest.mark.parametrize("where", ["cpu", "gloo_mesh"])
+def test_graphed_step_needs_a_cuda_device(where, tmp_path):
+    """On the CPU the graph is refused for the device; on a mesh of gloo
+    groups (one rank here) for the backend, which ``train()`` also reads
+    to keep that mesh's step eager."""
     cfg, rc, api, state, _ = _setup("tinyllama-1.1b")
-    with pytest.raises(ValueError, match="CUDA"):
-        tstep_mod.GraphedTrainStep(api, cfg, rc, state)
+    if where == "cpu":
+        with pytest.raises(ValueError, match="CUDA"):
+            tstep_mod.GraphedTrainStep(api, cfg, rc, state)
+        assert tstep_mod.graph_backend(None) is None
+        return
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as tmesh
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}",
+                            rank=0, world_size=1)
+    try:
+        mesh = tmesh.make_mesh((1, 1), ("data", "model"), "cpu")
+        assert tstep_mod.graph_backend(mesh) == "gloo"
+        with pytest.raises(ValueError, match="NCCL.*gloo"):
+            tstep_mod.GraphedTrainStep(api, cfg, rc, state, mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 LOOP_STEPS, LOOP_CKPT = 15, 5

@@ -1,10 +1,11 @@
-"""The differentiable collectives and a tensor-parallel train step over NCCL,
-one rank a card.
+"""The differentiable collectives, a tensor-parallel train step and its CUDA
+graph over NCCL, one rank a card.
 
 ``chip_smoke.py`` runs its ranks on one card over gloo (NCCL refuses two
 ranks on one GPU), so the NCCL side of ``distributed.collectives`` (the
-reduce-scatter, the all-reduce and the gathers on device memory) is held
-here, on a host with four cards:
+reduce-scatter, the all-reduce and the gathers on device memory) and the
+mesh step captured as a CUDA graph (``train.step.GraphedTrainStep(...,
+mesh)``) are held here, on a host with four cards:
 
     python3 tools/nccl_tp_check.py            # 4 ranks, NCCL, cuda:0..3
     python3 tools/nccl_tp_check.py --cpu      # the same on 4 gloo CPU ranks
@@ -24,11 +25,33 @@ Checks, on every rank:
   on a rank's heads, hymba's KV heads and whisper's query heads cut
   mid-head at tp = 4, whisper's stream whole over ``model``).
 
-Rank 0 prints one JSON line of what it measured; the exit code is 0 when
-every check held.
+Over NCCL only (gloo stages a CUDA tensor's collectives through host
+memory, which no graph captures, so ``--cpu`` runs the steps eagerly):
+
+* the graph against the eager step (``GRAPH_CASES``): the four smoke
+  configs above on their meshes, tinyllama's smoke config on (2, 2, 1)
+  pod x data x model at bits 8 (the compressed exchange) and on (2, 2)
+  under ``remat_policy="save_collectives"`` (the remat's recompute takes
+  the forward's collective outputs, kept in the graph's pool) and
+  tinyllama-1.1b at full size on (2, 2) (bf16, remat, 4096 tokens, a
+  global batch of ``FULL_B``, cut from train_4k's 256); each runs STEPS
+  eager steps twice and STEPS replays from the seed on the same batches:
+  losses, grad norms, parameters, moments, residuals and counters
+  bit-equal to the first eager run, or no further from it than the second
+  eager run is, part by part; every replay counts the eager step's
+  launches and bytes (``collectives.byte_counts``);
+* ``train.loop.train`` on the (2, 2) mesh replays the graph, and with a
+  failure injected after its first checkpoint restores into the graph's
+  state and resumes with the uninterrupted run's losses (within 1e-5).
+
+Rank 0 prints one JSON line of what it measured (step ms eager and
+graphed, median; capture ms; peak GiB a rank above the run's start); the
+exit code is 0 when every check held.
 """
+import dataclasses
 import json
 import socket
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -44,9 +67,11 @@ import torch.multiprocessing as mp  # noqa: E402
 from repro_torch.configs import base as configs  # noqa: E402
 from repro_torch.data.pipeline import SyntheticPipeline, device_batch  # noqa: E402
 from repro_torch.distributed import collectives  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.mesh import make_mesh  # noqa: E402
 from repro_torch.models import model_zoo  # noqa: E402
 from repro_torch.train import step as train_step  # noqa: E402
+from repro_torch.train.loop import LoopConfig, train  # noqa: E402
 
 WORLD = 4
 SHAPE, NAMES = (2, 2), ("data", "model")
@@ -55,6 +80,20 @@ ARCH = "tinyllama-1.1b"
 #: each family's smoke config and its mesh over NAMES
 FAMILIES = {ARCH: SHAPE, "mamba2-130m": SHAPE, "hymba-1.5b": SHAPE,
             "whisper-tiny": (1, 4)}
+#: the full-size case's global batch (train_4k's 256, cut by time)
+FULL_B = 4
+#: graphed against eager: name -> (arch, mesh, axis names, run config
+#: fields over ``run_config()``'s, full size)
+GRAPH_CASES = {
+    **{arch: (arch, shape, NAMES, {}, False) for arch, shape in FAMILIES.items()},
+    f"{ARCH} pods bits 8": (ARCH, (2, 2, 1), ("pod", "data", "model"),
+                            {"grad_compress_bits": 8}, False),
+    f"{ARCH} save_collectives": (ARCH, SHAPE, NAMES, {
+        "remat_policy": "save_collectives", "tp_scatter": True}, False),
+    f"{ARCH} full": (ARCH, SHAPE, NAMES, {}, True),
+}
+#: ``train()`` through a restart: steps, checkpoint interval, failed step
+LOOP_STEPS, LOOP_CKPT, LOOP_FAIL = 6, 2, 3
 
 
 def run_config():
@@ -112,22 +151,147 @@ def check_collectives(rank: int, dev) -> dict:
     return out
 
 
-def mesh_losses(arch: str, rc, dev) -> tuple:
-    """STEPS losses and step ms of ``arch``'s smoke config on its mesh."""
-    mesh = make_mesh(FAMILIES[arch], NAMES, dev)
-    cfg = configs.load_smoke(arch)
-    api = model_zoo.get_api(cfg, rc, dev)
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_steps(api, cfg, rc, mesh, batches, dev, graphed: bool) -> dict:
+    """A fresh state from seed 0 on ``mesh``, then one step a batch, eager
+    or replayed: losses, grad norms, the state's tensors, what each step
+    counted (launches, bytes), step ms, capture ms, peak memory above the
+    run's start."""
+    cuda = dev.type == "cuda"
+    _sync(dev)
+    if cuda:
+        start = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
     state = train_step.init_state(api, rc, 0, mesh)
-    step = train_step.make_train_step(api, cfg, rc, mesh)
-    pipe = SyntheticPipeline(cfg, rc, seed=3)
-    losses, times = [], []
-    for _ in range(STEPS):
-        batch = device_batch(pipe.next(), cfg, rc, dev, mesh)
+    t0 = time.perf_counter()
+    step = (train_step.GraphedTrainStep(api, cfg, rc, state, mesh) if graphed
+            else train_step.make_train_step(api, cfg, rc, mesh))
+    _sync(dev)
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    losses, gnorms, times, counted = [], [], [], []
+    for b in batches:
+        launches, moved = ops.launch_counts(), collectives.byte_counts()
         t0 = time.perf_counter()
-        state, m = step(state, batch)
-        losses.append(float(m["loss"]))
+        state, m = step(state, b)
+        losses.append(m["loss"].clone())
+        gnorms.append(m["grad_norm"].clone())
+        _sync(dev)
         times.append((time.perf_counter() - t0) * 1e3)
-    return losses, times
+        counted.append({
+            "launches": {k: n - launches[k] for k, n in ops.launch_counts().items()
+                         if n != launches[k]},
+            "bytes": {k: n - moved[k] for k, n in collectives.byte_counts().items()
+                      if n != moved[k]}})
+    return {"loss": torch.stack(losses), "grad_norm": torch.stack(gnorms),
+            "tensors": train_step.state_tensors(state),
+            "n_params": sum(1 for _ in state.params.parameters()),
+            "counted": counted, "step_ms": times,
+            "capture_ms": capture_ms if graphed else None,
+            "peak_GiB": ((torch.cuda.max_memory_allocated(dev) - start) / 2**30
+                         if cuda else None)}
+
+
+def trajectory_diff(a: dict, b: dict) -> dict:
+    """Max abs difference of two runs by part (0.0 only where bit-equal):
+    losses, grad norms, parameters, moments, residuals, counters."""
+    n, ts = a["n_params"], len(a["tensors"])
+    parts = {"params": range(n), "mu": range(n, 2 * n), "nu": range(2 * n, 3 * n),
+             "resid": range(3 * n + 1, ts - 1), "counters": (3 * n, ts - 1)}
+    pairs = {"loss": [(a["loss"], b["loss"])],
+             "grad_norm": [(a["grad_norm"], b["grad_norm"])],
+             **{k: [(a["tensors"][i], b["tensors"][i]) for i in idx]
+                for k, idx in parts.items()}}
+    out = {}
+    for part, ps in pairs.items():
+        if all(torch.equal(x, y) for x, y in ps):
+            out[part] = 0.0
+        else:
+            out[part] = max(float((x.float() - y.float()).abs().max())
+                            for x, y in ps) or float("nan")
+    return out
+
+
+def graph_case(name: str, dev) -> dict:
+    """``name``'s STEPS steps eager twice, then replayed, from the seed on
+    the same batches: the graph against the eager spread, the counts a
+    step, times and memory; the eager losses (held to one card's)."""
+    arch, shape, names, fields, full = GRAPH_CASES[name]
+    mesh = make_mesh(shape, names, dev)
+    cfg = configs.load_arch(arch) if full else configs.load_smoke(arch)
+    rc = (configs.run_config_for("train_4k", cfg, global_batch=FULL_B) if full
+          else dataclasses.replace(run_config(), **fields))
+    api = model_zoo.get_api(cfg, rc, dev)
+    pipe = SyntheticPipeline(cfg, rc, seed=3)
+    batches = [device_batch(pipe.next(), cfg, rc, dev, mesh) for _ in range(STEPS)]
+    eager = run_steps(api, cfg, rc, mesh, batches, dev, False)
+    out = {"loss": eager["loss"].tolist(), "eager_step_ms": eager["step_ms"]}
+    if dev.type != "cuda":
+        return out
+    again = run_steps(api, cfg, rc, mesh, batches, dev, False)
+    graph = run_steps(api, cfg, rc, mesh, batches, dev, True)
+    spread, diff = trajectory_diff(eager, again), trajectory_diff(eager, graph)
+    counts = eager["counted"] + again["counted"] + graph["counted"]
+    out.update(
+        graph_loss=graph["loss"].tolist(), graph_vs_eager=diff, eager_vs_eager=spread,
+        bit_equal=not any(diff.values()),
+        within_spread=all(diff[k] <= spread[k] for k in diff),
+        counts_equal=all(c == counts[0] for c in counts), per_step=counts[0],
+        graphed_step_ms=graph["step_ms"],
+        eager_ms_median=statistics.median(eager["step_ms"] + again["step_ms"]),
+        graphed_ms_median=statistics.median(graph["step_ms"]),
+        capture_ms=graph["capture_ms"],
+        peak_GiB={"eager": eager["peak_GiB"], "graphed": graph["peak_GiB"]},
+        batch=rc.global_batch, seq=rc.seq_len, layers=cfg.n_layers)
+    if full:
+        out["reduced"] = {"global_batch": [256, FULL_B]}
+    return out
+
+
+def loop_case(dev, workdir: str) -> dict:
+    """``train()`` on the (2, 2) mesh at tinyllama's smoke config, each step
+    counted as a replay of its graph, uninterrupted and with a failure
+    injected at LOOP_FAIL (after the first checkpoint)."""
+    mesh = make_mesh(SHAPE, NAMES, dev)
+    cfg, rc = configs.load_smoke(ARCH), run_config()
+    replays = []
+
+    class Counted(train_step.GraphedTrainStep):
+        def __call__(self, state, batch):
+            replays.append(1)
+            return super().__call__(state, batch)
+
+    fired = []
+
+    def hook(step):
+        if step == LOOP_FAIL and not fired:
+            fired.append(1)
+            raise RuntimeError("injected node failure")
+
+    plain = train_step.GraphedTrainStep
+    train_step.GraphedTrainStep = Counted
+    try:
+        ref = train(cfg, rc, LoopConfig(total_steps=LOOP_STEPS, ckpt_every=LOOP_CKPT,
+                                        ckpt_dir=f"{workdir}/loop_a"),
+                    mesh=mesh, device=str(dev), log_every=0)
+        first = len(replays)
+        got = train(cfg, rc, LoopConfig(total_steps=LOOP_STEPS, ckpt_every=LOOP_CKPT,
+                                        ckpt_dir=f"{workdir}/loop_b"),
+                    mesh=mesh, device=str(dev), failure_hook=hook, log_every=0)
+    finally:
+        train_step.GraphedTrainStep = plain
+    n = LOOP_STEPS - LOOP_FAIL // LOOP_CKPT * LOOP_CKPT     # from the checkpoint on
+    again = LOOP_STEPS + LOOP_FAIL % LOOP_CKPT                # steps the second run ran
+    err = max(abs(a - b) for a, b in zip(ref["loss"][-n:], got["loss"][-n:]))
+    return {"loss": ref["loss"], "resumed_loss": got["loss"],
+            "restarts": [ref["restarts"], got["restarts"]],
+            "replays": [first, len(replays) - first], "resumed_max_abs_err": err,
+            "ok": (ref["restarts"] == 0 and got["restarts"] == 1
+                   and first == LOOP_STEPS and len(replays) - first == again
+                   and len(got["loss"]) == again and err <= 1e-5)}
 
 
 def single_device(cfg, rc, dev) -> tuple:
@@ -163,9 +327,18 @@ def rank_main(rank: int, init_method: str, backend: str, workdir: str) -> None:
         whole = train_step.whole_tree(state, api, rc, mesh)
         res["whole_on_rank0_only"] = (whole is not None) == (rank == 0)
         del state
-        res["loss"], res["step_ms"] = {}, {}
-        for arch in FAMILIES:
-            res["loss"][arch], res["step_ms"][arch] = mesh_losses(arch, rc, dev)
+        cases = GRAPH_CASES if dev.type == "cuda" else FAMILIES
+        res["graph"] = {}
+        for name in cases:
+            t0 = time.perf_counter()
+            res["graph"][name] = graph_case(name, dev)
+            res["graph"][name]["seconds"] = time.perf_counter() - t0
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        res["loss"] = {a: res["graph"][a]["loss"] for a in FAMILIES}
+        res["step_ms"] = {a: res["graph"][a]["eager_step_ms"] for a in FAMILIES}
+        if dev.type == "cuda":
+            res["loop"] = loop_case(dev, workdir)
         if rank == 0:
             from repro_torch.checkpoint.ckpt import flatten
             init, _ = single_device(cfg, rc, dev)
@@ -212,6 +385,18 @@ def main(argv) -> int:
               "whole_equals_init": ranks[0]["whole_equals_init"],
               "losses": all(abs(a - b) <= 5e-3 for r in ranks for arch in FAMILIES
                             for a, b in zip(r["loss"][arch], single[arch]))}
+    graph = {}
+    if not cpu:
+        checks["graph_within_eager_spread"] = all(
+            g["within_spread"] for r in ranks for g in r["graph"].values())
+        checks["graph_counts_equal_eager"] = all(
+            g["counts_equal"] for r in ranks for g in r["graph"].values())
+        checks["train_loop_replays_and_resumes"] = all(r["loop"]["ok"] for r in ranks)
+        keys = ("bit_equal", "graph_vs_eager", "eager_vs_eager", "per_step",
+                "eager_ms_median", "graphed_ms_median", "capture_ms", "peak_GiB",
+                "batch", "seq", "layers", "seconds", "reduced")
+        graph = {name: [{k: r["graph"][name].get(k) for k in keys} for r in ranks]
+                 for name in GRAPH_CASES}
     smi = "" if cpu else subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True).stdout.strip().splitlines()
@@ -219,7 +404,8 @@ def main(argv) -> int:
                       "failed_collectives": sorted(
                           {k for r in ranks for k, v in r["collectives"].items() if not v}),
                       "loss": [r["loss"] for r in ranks], "single_loss": single,
-                      "step_ms": [r["step_ms"] for r in ranks],
+                      "step_ms": [r["step_ms"] for r in ranks], "graph": graph,
+                      "loop": [r.get("loop") for r in ranks],
                       "seconds": time.perf_counter() - t0, "cards": smi}))
     return 0 if all(checks.values()) else 1
 
