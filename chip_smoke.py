@@ -19,8 +19,8 @@ and read just after:
   ``ModelApi.prefill`` on 4 x 2048 tokens (flash attention in every layer)
   and ``ServeEngine.generate`` with an int8 KV cache on 8 prompts of
   16-128 tokens, 32 new tokens each (the decode step replayed as a CUDA
-  graph: kv_quant_store once and kv_dequant twice in every layer at every
-  step), then a short int4 generate;
+  graph: kv_quant_store and kv_decode_attention once in every layer at
+  every step), then a short int4 generate;
 * training tinyllama-1.1b at its full published width and depth (22 layers,
   d_model 2048, bf16 weights, f32 AdamW moments, remat): 3 timed steps of
   ``train.step.make_train_step`` on 8 x 4096 tokens each, the batch cut
@@ -40,8 +40,8 @@ and read just after:
 * serving mixtral-8x7b (moe) at full width, 16 of its 32 layers (memory:
   23.5e9 bf16 weights, 43.7 GiB): a 4 x 2048 prefill and a generate of
   8 prompts through the replayed decode graph (the expert dispatch and
-  combine are torch ops; kv_quant_store once and kv_dequant twice a layer
-  and step);
+  combine are torch ops; kv_quant_store and kv_decode_attention once a
+  layer and step);
 * serving hymba-1.5b (hybrid: attention with a 1024 window beside the SSD
   mixer) at full size: a 4 x 2048 prefill (the windowed flash forward in
   every layer) and a generate of 8 prompts of 1000-1100 tokens through
@@ -55,15 +55,15 @@ and read just after:
   forward over the 1500 frames in each encoder layer, the causal one and
   the cross-attention to the frames in each decoder layer) and a generate
   of 32 prompts of 4 tokens, 444 new each, int8, through the replayed
-  graph (kv_quant_store once and kv_dequant twice a decoder layer and step;
+  graph (kv_quant_store and kv_decode_attention once a decoder layer and step;
   the cross-attention over the cached cross K/V is torch ops, as in the
   reference), then a short int4 generate;
 * training whisper-tiny at full size, 128 clips of 1500 frames and 448
   tokens (the batch cut from Whisper's 256 by memory): the flash forward
   twice and both backward kernels once per attention call (4 encoder, 4
   decoder self, 4 cross);
-* training tinyllama-1.1b at full width, 11 of its 22 layers (by time),
-  on two ranks of the one card (two
+* training tinyllama-1.1b at full width, 6 of its 22 layers (DIST_LAYERS,
+  by time), on two ranks of the one card (two
   processes, a gloo group: NCCL refuses two ranks on one GPU), the mesh
   (2, 1, 1) over (pod, data, model), a global batch of 4 x 4096 tokens
   (2 a pod), 3 steps each at ``grad_compress_bits`` 0, 8 and 16 through
@@ -103,10 +103,10 @@ and read just after:
   combined over model, the logits gathered whole;
 * the port's tooling on the card: the access walk and the byte audit of
   the kernel routes of ``pack``, ``unpack``, ``jacobi_chunked``,
-  ``kv_quant``, ``kv_dequant`` (the reference's grid) and
-  ``kv_quant_store`` (``analysis.access.builtin_cases``), then the four
-  examples at their small sizes (``examples/torch_*.py``): the serve
-  example's decode graph launches kv_quant_store and kv_dequant, the train
+  ``kv_quant``, ``kv_dequant`` (the reference's grid), ``kv_quant_store``
+  and ``kv_decode_attention`` (``analysis.access.builtin_cases``), then the
+  four examples at their small sizes (``examples/torch_*.py``): the serve
+  example's decode graph launches kv_quant_store and kv_decode_attention, the train
   example's steps the flash forward and both backward kernels.
 
 Phases, one JSON line each:
@@ -189,15 +189,18 @@ Phases, one JSON line each:
 9. prefill   — the prefill path: 36 flash launches, finite logits (4, 49152),
                a profile of one more prefill (device ops, idle share);
 10. serve     — the generate path: the graph's capture ms, then launches
-               checked exactly (36 x steps kv_quant_store, 72 x steps
-               kv_dequant, no kv_quant and nothing else), tokens/s, cache
+               checked exactly (36 x steps kv_quant_store, 36 x steps
+               kv_decode_attention, no kv_quant or kv_dequant and nothing
+               else), tokens/s, cache
                bytes, peak memory; an int4 generate, counted the same way;
                the graph against eager ``decode_step`` from the same state
                (16 int8 steps, and the int4 generate's schedule): logits
                ``torch.equal`` at every step, identical greedy tokens, equal
                caches, host ms a step of both; a profile of 8 replayed steps
-               (top device ops, idle share; kv_quant_store found 36 x 8
-               times, kv_dequant 72 x 8); a step's token copy and replay
+               (top device ops, idle share; kv_quant_store and
+               kv_decode_attention found 36 x 8 times each, kv_dequant
+               never; the element-wise copies and casts counted); a step's
+               token copy and replay
                by CUDA events, and the idle share of the untraced generate's
                step against the profile's busy time a step;
 11. kvpack    — kv_quant / kv_dequant bit-identical to their plain versions
@@ -209,6 +212,20 @@ Phases, one JSON line each:
                mix (60 cases); the three kv rows timed by events, back to
                back and in the profile, beside the profiler's device time of
                a one-element ``fill_`` (the card's launch floor);
+               kv_decode_attention against its plain version (f32 within
+               DA_F32_TOL of the largest |o|, bf16 each head's relative
+               error within FLASH_BF16_REL) on the cases of
+               tests/test_torch_decode_attention.py at hd 32, 64 and 128
+               (bits 16, 8, 4 x f32, bf16 x causal, window, ring x G 1, 4,
+               5; head blocks cut mid-group) and on two caches split over a
+               cluster; then at DA_TIMED's shapes (the serve path's, one
+               granite-8b layer at B 8 x S 32,768 at int8 and int4,
+               hymba's ring, whisper's decoder): held to its plain version,
+               timed by events, back to back and in the profile, beside
+               the plain version, the composition it replaced
+               (kv_dequant, the bf16 cast, ``_attend``) and SDPA on the
+               same K and V already dequantized to bf16, with its byte
+               bound and launch plan;
 12. attention — the flash forward against its plain version at one layer's
                prefill shape (bf16: o within 3e-2, lse within 1e-3, and o's
                relative error on every 64-row query tile of each head within
@@ -293,7 +310,7 @@ Phases, one JSON line each:
                else; wall ms, tokens/s, profile) and the share of routed
                copies past the expert capacity (2560) in one more prefill;
                the generate (int8, seq_len 256; launches checked exactly,
-               16 x steps kv_quant_store, 32 x steps kv_dequant), a profile
+               16 x steps kv_quant_store and kv_decode_attention), a profile
                of 8 replayed steps, and the graph against eager
                ``decode_step`` on 16 steps (logits ``torch.equal``);
 21. hybrid_serve — hymba-1.5b: the prefill (32 windowed flash launches);
@@ -335,8 +352,9 @@ Phases, one JSON line each:
                rules); the bf16 kernels timed beside the plain versions and
                SDPA's forward and backward;
 26. encdec_serve — whisper-tiny's prefill (12 flash launches) and generate
-               (launches exact: 4 x steps kv_quant_store, 8 x steps
-               kv_dequant), tokens/s, capture, a profile of 8 replayed steps,
+               (launches exact: 4 x steps kv_quant_store and
+               kv_decode_attention), tokens/s, capture, a profile of 8
+               replayed steps,
                the read bound of a step (the decoder's weights and the cross
                K/V); an int4 generate; the graph against eager on 15 steps
                from the zero state and from seeded cross K/V (int8 and int4);
@@ -426,11 +444,16 @@ Phases, one JSON line each:
                graphed train steps' replays (``*_train_graph_3_steps``).
 
 The three tensor-core rows (flash forward, dK/dV, dQ), the jacobi row, the
-two codec rows and the fused KV store's row also carry ``design``; the
+two codec rows, the fused KV store's row and the decode attention's row
+also carry ``design``; the decode attention's row its times at every
+DA_TIMED shape (``at_shapes``) and the composition it replaced; the
 codec rows add their time a launch in the main path's profile
 (``profile_ms``), the kv rows their time back to back, in the profile and
 the launch floor.  kv_quant's ``launches`` is 0: the serve path writes its
-cache through kv_quant_store.
+cache through kv_quant_store.  kv_dequant's ``launches`` are the tp_decode
+path's (``launches_path``): one device's decode reads its cache through
+kv_decode_attention, a rank holding a block of the slots through
+kv_dequant and the split softmax.
 
 ``bound_ms`` is the larger of the bytes the function must move over the
 H100's published 3.35 TB/s and its operations over the published peak for
@@ -468,8 +491,8 @@ from repro_torch.checkpoint.ckpt import Stacked, flatten, map_tree  # noqa: E402
 from repro_torch.configs import base as configs  # noqa: E402
 from repro_torch.core import (blockcodec, executor, layout, mars,  # noqa: E402
                               stencil, transfer)
-from repro_torch.kernels import (_build, bitplane, flash_attention,  # noqa: E402
-                                 jacobi_mars, kvpack, ops, ref)
+from repro_torch.kernels import (_build, bitplane, decode_attention,  # noqa: E402
+                                 flash_attention, jacobi_mars, kvpack, ops, ref)
 from repro_torch.data.pipeline import SyntheticPipeline, device_batch  # noqa: E402
 from repro_torch.distributed import collectives  # noqa: E402
 from repro_torch.launch import audit, roofline  # noqa: E402
@@ -530,6 +553,29 @@ SERVE_B, SERVE_SEQ, SERVE_NEW = 8, 256, 32
 #: of granite-8b at batch 8, seq 256), and two small ones
 STORE_SHAPES = ((SERVE_B, SERVE_SEQ, 8, 128), (3, 16, 2, 8), (1, 4, 1, 128))
 PROFILE_STEPS = 8
+#: the element-wise copies and casts of a profiled decode step, by the
+#: kernel names PyTorch gives them on the card
+COPY_OPS = {"direct_copies": "direct_copy_kernel", "bf16_casts": "bfloat16_copy_kernel"}
+#: the decode attention kernel against its plain version: the CPU test's
+#: cases (tests/test_torch_decode_attention.py: bits 16, 8, 4 x f32, bf16 x
+#: the masks x G 1, 4, 5, and head blocks of G = 4 cut mid-group) at batch
+#: 3, hd 32, 64 and 128 in turn, plus two caches long enough to split over
+#: a cluster (300 slots, and a 200-slot ring wrapped past 450); each mask
+#: (slots, window, positions of the 3 rows)
+DA_MASKS = {"causal": (40, 0, (39, 0, 17)), "window": (40, 12, (39, 5, 23)),
+            "ring": (16, 16, (52, 3, 16)), "split": (300, 0, (299, 64, 200)),
+            "split_ring": (200, 200, (450, 10, 199))}
+DA_GROUPS = {1: (4, 4), 4: (8, 2), 5: (10, 2)}       # G: (query heads, KV heads)
+DA_BLOCKS = ((2, 5), (3, 2), (5, 1), (4, 4))          # (q0, n) at G = 4
+#: the timed shapes, (B, S, KV, G, hd, window), every slot valid (positions
+#: S - 1 and past, the ring wrapped): the serve path's (one granite-8b
+#: layer at batch 8, seq 256), one granite-8b layer at B 8 x S 32,768
+#: (decode_32k's cache), hymba-1.5b's 1024-slot ring, whisper-tiny's decoder
+DA_TIMED = {"granite_serve": (SERVE_B, SERVE_SEQ, 8, 4, 128, 0),
+            "granite_32k": (8, 32768, 8, 4, 128, 0),
+            "hymba_ring": (SERVE_B, 1024, 5, 5, 64, 1024),
+            "whisper_decoder": (32, 448, 6, 1, 64, 0)}
+DA_F32_TOL = 1e-5                         # of the largest |o|
 #: idle host time at each end of a profiling session (``device_profile``)
 PROFILE_PAD_S = 0.05
 PARITY_B, PARITY_S, PARITY_STEPS, PARITY_NEW = 4, 64, 24, 8
@@ -628,7 +674,7 @@ GRAD_F32_REL = 1e-4          # each f32 gradient leaf, of its largest magnitude
 #: two ranks on one GPU); train_4k's sequences, the global batch cut from
 #: 256 to 4 (2 a pod) and the depth from 22 layers to DIST_LAYERS, by time;
 #: 3 steps at each bits (the codec phase keeps the whole tree)
-DIST_ARCH, DIST_SHAPE, DIST_LAYERS = TRAIN_ARCH, (2, 1, 1), 8
+DIST_ARCH, DIST_SHAPE, DIST_LAYERS = TRAIN_ARCH, (2, 1, 1), 6
 DIST_NAMES = ("pod", "data", "model")
 DIST_B, DIST_STEPS, DIST_BITS = 4, 3, (0, 8, 16)
 DIST_EQUAL_BITS = 8          # held torch.equal to the one-process emulation
@@ -692,6 +738,8 @@ TOOLING_KERNELS = {
     "kv_quant": ("kvpack.kv_quant", r"\bquant_kernel\b"),
     "kv_dequant": ("kvpack.kv_dequant", r"\bdequant_kernel\b"),
     "kv_quant_store": ("kvpack.kv_quant_store", r"\bquant_store_kernel\b"),
+    "kv_decode_attention": ("decode_attention.kv_decode_attention",
+                            r"\bdecode_attention_kernel\b"),
     "jacobi1d": ("jacobi_mars.jacobi_chunked", r"\bjacobi_wavefront_kernel\b")}
 TOOLING_WORKSPACE = {"jacobi1d": r"FillFunctor|Memset"}
 #: the full-size cell the tooling phase dry-runs: (arch, shape, mesh)
@@ -841,6 +889,11 @@ def phase_build(dev) -> None:
     bitplane.unpack(bitplane.pack(codes, BITS), BITS, BLOCK)
     jacobi_mars.jacobi_chunked(torch.zeros(64, device=dev), 4, 16)
     kvpack.kv_dequant(*kvpack.kv_quant(torch.ones(8, 128, device=dev), 8), 8)
+    c8 = torch.zeros(1, 8, 1, 32, dtype=torch.int8, device=dev)
+    s8 = torch.ones(1, 8, 1, 1, device=dev)
+    decode_attention.kv_decode_attention(
+        torch.ones(1, 1, 1, 32, device=dev, dtype=torch.bfloat16), (c8, c8, s8, s8),
+        torch.zeros(1, dtype=torch.int32, device=dev), 8, 0, 1)
     for dt in (torch.float32, torch.bfloat16):
         qkv = torch.ones(1, 64, 1, 1, 64, device=dev, dtype=dt)
         o, lse = flash_attention.flash_fwd(qkv, qkv[:, :, :, 0], qkv[:, :, :, 0])
@@ -1157,7 +1210,7 @@ def launch_costs(fn, kernel_key: str, n: int = 200) -> dict:
 
 
 def device_profile(fn, watch: dict, top: int | None = 5,
-                   expect: dict | None = None) -> dict:
+                   expect: dict | None = None, detail: str | None = None) -> dict:
     """Run fn under torch.profiler: top device ops by self time, idle share.
 
     The idle share is 1 - (union of device-op intervals) / (first device-op
@@ -1177,6 +1230,9 @@ def device_profile(fn, watch: dict, top: int | None = 5,
     once on an H100: a profile of 8 replayed decode steps kept 122 of 128
     ``kv_quant_store`` and 244 of 256 ``kv_dequant`` records, the last
     six layers of the last step, while the launch counts were exact).
+
+    ``detail``, a pattern of kernel names, lists every op it matches
+    (name, count, device ms, mean us a launch) under ``detail``.
 
     ``expect`` maps a watched label to the launches that fn is known to
     make.  A session that keeps fewer records of a watched kernel is taken
@@ -1252,6 +1308,11 @@ def device_profile(fn, watch: dict, top: int | None = 5,
                 "launches": kept[label],
                 "share_of_busy": sum(dev_us(e) for e in ops_ if key in e.key) / busy}
                 for label, key in watch.items()},
+            **({"detail": [{"name": e.key[:120], "count": e.count,
+                            "device_ms": dev_us(e) / 1e3,
+                            "mean_us": dev_us(e) / max(e.count, 1)}
+                           for e in ops_ if re.search(detail, e.key)]}
+               if detail else {}),
             "top_device_ops": [{"name": e.key[:120], "device_ms": dev_us(e) / 1e3,
                                 "share_of_busy": dev_us(e) / busy,
                                 "count": e.count}
@@ -1556,21 +1617,23 @@ def captured(engine: ServeEngine, batch: int) -> float:
 
 
 def check_serve_launches(launches: dict, n_layers: int, steps: int) -> None:
-    """The serve path's exact counts: the fused store once a layer and step,
-    dequant twice (K and V), and no other kernel (kv_quant is off the path)."""
+    """The serve path's exact counts: the fused store and the decode
+    attention once a layer and step, and no other kernel (kv_quant and
+    kv_dequant are off the path)."""
     want = {name: 0 for name in launches}
     want["kvpack.kv_quant_store"] = n_layers * steps
-    want["kvpack.kv_dequant"] = 2 * n_layers * steps
+    want["decode_attention.kv_decode_attention"] = n_layers * steps
     check(launches == want, f"generate launched {launches}, want {want}")
 
 
 def generate_run(dev, cfg, rc, params, prompts: list, max_new: int) -> tuple:
     """``ServeEngine.generate`` through the replayed graph: capture, one
     warm-up (the first use of the loop), one timed run with its launches
-    checked exactly (the fused store once an attention layer and step,
-    dequant twice, nothing else), a profile of PROFILE_STEPS replayed steps
-    with the same counts, and a step's token copy and replay by CUDA events.
-    -> (row, engine)."""
+    checked exactly (the fused store and the decode attention once an
+    attention layer and step, nothing else), a profile of PROFILE_STEPS
+    replayed steps with the same counts (and the element-wise copies and
+    casts it holds, ``copies_and_casts``), and a step's token copy and
+    replay by CUDA events.  -> (row, engine)."""
     B = len(prompts)
     engine = ServeEngine(cfg, rc, params=params, device=str(dev))
     capture_ms = captured(engine, B)
@@ -1600,14 +1663,18 @@ def generate_run(dev, cfg, rc, params, prompts: list, max_new: int) -> tuple:
         for _ in range(PROFILE_STEPS):
             step(cur)[1].cpu()                           # as generate syncs
     want = {"kv_quant_store": n_attn * PROFILE_STEPS, "kv_quant": 0,
-            "kv_dequant": 2 * n_attn * PROFILE_STEPS}
+            "kv_dequant": 0, "kv_decode_attention": n_attn * PROFILE_STEPS}
     prof = device_profile(steps_fn, {"kv_quant_store": "quant_store_kernel",
                                      "kv_quant": "::quant_kernel",
-                                     "kv_dequant": "dequant_kernel"}, top=8,
-                          expect=want)
-    seen = {k: v["launches"] for k, v in (prof.get("watched") or {}).items()}
+                                     "kv_dequant": "::dequant_kernel",
+                                     "kv_decode_attention": "decode_attention_kernel",
+                                     **COPY_OPS}, top=8, expect=want,
+                          detail="|".join(COPY_OPS.values()))
+    watched = prof.get("watched") or {}
+    seen = {k: watched[k]["launches"] for k in want if k in watched}
     check(seen == want, f"profile of {PROFILE_STEPS} replayed steps: kernels "
           f"{seen}, want {want}")
+    prof["copies_and_casts"] = {k: watched.pop(k) for k in COPY_OPS if k in watched}
     # without the profiler (whose per-kernel records stretch a replay): the
     # device time of a step's token copy and replay by CUDA events, and the
     # idle share from the profile's busy time over the timed generate's step
@@ -1881,6 +1948,123 @@ def store_case(dev, rng, shape: tuple, dt, bits: int, slots: str) -> dict:
             "slots": slots, "identical": True}
 
 
+def da_shape(mask: str, G: int, i: int) -> tuple:
+    """(B, S, KV, G, hd, window, positions) of a swept case: the mask's
+    slots and rows, hd 32, 64 and 128 in turn."""
+    S, window, positions = DA_MASKS[mask]
+    return (len(positions), S, DA_GROUPS[G][1], G, (32, 64, 128)[i % 3], window,
+            positions)
+
+
+def da_inputs(dev, rng, B: int, S: int, KV: int, hd: int, bits: int, dt) -> tuple:
+    """A cache of seeded values: bf16 / f32 values at bits 16, else int8
+    codes and f32 scales (a code's value within ~0.06 of 0)."""
+    if bits == 16:
+        return tuple(torch.from_numpy(rng.standard_normal((B, S, KV, hd)).astype(
+            np.float32)).to(dev).to(dt) for _ in range(2)) + (None, None)
+    cd = hd if bits == 8 else hd // 2
+    codes = [torch.from_numpy(rng.integers(-128, 128, (B, S, KV, cd)).astype(np.int8))
+             .to(dev) for _ in range(2)]
+    scales = [torch.from_numpy((rng.random((B, S, KV, 1)) * 0.05 + 0.01).astype(
+        np.float32)).to(dev) for _ in range(2)]
+    return (*codes, *scales)
+
+
+def da_err(got: torch.Tensor, want: torch.Tensor, dt) -> tuple:
+    """(max |got - want|, within the rule): f32 within DA_F32_TOL of the
+    largest |want|; bf16 each (row, head)'s relative Frobenius error within
+    FLASH_BF16_REL, the flash kernels' bf16 rule."""
+    err = float((got - want).abs().max())
+    if dt == torch.float32:
+        return err, err <= DA_F32_TOL * float(want.abs().max())
+    B, _, n, hd = want.shape
+    g, w = got.reshape(B * n, hd), want.reshape(B * n, hd)
+    rel = float(((g - w).norm(dim=-1) / w.norm(dim=-1).clamp_min(1e-30)).max())
+    return err, rel <= FLASH_BF16_REL
+
+
+def da_case(dev, rng, B, S, KV, G, hd, window, positions, bits, dt, mask,
+            block=None) -> dict:
+    """kv_decode_attention on the card against its plain version on the
+    same inputs; ``block`` (q0, n) a head block, else every head."""
+    q0, n = block or (0, KV * G)
+    cache = da_inputs(dev, rng, B, S, KV, hd, bits, dt)
+    q = torch.from_numpy(rng.standard_normal((B, 1, n, hd)).astype(np.float32)).to(
+        dev).to(dt)
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    ring = window > 0 and S <= window
+    args = (q, cache, pos, bits, q0, G, 0, S, window, ring, True, dt)
+    got = decode_attention.kv_decode_attention(*args)
+    want = decode_attention.kv_decode_attention_plain(*args)
+    err, ok = da_err(got.reshape(B, 1, n, hd), want.reshape(B, 1, n, hd), dt)
+    row = {"B": B, "S": S, "KV": KV, "G": G, "hd": hd, "bits": bits,
+           "dtype": str(dt).split(".")[1], "mask": mask, "heads": [q0, n],
+           "split": decode_attention.plan(q, cache, pos, bits, q0, G)["split"],
+           "max_abs_err": err, "ok": ok}
+    check(ok, f"kv_decode_attention against its plain version: {row}")
+    return row
+
+
+def da_timed(dev, rng, shape: tuple, bits: int, copy_rate: float) -> dict:
+    """The kernel at one of DA_TIMED's shapes, bf16, every slot valid: held
+    to its plain version, then timed (CUDA events, back to back, profile)
+    beside the plain version, the composition it replaced (``kv_dequant``,
+    the cast, ``_attend``: the single-device decode before it) and SDPA on
+    the same K and V already dequantized to bf16 (no single PyTorch call
+    dequantizes and attends)."""
+    from repro_torch.models import layers
+    B, S, KV, G, hd, window = shape
+    dt, H = torch.bfloat16, KV * G
+    cache = da_inputs(dev, rng, B, S, KV, hd, bits, dt)
+    q = torch.from_numpy(rng.standard_normal((B, 1, H, hd)).astype(np.float32)).to(
+        dev).to(dt)
+    ring = window > 0 and S <= window
+    pos = torch.full((B,), S - 1 + (S // 4 if ring else 0), dtype=torch.int32,
+                     device=dev)
+    args = (q, cache, pos, bits, 0, G, 0, S, window, ring, True, dt)
+    fn = lambda: decode_attention.kv_decode_attention(*args)          # noqa: E731
+    plain = lambda: decode_attention.kv_decode_attention_plain(*args)  # noqa: E731
+    valid = decode_attention.valid_slots(pos, S, 0, S, window, ring)
+    check(bool(valid.all()), "a timed case reads every slot")
+
+    def composition():
+        k = layers._dequant_rows(cache[0], cache[2], bits).to(dt)
+        v = layers._dequant_rows(cache[1], cache[3], bits).to(dt)
+        return layers._attend(q, k, v, 0, G, valid)
+    got, want = fn().reshape(B, 1, H, hd), plain().reshape(B, 1, H, hd)
+    err, ok = da_err(got, want, dt)
+    check(ok and torch.equal(composition(), plain()),
+          f"kv_decode_attention at {shape} bits {bits}: err {err}")
+    del got, want
+    # the library call: SDPA over the same K and V, dequantized to bf16 and
+    # laid out (B, KV, S, hd) beforehand
+    F = torch.nn.functional
+    kd, vd = (decode_attention.dequant_rows(c, s, bits).to(dt).transpose(1, 2)
+              .contiguous() for c, s in ((cache[0], cache[2]), (cache[1], cache[3])))
+    qs = q.transpose(1, 2).contiguous()
+    library = lambda: F.scaled_dot_product_attention(qs, kd, vd, enable_gqa=True)  # noqa: E731
+    lib_err = float((library().transpose(1, 2).float().reshape(B, 1, H, hd)
+                     - plain().reshape(B, 1, H, hd)).abs().max())
+    cost = launch_costs(fn, "decode_attention_kernel", n=50)
+    read, write = ops.kv_decode_attention_io_bytes(B, S, KV, hd, H, bits)
+    out = {"shape": [B, S, KV, G, hd], "window": window, "ring": ring, "bits": bits,
+           "dtype": "bfloat16", "max_abs_err": err,
+           "plan": decode_attention.plan(q, cache, pos, bits, 0, G),
+           "ms": time_ms(fn, reps=30), "ms_back_to_back": stream_ms(fn),
+           "profile_ms": (cost["kernel_device_us"] or 0) / 1e3,
+           "plain_ms": time_ms(plain, reps=5),
+           "composition_ms": time_ms(composition, reps=5),
+           "library_ms": time_ms(library, reps=30),
+           "library": "SDPA (enable_gqa) on K and V already dequantized to bf16 "
+                      "(B, KV, S, hd), not counting the dequant",
+           "library_max_abs_err": lib_err,
+           "read_bytes": read, "write_bytes": write,
+           **bound(read + write, 4 * B * H * S * hd, copy_rate, BF16_FLOPS_PER_S)}
+    out["share_of_bound"] = out["bound_ms"] / out["ms_back_to_back"]
+    out["share_of_bound_profile"] = out["bound_ms"] / max(out["profile_ms"], 1e-9)
+    return out
+
+
 def phase_kvpack(dev, serve: dict, copy_rate: float) -> list:
     rng = np.random.default_rng(SEED + 6)
     cases = []
@@ -1953,7 +2137,41 @@ def phase_kvpack(dev, serve: dict, copy_rate: float) -> list:
     rows_out[-1]["design"] = ("the K and V rows of a layer's step quantized by "
                               "quant_kernel's row function and stored into the "
                               "cache slot: one launch, no scatter")
+    da_cases = [da_case(dev, rng, *da_shape(mask, G, i), bits, dt, mask)
+                for i, (bits, dt, mask, G) in enumerate(
+                    (b, d, m, g) for b in (16, 8, 4)
+                    for d in (torch.float32, torch.bfloat16)
+                    for m in DA_MASKS for g in DA_GROUPS)]
+    da_cases += [da_case(dev, rng, *da_shape("causal", 4, i), bits, dt, "causal",
+                         block)
+                 for i, (bits, dt, block) in enumerate(
+                     (b, d, k) for b in (16, 8, 4)
+                     for d in (torch.float32, torch.bfloat16) for k in DA_BLOCKS)]
+    timed = {f"{label}_int{bits}": da_timed(dev, rng, shape, bits, copy_rate)
+             for label, shape in DA_TIMED.items()
+             for bits in ((8, 4) if label.startswith("granite") else (8,))}
+    main_case = timed["granite_serve_int8"]
+    rows_out.append({
+        "name": "decode_attention.kv_decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/kvpack.py:40",
+        "reference_region": "src/repro/models/layers.py:376-406",
+        "launches": serve["launches"]["decode_attention.kv_decode_attention"],
+        "max_abs_err": max(c["max_abs_err"] for c in da_cases),
+        **{k: main_case[k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "copy_bound_ms",
+            "library_ms", "library", "ms_back_to_back", "profile_ms",
+            "composition_ms", "plan")},
+        "at_shapes": {k: {kk: vv for kk, vv in v.items() if kk != "copy_bound_ms"}
+                      for k, v in timed.items()},
+        "design": ("the dequant redesigned for its consumer: per (row, KV head) "
+                   "one CTA (a cluster of up to 8 over long caches) reads the "
+                   "codes and scales once by cp.async into a shared-memory ring, "
+                   "dequantizes each value once on chip, keeps the scores in "
+                   "shared memory (the cluster's max and sum combined through "
+                   "distributed shared memory), mma.sync bf16 products")})
     emit({"phase": "kvpack", "cases": cases, "store_cases": store_cases,
+          "decode_attention_cases": da_cases, "decode_attention_timed": timed,
           "launch_costs": costs, "fill_floor_us": floor,
           "timed": {"kv_quant": [64, 128, "bfloat16", 8],
                     "kv_dequant": [16384, 128, "int8"],
@@ -4788,7 +5006,7 @@ def phase_tooling(dev) -> dict:
             examples[name]["max_err"] = err
         elif name == "torch_serve_lm.py":
             check(0.0 <= ret <= 1.0, f"serve example agreement {ret}")
-            for k in ("kvpack.kv_quant_store", "kvpack.kv_dequant"):
+            for k in ("kvpack.kv_quant_store", "decode_attention.kv_decode_attention"):
                 check(examples[name]["launches"].get(k, 0) > 0,
                       f"serve example never launched {k}")
             examples[name]["agreement"] = float(ret)
@@ -4871,8 +5089,11 @@ def add_family_paths(rows: list, prefill: dict, serve: dict, trained: dict,
     keep = ("shape", "window", "ms", "plain_ms", "library_ms", "library_backend",
             "bound_ms", "bound_by", "share_of_bound")
     for r in rows:
-        if r["name"].startswith(("kvpack.", "flash_attention.")):
-            r["launches_by_path"] = {k: v[r["name"]] for k, v in by_path.items()}
+        if r["name"].startswith(("kvpack.", "decode_attention.", "flash_attention.")):
+            r["launches_by_path"] = {k: v.get(r["name"], 0) for k, v in by_path.items()}
+        if r["name"] == "kvpack.kv_dequant":   # off the single-device decode
+            r["launches"] = sum(v[r["name"]] for v in paths["tp_decode"].values())
+            r["launches_path"] = "tp_decode"
         if r["name"] in windowed:
             r["at_hymba_window"] = {k: windowed[r["name"]][k] for k in keep}
         tp = {"flash_attention.flash_fwd": paths["tp"]["fwd"], **paths["tp"]["bwd"]}

@@ -3,7 +3,8 @@
 Generates continuations for a batch of mixed-length prompts twice — bf16
 cache vs packed int8 — and reports cache footprint + agreement.  On a card
 each decode step is replayed as a CUDA graph, and the int8 cache is
-written by the fused ``kv_quant_store`` kernel and read by ``kv_dequant``.
+written by the fused ``kv_quant_store`` kernel and read by
+``kv_decode_attention``, which dequantizes it on chip and attends.
 
 Run:  PYTHONPATH=src python examples/torch_serve_lm.py [--small] [--device cpu]
 """

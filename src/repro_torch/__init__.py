@@ -8,8 +8,9 @@ Laid out module for module like ``repro``.  Ported so far:
   ``unpack_codes``, ``jacobi1d_tiled``);
 * the serving path of the dense and vlm model families: ``configs``,
   ``models`` (``model_zoo.get_api(...).prefill`` runs flash attention) and
-  ``serve.ServeEngine.generate`` (its packed KV cache runs ``kv_quant`` /
-  ``kv_dequant``);
+  ``serve.ServeEngine.generate`` (its packed KV cache is written by
+  ``kv_quant_store`` and read by ``kv_decode_attention``, one kernel a layer
+  and step that dequantizes the codes on chip and attends);
 * their training path: ``train.step.make_train_step`` (loss, backward
   through the flash forward and both flash backward kernels, AdamW from
   ``optim``) and the fault-tolerant ``train.loop.train`` with ``data``'s

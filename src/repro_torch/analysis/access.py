@@ -33,7 +33,11 @@ domain ``ops.jacobi1d_tiled`` hands it).  The launch goes through
 those of the tensors handed to the launch and returned by it, and what
 the walk can check is that the wrapper adds no traffic of its own.  The
 card's grid adds ``kv_quant_store``, the serve path's route for
-``kv_quant``, which writes its rows in place into the packed cache.
+``kv_quant``, which writes its rows in place into the packed cache, and
+``kv_decode_attention``, the serve path's route for ``kv_dequant``, which
+reads the packed cache once and attends (its plain route dequantizes the
+whole cache to f32 and casts it, traffic the kernel's charge does not
+hold, so the CPU grid leaves it out).
 """
 from __future__ import annotations
 
@@ -169,6 +173,7 @@ def builtin_cases(device="cuda", seed: int = 0) -> List[KernelCase]:
     cases.append(KernelCase("kernel/jacobi1d", fn, (x,), r, w, route=route))
     if route == "cuda":
         cases.extend(store_cases(dev, rng, route))
+        cases.extend(decode_attention_cases(dev, rng))
     return cases
 
 
@@ -202,6 +207,38 @@ def store_cases(dev, rng, route: str) -> List[KernelCase]:
             lambda *a, b=bits: ops.kv_quant_store(*a, bits=b, backend=backend),
             args, r, w, route=route, exclude=(0, 1, 2, 3, 6),
             inplace=_store_rows_bytes))
+    return cases
+
+
+def decode_attention_cases(dev, rng) -> List[KernelCase]:
+    """``kv_decode_attention`` at ``STORE_SHAPE``'s cache (one granite-8b
+    layer at serve batch 8, seq 256), 32 bf16 query heads of G = 4, bits 4
+    and 8, every slot valid."""
+    from repro_torch.kernels import ops
+
+    B, S, KV, Dh = STORE_SHAPE
+    G = 4
+    cases = []
+    for bits in GRID_BITS:
+        cd = Dh if bits == 8 else Dh // 2
+
+        def t(a, dtype=None):
+            out = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            return out if dtype is None else out.to(dtype)
+
+        args = (t(rng.standard_normal((B, 1, KV * G, Dh), dtype=np.float32),
+                  torch.bfloat16),
+                t(rng.integers(-128, 128, size=(B, S, KV, cd), dtype=np.int8)),
+                t(rng.integers(-128, 128, size=(B, S, KV, cd), dtype=np.int8)),
+                t(rng.uniform(0.01, 0.05, (B, S, KV, 1)).astype(np.float32)),
+                t(rng.uniform(0.01, 0.05, (B, S, KV, 1)).astype(np.float32)),
+                t(np.full((B,), S - 1, dtype=np.int32)))
+        r, w = ops.kv_decode_attention_io_bytes(B, S, KV, Dh, KV * G, bits)
+        cases.append(KernelCase(
+            f"kernel/kv_decode_attention/bits{bits}",
+            lambda q, k, v, ks, vs, pos, b=bits: ops.kv_decode_attention(
+                q, (k, v, ks, vs), pos, b, 0, G, backend="cuda"),
+            args, r, w, route="cuda"))
     return cases
 
 

@@ -2,9 +2,10 @@
 
 Each ``csrc/<name>.cu`` becomes ``_build/<name>-<hash>.so``, a shared
 library with a plain C interface, loaded with ``ctypes``.  The hash covers
-the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded.  ``build`` starts one ``nvcc`` per missing
-library, all at once, and waits for all of them.
+the source, the headers it may include (``csrc/*.cuh``) and the flags, so
+an edited source is rebuilt and a stale library is never loaded.
+``build`` starts one ``nvcc`` per missing library, all at once, and waits
+for all of them.
 
 Nothing here runs at import time, so the package imports on a machine
 without CUDA.  A failed build raises; there is no fallback.
@@ -25,7 +26,7 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 #: every kernel source of the package, by library name
 SOURCES = ("bitplane", "jacobi_mars", "kvpack", "flash_attention",
-           "flash_attention_sm90")
+           "flash_attention_sm90", "decode_attention", "decode_attention_f32")
 
 #: sm_90a keeps Hopper-only instructions available; no --use_fast_math, so
 #: float division stays IEEE (the jacobi update divides by 3, the KV
@@ -49,7 +50,10 @@ def nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library of ``csrc/<name>.cu``, named by a hash of the source,
+    the headers beside it (``csrc/*.cuh``) and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{key}.so"
 

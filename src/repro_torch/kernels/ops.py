@@ -22,7 +22,7 @@ import torch
 
 from repro_torch.obs import instrument as obs
 
-from . import bitplane, flash_attention, jacobi_mars, kvpack
+from . import bitplane, decode_attention, flash_attention, jacobi_mars, kvpack
 
 #: analytic HBM transaction beat, bytes (256-bit bus word) — the logical
 #: unit ``kernels/beats`` counts; deterministic, not a measured quantity
@@ -38,6 +38,7 @@ KERNELS = {
     "kvpack.kv_quant": kvpack.kv_quant,
     "kvpack.kv_dequant": kvpack.kv_dequant,
     "kvpack.kv_quant_store": kvpack.kv_quant_store,
+    "decode_attention.kv_decode_attention": decode_attention.kv_decode_attention,
     "flash_attention.flash_fwd": flash_attention.flash_fwd,
     "flash_attention.flash_bwd_dkv": flash_attention.flash_bwd_dkv,
     "flash_attention.flash_bwd_dq": flash_attention.flash_bwd_dq,
@@ -104,6 +105,20 @@ def kv_quant_store_io_bytes(batch: int, kv_heads: int, d: int, bits: int,
     """(read, write) bytes for kv_quant_store: the 2 B KV new K and V rows
     in, their codes and f32 scales written into the cache slot."""
     return kv_quant_io_bytes(2 * batch * kv_heads, d, bits, itemsize)
+
+
+def kv_decode_attention_io_bytes(batch: int, s_cache: int, kv_heads: int,
+                                 hd: int, heads: int, bits: int,
+                                 q_itemsize: int = 2, cache_itemsize: int = 2):
+    """(read, write) bytes for kv_decode_attention: q (batch, heads, hd), the
+    codes and f32 scales (or, at bits 16, the values) of every slot of the
+    ``kv_heads`` KV heads read, K and V, and the int32 positions in; o
+    (batch, heads, hd) f32 out."""
+    row = {8: hd, 4: hd // 2}.get(bits, hd * cache_itemsize)
+    rows = 2 * batch * s_cache * kv_heads
+    read = (batch * heads * hd * q_itemsize + rows * row
+            + (rows * 4 if bits != 16 else 0) + batch * 4)
+    return read, batch * heads * hd * 4
 
 
 def jacobi_io_bytes(n: int):
@@ -223,6 +238,33 @@ def kv_quant_store(cache_k: torch.Tensor, cache_v: torch.Tensor,
     _record("kv_quant_store", m,
             *kv_quant_store_io_bytes(B, KV, D, bits, k_new.element_size()),
             bits=bits)
+
+
+def kv_decode_attention(q: torch.Tensor, cache, pos: torch.Tensor, bits: int,
+                        q0: int, G: int, lo: int = 0, s_all=None, window: int = 0,
+                        ring: bool = False, round_p: bool = True, dtype=None,
+                        backend: str = "auto") -> torch.Tensor:
+    """One decode step's attention over the cache (k, v, k_scale, v_scale):
+    q (B, 1, n, hd), the query heads from ``q0``, ``G`` a KV head, against
+    every slot valid for ``pos`` -> o (B, 1, n * hd) f32.  The reference
+    computes it in ``repro.models.layers.decode_attention`` (the dequant,
+    then the decode softmax), whose region it deploys as one fused kernel.
+    The bytes charged are those of the KV heads the query heads read."""
+    m = _mode(backend, q)
+    with obs.span("kernels/kv_decode_attention", mode=m, bits=bits):
+        if m == "ref":
+            out = decode_attention.kv_decode_attention_plain(
+                q, cache, pos, bits, q0, G, lo, s_all, window, ring, round_p, dtype)
+        else:
+            out = decode_attention.kv_decode_attention(
+                q, cache, pos, bits, q0, G, lo, s_all, window, ring, round_p, dtype)
+    B, _, n, hd = q.shape
+    kv_heads = (q0 + n - 1) // G - q0 // G + 1
+    _record("kv_decode_attention", m,
+            *kv_decode_attention_io_bytes(
+                B, cache[0].shape[1], kv_heads, hd, n, bits, q.element_size(),
+                cache[0].element_size()), bits=bits)
+    return out
 
 
 # ---------------------------------------------------------------------------

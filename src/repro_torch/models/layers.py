@@ -11,8 +11,12 @@ so ``x @ wq`` is the same product.
   backward kernels); on a CPU tensor it runs the blockwise online-softmax
   path below (the reference's non-TPU path), differentiated by autograd;
 * the packed KV cache quantizes and stores each step's new rows through
-  ``kernels.ops.kv_quant_store`` and dequantizes the cache through
-  ``kv_dequant`` (the kvpack kernels on a GPU);
+  ``kernels.ops.kv_quant_store``; on one device the decode step attends
+  over it through ``kernels.ops.kv_decode_attention`` (on a GPU one kernel
+  a layer and step reads the codes once, dequantizes them on chip and
+  attends), and where a ``model`` axis splits the cache's slots it
+  dequantizes its block through ``kv_dequant`` and combines the softmax
+  over the ranks (``_attend``);
 * RoPE uses the interleaved (GPT-J) pairing; GQA is computed in grouped form
   (B, S, KV, G, D) with no repeated kv heads;
 * ``fused_ce_loss`` checkpoints each sequence chunk
@@ -48,6 +52,7 @@ from repro_torch.checkpoint.ckpt import Attrs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as shd
+from repro_torch.kernels import decode_attention as dattn
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
 
@@ -400,9 +405,7 @@ def init_cache(cfg: ModelConfig, batch: int, s_cache: int, bits: int,
 
 def _dequant_rows(codes: torch.Tensor, scale: torch.Tensor,
                   bits: int) -> torch.Tensor:
-    out = ops.kv_dequant(codes.reshape(-1, codes.shape[-1]),
-                         scale.reshape(-1, 1), bits)
-    return out.reshape(*codes.shape[:-1], out.shape[-1])
+    return dattn.dequant_rows(codes, scale, bits, ops.kv_dequant)
 
 
 def update_cache(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
@@ -451,43 +454,21 @@ def _store_held(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q0: int,
             G: int, valid: Optional[torch.Tensor] = None,
             round_p: bool = True, group=None) -> torch.Tensor:
-    """One query a row against cached keys: q (B, 1, n, hd) the query heads
-    ``[q0, q0 + n)`` of ``G`` a KV head, k and v (B, S, KV, hd) every KV
-    head, ``valid`` (B, S) the slots each row may read (``None``: all).
-
-    The reference's decode softmax: the scores in f32, the probabilities
-    rounded to the cache's dtype before P·V where ``round_p`` (the
-    self-attention's; the cross-attention keeps them f32).  With ``group``
-    (the ``model`` axis, each rank holding a block of the slots) the
-    softmax is taken over the slots of every rank: the scores' max and the
-    sum of their exponentials all-reduced before the probabilities are
-    formed, so that each is the single device's value up to the order of
-    the sum, and P·V's partial sums all-reduced.  -> o (B, 1, n * hd) f32.
-    """
-    B, _, n, hd = q.shape
-    k0, k1 = q0 // G, (q0 + n - 1) // G + 1
-    if (q0 % G == 0 and n % G == 0) or k1 - k0 == 1:
-        k, v = k[:, :, k0:k1], v[:, :, k0:k1]
-    else:   # a head cut between KV heads' groups: one KV head a query head
-        idx = torch.tensor([h // G for h in range(q0, q0 + n)], device=q.device)
-        k, v = k.index_select(2, idx), v.index_select(2, idx)
-    qg = q.reshape(B, 1, k.shape[2], -1, hd).to(k.dtype)   # (B,1,KV,G,D)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.to(F32), k.to(F32)) * (hd ** -0.5)
-    if valid is not None:
-        s = torch.where(valid[:, None, None, None, :], s,
-                        torch.full_like(s, NEG_INF))
+    """``kernels.decode_attention.attend_plain``: one query a row against
+    cached keys, q (B, 1, n, hd) the query heads ``[q0, q0 + n)`` of ``G``
+    a KV head, k and v (B, S, KV, hd), ``valid`` (B, S) the slots each row
+    may read.  With ``group`` (the ``model`` axis, each rank holding a
+    block of the slots) the softmax is taken over the slots of every rank:
+    the scores' max and the sum of their exponentials all-reduced before
+    the probabilities are formed, so that each is the single device's value
+    up to the order of the sum, and P·V's partial sums all-reduced.
+    -> o (B, 1, n * hd) f32."""
     if group is None:
-        p_attn = torch.softmax(s, dim=-1)
-    else:
-        m = collectives.all_reduce_max(s.amax(dim=-1, keepdim=True), group)
-        e = torch.exp(s - m)
-        p_attn = e / collectives.all_reduce(e.sum(dim=-1, keepdim=True), group)
-    if round_p:
-        p_attn = p_attn.to(k.dtype)
-    o = torch.einsum("bkgqs,bskd->bkgqd", p_attn.to(F32), v.to(F32))
-    if group is not None:
-        o = collectives.all_reduce(o, group)
-    return o.permute(0, 3, 1, 2, 4).reshape(B, 1, n * hd)  # (B,KV,G,1,D) ->
+        return dattn.attend_plain(q, k, v, q0, G, valid, round_p)
+    return dattn.attend_plain(
+        q, k, v, q0, G, valid, round_p,
+        all_max=lambda t: collectives.all_reduce_max(t, group),
+        all_sum=lambda t: collectives.all_reduce(t, group))
 
 
 def decode_queries(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
@@ -546,8 +527,10 @@ def decode_attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
     combined over ``model`` (``_attend``).  Where the slots are whole (one
     device among them), every rank stores the row (each holds the same
     cache) and attends its own heads (``_heads``: all of them on one
-    device) over every slot.  The out-projection then runs on this rank's
-    rows of ``wo`` (``decode_out``).
+    device) over every slot through ``ops.kv_decode_attention``: on a GPU
+    one kernel reads the cache once, dequantizes it on chip and attends.
+    The out-projection then runs on this rank's rows of ``wo``
+    (``decode_out``).
     """
     H, KV = cfg.n_heads, cfg.n_kv_heads
     S = cache.k.shape[1]
@@ -559,34 +542,26 @@ def decode_attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
     block = shd.tp_block("cache_seq", S_all)
     if block is None:
         update_cache(cache, k_new, v_new, slot, bits)
-        lo, (q0, q1) = 0, _heads(cfg).q
-        q, group = q[:, :, q0:q1], None
-    else:
-        lo, q0 = block[0], 0
-        _store_held(cache, k_new, v_new, torch.clamp(slot, 0, S_all - 1),
-                    bits, lo)
-
+        q0, q1 = _heads(cfg).q
+        # the reference multiplies in the cache dtype with f32 accumulation;
+        # one kernel a layer and step on a GPU
+        o = ops.kv_decode_attention(q[:, :, q0:q1], cache, pos, bits, q0, H // KV,
+                                    s_all=S_all, window=window, ring=ring,
+                                    dtype=x.dtype)
+        return decode_out(o.to(x.dtype), p, cfg, q0), cache
+    lo = block[0]
+    _store_held(cache, k_new, v_new, torch.clamp(slot, 0, S_all - 1), bits, lo)
     cdt = x.dtype
     if bits == 16:
         k, v = cache.k, cache.v
     else:
         k = _dequant_rows(cache.k, cache.k_scale, bits).to(cdt)
         v = _dequant_rows(cache.v, cache.v_scale, bits).to(cdt)
-
-    j = lo + torch.arange(S, device=x.device)[None, :]    # (1, S)
-    if ring:
-        k_pos = pos[:, None] - torch.remainder(pos[:, None] - j, S_all)
-        valid = k_pos >= 0
-    else:
-        k_pos = j
-        valid = k_pos <= pos[:, None]
-        if window > 0:
-            valid &= (pos[:, None] - k_pos) < window
-    # the reference multiplies in the cache dtype with f32 accumulation; the
-    # product of two bf16 values is exact in f32, so f32 operands are the
-    # same product
-    o = _attend(q, k, v, q0, H // KV, valid, group=group)
-    return decode_out(o.to(x.dtype), p, cfg, q0), cache
+    valid = dattn.valid_slots(pos, S, lo, S_all, window, ring)
+    # the product of two bf16 values is exact in f32, so f32 operands are
+    # the reference's product in the cache dtype with f32 accumulation
+    o = _attend(q, k, v, 0, H // KV, valid, group=group)
+    return decode_out(o.to(x.dtype), p, cfg, 0), cache
 
 
 # ---------------------------------------------------------------------------
