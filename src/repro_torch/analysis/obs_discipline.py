@@ -26,8 +26,11 @@ Model (pure ``ast``, no imports executed), the reference's own:
   alias of ``repro_torch.obs`` / ``repro_torch.obs.instrument``.
 
 Rule OBS201 fires for every recording site reachable from a traced root,
-with the root-to-site path in the message.  Resolution is deliberately
-conservative: an edge we cannot resolve is dropped, so the pass
+with the root-to-site path in the message.  ``obs.device_mark`` is the
+one obs call meant for captured code, and no recording site: inside an
+``obs.device_marks`` scope it records a timing event, which a capture
+turns into a graph node that fires at every replay.  Resolution is
+deliberately conservative: an edge we cannot resolve is dropped, so the pass
 under-approximates reachability and never invents call chains (a method
 called on a parameter, ``api.decode_step(...)``, is such an edge).
 """

@@ -55,6 +55,7 @@ from repro_torch.distributed import sharding as shd
 from repro_torch.kernels import decode_attention as dattn
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops
+from repro_torch.obs import instrument as obs
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -538,19 +539,24 @@ def decode_attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
     S_all = S if s_cache is None or group is None else s_cache
     ring = window > 0 and S_all <= window
     slot = pos % S_all if ring else pos
+    obs.device_mark("attn.qkv")
     q, k_new, v_new = decode_queries(x, p, cfg, pos)
     block = shd.tp_block("cache_seq", S_all)
+    obs.device_mark("attn.store")
     if block is None:
         update_cache(cache, k_new, v_new, slot, bits)
         q0, q1 = _heads(cfg).q
+        obs.device_mark("attn.kernel")
         # the reference multiplies in the cache dtype with f32 accumulation;
         # one kernel a layer and step on a GPU
         o = ops.kv_decode_attention(q[:, :, q0:q1], cache, pos, bits, q0, H // KV,
                                     s_all=S_all, window=window, ring=ring,
                                     dtype=x.dtype)
+        obs.device_mark("attn.out")
         return decode_out(o.to(x.dtype), p, cfg, q0), cache
     lo = block[0]
     _store_held(cache, k_new, v_new, torch.clamp(slot, 0, S_all - 1), bits, lo)
+    obs.device_mark("attn.kernel")
     cdt = x.dtype
     if bits == 16:
         k, v = cache.k, cache.v
@@ -561,6 +567,7 @@ def decode_attention(x: torch.Tensor, p: AttnParams, cfg: ModelConfig,
     # the product of two bf16 values is exact in f32, so f32 operands are
     # the reference's product in the cache dtype with f32 accumulation
     o = _attend(q, k, v, 0, H // KV, valid, group=group)
+    obs.device_mark("attn.out")
     return decode_out(o.to(x.dtype), p, cfg, 0), cache
 
 

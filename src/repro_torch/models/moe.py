@@ -40,6 +40,7 @@ from repro_torch.checkpoint.ckpt import Attrs
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as shd
+from repro_torch.obs import instrument as obs
 from . import layers as L
 
 F32 = torch.float32
@@ -158,9 +159,11 @@ def moe_block(x: torch.Tensor, p: MoeParams, cfg: ModelConfig
     n = B * S
     xf = x.reshape(n, d)
     batch = batch_ranks()
+    obs.device_mark("moe.route")
     r = route(xf, p.router, cfg, batch)
     aux = _aux(r, E, batch)
 
+    obs.device_mark("moe.dispatch")
     e_flat = r.top_e.reshape(-1)
     rows, pos = r.cap, r.pos
     if batch.ranks > 1:
@@ -173,11 +176,13 @@ def moe_block(x: torch.Tensor, p: MoeParams, cfg: ModelConfig
     buf = buf.index_put((e_flat, torch.where(r.keep, pos, rows)), x_dup)
     buf = buf[:, :rows]                                    # (E, C, d)
 
+    obs.device_mark("moe.experts")
     h = L.silu(torch.bmm(buf, p.w_gate)) * torch.bmm(buf, p.w_up)
     tp = shd.tp_block("ff", cfg.d_ff) is not None
     out_buf = shd.mm_f32(h, p.w_down) if tp else \
         torch.bmm(h, p.w_down)                             # (E, C, d)
 
+    obs.device_mark("moe.combine")
     gathered = out_buf[e_flat, torch.where(r.keep, pos, 0)]
     gathered = torch.where(r.keep[:, None], gathered, 0)
     w = r.top_w.reshape(-1)[:, None].to(out_buf.dtype)

@@ -46,6 +46,7 @@ from repro_torch.checkpoint.ckpt import Attrs, Stacked, map_tree
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.distributed import collectives
 from repro_torch.distributed import sharding as shd
+from repro_torch.obs import instrument as obs
 from . import layers as L
 from . import moe as M
 from . import ssm as S
@@ -392,14 +393,21 @@ def decode_step(params: DenseParams, state: DecodeState, tokens: torch.Tensor,
     the batch (``tokens`` whole or already cut), each layer reading its
     parameters through ``sharding.gathered``, and returns the logits whole
     on every rank: gathered over the vocabulary and over the batch axes.
+
+    The ``obs.device_mark`` calls name the parts of the step a captured
+    graph times (``embed``, each layer's ``attn.norm``, ``ssm``, ``ffn``,
+    then ``head``; ``layers.decode_attention`` and ``moe.moe_block`` mark
+    their own); they do nothing outside an ``obs.device_marks`` scope.
     """
     check_family(cfg)
     B = state.pos.shape[0]
     pos, tokens = shd.rank_rows(state.pos, B), shd.rank_rows(tokens, B)
     s_cache = cache_len(cfg, rc)
+    obs.device_mark("embed")
     x = L.embed(tokens[:, None], shd.gathered(params.embed), cfg)  # (B, 1, d)
     for lp, cache in zip(params.layers, state.caches):
         lp = shd.gathered(lp)
+        obs.device_mark("attn.norm")
         h = L.rmsnorm(x, lp.ln1, cfg.norm_eps)
         a = s = None
         if cache.kv is not None:
@@ -407,12 +415,15 @@ def decode_step(params: DenseParams, state: DecodeState, tokens: torch.Tensor,
                                       rc.kv_cache_bits, cfg.sliding_window,
                                       s_cache)
         if cache.ssm is not None:
+            obs.device_mark("ssm")
             s, new = S.ssd_decode(lp.ssm, h, cache.ssm, cfg)
             cache.ssm.h.copy_(new.h)
             cache.ssm.conv.copy_(new.conv)
         x = x + _merge(cfg, lp, a, s)
         if lp.ln2 is not None:
+            obs.device_mark("ffn")
             x, _ = _ffn(cfg, x, lp)
+    obs.device_mark("head")
     lg = L.logits(x, shd.gathered(params.embed), cfg)[:, 0]
     return shd.whole_batch(lg, B), DecodeState(caches=state.caches,
                                                pos=state.pos + 1)

@@ -18,24 +18,28 @@ Typical use::
         doc = obs.summary(registry, tracer)
 
 Disabled (the default unless ``REPRO_OBS=1``), every helper is a single
-flag test — see ``instrument``.
+flag test — see ``instrument``.  ``device_mark`` is the one call meant for
+code a CUDA graph captures: it times named parts of the replayed step.
 """
 # NOTE: ``regress`` is deliberately not imported here — it is a ``-m``
 # entry point (importing it from the package __init__ would make runpy
 # warn about double execution); use ``from repro_torch.obs import regress``.
 from . import instrument, metrics, sink, trace
-from .instrument import (counter_inc, disable, disabled_scope, enable,
+from .instrument import (DeviceMarks, counter_inc, device_mark,
+                         device_marks, disable, disabled_scope, enable,
                          enabled, enabled_scope, gauge_set, hist_observe,
-                         instrumented, registry, span, tracer)
+                         instrumented, registry, span, span_table, tracer)
 from .metrics import Counter, Gauge, Histogram, Registry, Snapshot, series_key
 from .sink import read_summary, run_metadata, summary, write_jsonl, write_sidecar
 from .trace import Span, SpanRecord, Tracer
 
 __all__ = [
-    "Counter", "Gauge", "Histogram", "Registry", "Snapshot", "Span",
-    "SpanRecord", "Tracer", "counter_inc", "disable", "disabled_scope",
+    "Counter", "DeviceMarks", "Gauge", "Histogram", "Registry", "Snapshot",
+    "Span", "SpanRecord", "Tracer", "counter_inc", "device_mark",
+    "device_marks", "disable", "disabled_scope",
     "enable", "enabled", "enabled_scope", "gauge_set", "hist_observe",
     "instrument", "instrumented", "metrics", "read_summary", "registry",
-    "run_metadata", "series_key", "sink", "span", "summary", "trace",
+    "run_metadata", "series_key", "sink", "span", "span_table", "summary",
+    "trace",
     "tracer", "write_jsonl", "write_sidecar",
 ]

@@ -10,6 +10,13 @@ inside code captured by ``torch.compile`` or a CUDA graph: captured code
 replays without running its Python side effects, so a counter there would
 fire once per capture, not once per call.
 
+The one exception is :func:`device_mark`, the call meant for captured
+code: inside a :func:`device_marks` scope it records a timing event on the
+current stream, which a CUDA graph's capture turns into an event-record
+node that fires at every replay.  Consecutive marks bound named intervals
+of the device's work (``DeviceMarks.table``).  Outside such a scope it is
+one flag test.
+
 Enable globally with ``REPRO_OBS=1`` in the environment, or per-scope::
 
     from repro_torch import obs
@@ -24,7 +31,7 @@ import functools
 import os
 import time
 from contextlib import contextmanager
-from typing import Callable, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 from . import metrics as _metrics
 from . import trace as _trace
@@ -32,6 +39,7 @@ from . import trace as _trace
 _enabled: bool = os.environ.get("REPRO_OBS", "").lower() in ("1", "true", "on")
 _registry: _metrics.Registry = _metrics.REGISTRY
 _tracer: _trace.Tracer = _trace.TRACER
+_marks: Optional["DeviceMarks"] = None
 
 
 def enabled() -> bool:
@@ -175,3 +183,83 @@ def instrumented(name: Optional[str] = None, **labels
         return wrapper
 
     return deco
+
+
+# ---------------------------------------------------------------------------
+# Device marks: named intervals of the device's work, inside captured code
+# ---------------------------------------------------------------------------
+
+def _timing_event():
+    import torch
+    # ``external``: under capture the record becomes a graph node that fires
+    # at each replay, not a dependency between the capture's streams
+    return torch.cuda.Event(enable_timing=True, external=True)
+
+
+def span_table(names: Sequence[str], interval_ms: Sequence[float]
+               ) -> Dict[str, float]:
+    """Each name's milliseconds: ``interval_ms[i]`` runs from mark ``i``
+    (named ``names[i]``) to mark ``i + 1``, and a name's intervals add up
+    (the same mark in every layer)."""
+    if len(interval_ms) != len(names):
+        raise ValueError(f"{len(names)} marks open {len(interval_ms)} "
+                         f"intervals")
+    out: Dict[str, float] = {}
+    for name, ms in zip(names, interval_ms):
+        out[name] = out.get(name, 0.0) + ms
+    return out
+
+
+class DeviceMarks:
+    """The marks recorded in one :func:`device_marks` scope, in order, and
+    the closing event the scope records last.
+
+    Each mark's event is recorded once (at capture, in a graph) and holds
+    the time of its latest firing; ``table`` reads the intervals once the
+    closing event has completed."""
+
+    def __init__(self, event: Callable = _timing_event):
+        self._event = event
+        self.names: List[str] = []
+        self.events: list = []
+        self.end = None
+
+    def mark(self, name: str) -> None:
+        ev = self._event()
+        ev.record()
+        self.names.append(name)
+        self.events.append(ev)
+
+    def close(self) -> None:
+        self.end = self._event()
+        self.end.record()
+
+    def table(self) -> Dict[str, float]:
+        """Each mark name's device milliseconds, to the next mark."""
+        evs = self.events + [self.end]
+        return span_table(self.names, [a.elapsed_time(b)
+                                       for a, b in zip(evs, evs[1:])])
+
+
+@contextmanager
+def device_marks(event: Callable = _timing_event) -> Iterator[DeviceMarks]:
+    """Record every :func:`device_mark` inside the block (then a closing
+    event) into a fresh :class:`DeviceMarks`; ``event`` makes one timing
+    event (a CUDA one by default)."""
+    global _marks
+    prev, rec = _marks, DeviceMarks(event)
+    _marks = rec
+    try:
+        yield rec
+        rec.close()
+    finally:
+        _marks = prev
+
+
+def device_mark(name: str) -> None:
+    """Open the interval ``name`` of the device's work here: the one obs
+    call meant for code a CUDA graph captures (see the module docstring).
+    A no-op outside a :func:`device_marks` scope."""
+    if _marks is None:
+        return
+    _marks.mark(name)

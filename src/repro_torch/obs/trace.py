@@ -14,6 +14,14 @@ on-FPGA cycle counters (§5).
 
 Export with :meth:`Tracer.chrome_trace`; the result loads directly into
 ``chrome://tracing`` / Perfetto (``{"traceEvents": [...]}``).
+
+Spans are stamped on the wall clock (``time.time_ns``), the clock
+``torch.profiler`` converts its host events to (its results'
+``trace_start_ns`` is Unix time), and ``chrome_trace`` writes ``ts`` from
+the base ``torch.profiler.export_chrome_trace`` subtracts (the Unix
+second rounded down to a multiple of ``TRACE_BASE_S``, named in the
+export as ``baseTimeNanoseconds``).  So the program's spans and a
+profiler export of the same process load into Perfetto as one timeline.
 """
 from __future__ import annotations
 
@@ -22,6 +30,17 @@ import threading
 import time
 from contextlib import contextmanager
 from typing import Dict, Iterator, List, Optional
+
+#: the period ``torch.profiler``'s chrome export rounds its base time down
+#: to (Kineto's, seconds): its ``ts`` are microseconds since that base
+TRACE_BASE_S = 7889238
+
+
+def trace_base_ns() -> int:
+    """The base (Unix ns) of a ``torch.profiler.export_chrome_trace`` made
+    now."""
+    now_s = time.time_ns() // 1_000_000_000
+    return now_s // TRACE_BASE_S * TRACE_BASE_S * 1_000_000_000
 
 
 @dataclasses.dataclass
@@ -47,7 +66,7 @@ class Span:
     __slots__ = ("name", "args", "cycles", "_t0", "_depth")
 
     def __init__(self, name: str, args: Dict[str, object], depth: int,
-                 t0: float):
+                 t0: int):
         self.name = name
         self.args = args
         self.cycles = 0
@@ -65,7 +84,7 @@ class Tracer:
     """Collects closed spans; thread-local nesting stacks."""
 
     def __init__(self) -> None:
-        self._epoch = time.perf_counter()
+        self._epoch = time.time_ns()
         self._local = threading.local()
         self._lock = threading.Lock()
         self.records: List[SpanRecord] = []
@@ -87,17 +106,17 @@ class Tracer:
     @contextmanager
     def span(self, name: str, **args) -> Iterator[Span]:
         st = self._stack()
-        sp = Span(name, args, depth=len(st), t0=time.perf_counter())
+        sp = Span(name, args, depth=len(st), t0=time.time_ns())
         st.append(sp)
         try:
             yield sp
         finally:
             st.pop()
-            t1 = time.perf_counter()
+            t1 = time.time_ns()
             rec = SpanRecord(
                 name=sp.name,
-                ts_us=(sp._t0 - self._epoch) * 1e6,
-                dur_us=(t1 - sp._t0) * 1e6,
+                ts_us=(sp._t0 - self._epoch) / 1e3,
+                dur_us=(t1 - sp._t0) / 1e3,
                 depth=sp._depth,
                 args=sp.args,
                 cycles=sp.cycles,
@@ -110,17 +129,26 @@ class Tracer:
             if parent is not None:
                 parent.cycles += sp.cycles
 
-    def chrome_trace(self, pid: int = 0) -> dict:
+    def chrome_trace(self, pid: int = 0, base_ns: Optional[int] = None) -> dict:
+        """The spans as a Chrome trace, ``ts`` in microseconds since
+        ``base_ns`` (Unix ns): by default the base a profiler export made
+        now would take; pass an export's ``baseTimeNanoseconds`` to align
+        with it across a change of base."""
+        base = trace_base_ns() if base_ns is None else base_ns
+        shift_us = (self._epoch - base) / 1e3
         with self._lock:
             events = [r.to_chrome(pid=pid, tid=r.depth)
                       for r in sorted(self.records, key=lambda r: r.ts_us)]
-        return {"traceEvents": events, "displayTimeUnit": "ms"}
+        for e in events:
+            e["ts"] += shift_us
+        return {"traceEvents": events, "displayTimeUnit": "ms",
+                "baseTimeNanoseconds": base}
 
     def reset(self) -> None:
         with self._lock:
             self.records.clear()
         self._local = threading.local()
-        self._epoch = time.perf_counter()
+        self._epoch = time.time_ns()
 
 
 #: Process-wide default tracer (mirrors ``metrics.REGISTRY``).

@@ -15,12 +15,21 @@ CUDA graph: the step is captured once per batch size
 with no Python between its ~3,600 launches.  On the CPU the step runs op by
 op, as the reference's jit would run there.  A failed capture or replay
 raises; there is no fallback to the eager loop.
+
+Every replay times itself on the device: a pair of CUDA events around the
+token copy and the replay, read once they have completed (``query``; a
+wait only where the step's ring of pairs would overwrite one not yet read),
+into a record of the process's replays (``replay_record``).  With obs on at capture, the graph
+also holds the ``obs.device_mark`` events of ``decode_step`` and each
+replay publishes its span table.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
-from typing import List, Optional
+from time import perf_counter_ns
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -29,6 +38,124 @@ from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import ops
 from repro_torch.models import model_zoo
 from repro_torch.obs import instrument as obs
+from repro_torch.obs.metrics import parse_series_key
+
+#: the replays the record holds: the last this many, by ordinal
+RECORD_BOUND = 65536
+#: the timing-event pairs a step keeps, so that reading one never waits
+RING = 8
+
+
+class _Replay(NamedTuple):
+    """A replay whose events may not have completed yet."""
+    ordinal: int
+    start: object           # timing event before the token copy
+    end: object             # ... after the replay
+    prev_end: object        # the previous replay's end on this device, or None
+    registry: object        # obs's registry at the call, None with obs off
+    labels: dict
+    marks: object           # the graph's obs.DeviceMarks, or None
+
+
+class ReplayRecord:
+    """Each replay's device, gap and host milliseconds, by ordinal since
+    the process started (or the last ``reset``), the last ``bound`` kept.
+
+    ``device_ms``: the replay's start event to its end event (the token
+    copy and the graph); ``gap_ms``: the previous replay's end event (on
+    the same device) to this one's start, the device waiting on the host;
+    ``host_ms``: the time inside the step's call.  A replay is resolved
+    once its end event has completed: ``resolve`` queries, and waits only
+    where a step is about to record again into an event that a replay not
+    yet resolved still needs (``release``)."""
+
+    def __init__(self, bound: int = RECORD_BOUND):
+        self.bound = bound
+        self.device_ms = np.full(bound, np.nan)
+        self.gap_ms = np.full(bound, np.nan)
+        self.host_ms = np.full(bound, np.nan)
+        self.next = 0                       # the next replay's ordinal
+        self._pending: collections.deque = collections.deque()
+        self._last_end: dict = {}           # device -> the last end event
+
+    def add(self, device, start, end, host_ms: float, registry=None,
+            labels: Optional[dict] = None, marks=None) -> int:
+        """Enter a replay just enqueued -> its ordinal."""
+        n, self.next = self.next, self.next + 1
+        labels = labels or {}
+        self.host_ms[n % self.bound] = host_ms
+        self.device_ms[n % self.bound] = self.gap_ms[n % self.bound] = np.nan
+        self._pending.append(_Replay(n, start, end, self._last_end.get(device),
+                                     registry, labels, marks))
+        self._last_end[device] = end
+        if registry is not None:
+            registry.histogram("serve/step_host_ms", **labels).observe(host_ms)
+        return n
+
+    def resolve(self) -> None:
+        """Read every pending replay, in order, whose end has completed."""
+        while self._pending and self._pending[0].end.query():
+            self._read(self._pending.popleft())
+
+    def release(self, *objs) -> None:
+        """Before ``objs`` (events, a ``DeviceMarks``) are recorded again:
+        wait for the last pending replay that reads any of them, and read
+        it and every one before it."""
+        objs = [o for o in objs if o is not None]
+        last = None
+        for i, r in enumerate(self._pending):
+            if any(o is r.start or o is r.end or o is r.prev_end
+                   or o is r.marks for o in objs):
+                last = i
+        if last is None:
+            return
+        self._pending[last].end.synchronize()
+        for _ in range(last + 1):
+            self._read(self._pending.popleft())
+
+    def _read(self, r: _Replay) -> None:
+        i = r.ordinal % self.bound
+        device = r.start.elapsed_time(r.end)
+        gap = np.nan if r.prev_end is None else r.prev_end.elapsed_time(r.start)
+        if r.ordinal >= self.next - self.bound:
+            self.device_ms[i], self.gap_ms[i] = device, gap
+        if r.registry is None:
+            return
+        r.registry.histogram("serve/replay_ms", **r.labels).observe(device)
+        if r.prev_end is not None:
+            r.registry.histogram("serve/replay_gap_ms", **r.labels).observe(gap)
+        if r.marks is not None:
+            for name, ms in r.marks.table().items():
+                r.registry.histogram("decode/span_ms", span=name,
+                                     **r.labels).observe(ms)
+
+    def view(self) -> dict:
+        """The replays held, oldest first: ``first`` (the ordinal of the
+        first) and ``device_ms``, ``gap_ms``, ``host_ms`` (copies; NaN where
+        not resolved yet)."""
+        lo = max(0, self.next - self.bound)
+        idx = np.arange(lo, self.next) % self.bound
+        return {"first": lo, "device_ms": self.device_ms[idx],
+                "gap_ms": self.gap_ms[idx], "host_ms": self.host_ms[idx]}
+
+    def reset(self) -> None:
+        """Forget every replay: the next is ordinal 0, with no gap."""
+        self.__init__(self.bound)
+
+
+#: the process's record, which outlives the steps (as ``ops.launch_counts``)
+_RECORD = ReplayRecord()
+
+
+def replay_record() -> dict:
+    """Every replay of a captured decode step in this process, resolved as
+    far as the device has completed them: ``ReplayRecord.view``."""
+    _RECORD.resolve()
+    return _RECORD.view()
+
+
+def reset_replay_record() -> None:
+    _RECORD.reset()
 
 
 class GraphedDecodeStep:
@@ -42,20 +169,29 @@ class GraphedDecodeStep:
 
     Capture records the kernel wrappers' Python once, so each wrapper's
     ``launches`` counts the kernels it put in the graph once more at every
-    replay, and not at capture.  ``kernels/*`` obs series are published at
-    capture only, as the reference publishes them when jit traces.
+    replay, and not at capture.  The capture's ``kernels/*`` counters go to
+    a private registry and are added to obs's at every replay while obs is
+    on (the capture's spans are dropped).  With obs on at capture, the
+    graph also records ``decode_step``'s ``obs.device_mark`` events, and each
+    replay publishes ``decode/span_ms{span=}``.  Every replay enters
+    ``replay_record``; with obs on also ``serve/replay_ms``,
+    ``serve/replay_gap_ms``, ``serve/step_host_ms`` and a ``serve/step`` span.
     """
 
-    def __init__(self, api: model_zoo.ModelApi, params, batch: int, device):
+    def __init__(self, api: model_zoo.ModelApi, params, batch: int, device,
+                 arch: str = ""):
         dev = torch.device(device)
         self.params = params
         self._reset_state = api.reset_decode_state
+        self._labels = {"arch": arch, "batch": batch}
+        self._device = dev
         with torch.cuda.device(dev):
             self.tokens = torch.zeros((batch,), dtype=torch.int64, device=dev)
             self.state = api.init_decode_state(batch)
 
             def run():
                 logits, new = api.decode_step(params, self.state, self.tokens)
+                obs.device_mark("argmax")
                 self.state.pos.copy_(new.pos)
                 return logits, torch.argmax(logits, dim=-1)
 
@@ -67,11 +203,24 @@ class GraphedDecodeStep:
                 run()
             torch.cuda.current_stream(dev).wait_stream(side)
 
+            marking = obs.enabled()
+            self.marks = None
             before = ops.launch_counts()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph):
-                self.logits, self.next_tokens = run()
+            with obs.enabled_scope() as (captured, _), \
+                    torch.cuda.graph(self.graph):
+                if marking:
+                    with obs.device_marks() as self.marks:
+                        self.logits, self.next_tokens = run()
+                else:
+                    self.logits, self.next_tokens = run()
             self.launches = ops.take_back_launches(before)
+            self.kernel_counts = [(*parse_series_key(k), v) for k, v in
+                                  captured.snapshot().counters.items()]
+            self._ring = [(torch.cuda.Event(enable_timing=True),
+                           torch.cuda.Event(enable_timing=True))
+                          for _ in range(RING)]
+            self._turn = 0
         self.reset()
 
     def reset(self) -> None:
@@ -80,9 +229,24 @@ class GraphedDecodeStep:
 
     def __call__(self, tokens: torch.Tensor):
         """One step on (B,) tokens: the static (logits, argmax) buffers."""
-        self.tokens.copy_(tokens)
-        self.graph.replay()
-        ops.add_launches(self.launches)
+        t0 = perf_counter_ns()
+        reg = obs.registry() if obs.enabled() else None
+        with obs.span("serve/step", **self._labels):
+            start, end = self._ring[self._turn]
+            self._turn = (self._turn + 1) % RING
+            _RECORD.resolve()
+            _RECORD.release(start, end, self.marks)
+            start.record()
+            self.tokens.copy_(tokens)
+            self.graph.replay()
+            end.record()
+            ops.add_launches(self.launches)
+            if reg is not None:
+                for name, labels, n in self.kernel_counts:
+                    reg.counter(name, **labels).inc(n)
+        _RECORD.add(self._device, start, end,
+                    (perf_counter_ns() - t0) / 1e6, reg, self._labels,
+                    self.marks)
         return self.logits, self.next_tokens
 
 
@@ -142,7 +306,7 @@ class ServeEngine:
         step = self._graphs.get(batch)
         if step is None or step.params is not self.params:
             step = self._graphs[batch] = GraphedDecodeStep(
-                self.api, self.params, batch, self.device)
+                self.api, self.params, batch, self.device, self.cfg.name)
         return step
 
     def generate(self, prompts: List[List[int]], max_new: int = 16,
