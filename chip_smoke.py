@@ -217,15 +217,21 @@ Phases, one JSON line each:
                error within FLASH_BF16_REL) on the cases of
                tests/test_torch_decode_attention.py at hd 32, 64 and 128
                (bits 16, 8, 4 x f32, bf16 x causal, window, ring x G 1, 4,
-               5; head blocks cut mid-group) and on two caches split over a
-               cluster; then at DA_TIMED's shapes (the serve path's, one
-               granite-8b layer at B 8 x S 32,768 at int8 and int4,
-               hymba's ring, whisper's decoder): held to its plain version,
-               timed by events, back to back and in the profile, beside
-               the plain version, the composition it replaced
+               5; head blocks cut mid-group), on two caches split over a
+               cluster and on a row with no valid slot; each case again
+               with every slot outside a row's valid interval poisoned
+               (NaN scales, extreme codes), ``torch.equal`` to the clean
+               output, and its tiles walked (the kernel's own counter)
+               equal to ``walked_tiles``; then at DA_TIMED's shapes (the
+               serve path's, one granite-8b layer at B 8 x S 32,768 at
+               int8 and int4, hymba's ring, whisper's decoder, and
+               granite's chat batch at position 511 of 2,048 and the 32k
+               cache at 29,696): held to its plain version, its tiles
+               counted, timed by events, back to back and in the profile,
+               beside the plain version, the composition it replaced
                (kv_dequant, the bf16 cast, ``_attend``) and SDPA on the
                same K and V already dequantized to bf16, with its byte
-               bound and launch plan;
+               bound (the slots read) and launch plan;
 12. attention — the flash forward against its plain version at one layer's
                prefill shape (bf16: o within 3e-2, lse within 1e-3, and o's
                relative error on every 64-row query tile of each head within
@@ -560,21 +566,28 @@ COPY_OPS = {"direct_copies": "direct_copy_kernel", "bf16_casts": "bfloat16_copy_
 #: cases (tests/test_torch_decode_attention.py: bits 16, 8, 4 x f32, bf16 x
 #: the masks x G 1, 4, 5, and head blocks of G = 4 cut mid-group) at batch
 #: 3, hd 32, 64 and 128 in turn, plus two caches long enough to split over
-#: a cluster (300 slots, and a 200-slot ring wrapped past 450); each mask
-#: (slots, window, positions of the 3 rows)
+#: a cluster (300 slots, and a 200-slot ring wrapped past 450) and a row
+#: with no valid slot (position -1: every slot walked and averaged); each
+#: mask (slots, window, positions of the 3 rows)
 DA_MASKS = {"causal": (40, 0, (39, 0, 17)), "window": (40, 12, (39, 5, 23)),
             "ring": (16, 16, (52, 3, 16)), "split": (300, 0, (299, 64, 200)),
-            "split_ring": (200, 200, (450, 10, 199))}
+            "split_ring": (200, 200, (450, 10, 199)),
+            "empty": (40, 0, (-1, 7, 39))}
 DA_GROUPS = {1: (4, 4), 4: (8, 2), 5: (10, 2)}       # G: (query heads, KV heads)
 DA_BLOCKS = ((2, 5), (3, 2), (5, 1), (4, 4))          # (q0, n) at G = 4
-#: the timed shapes, (B, S, KV, G, hd, window), every slot valid (positions
-#: S - 1 and past, the ring wrapped): the serve path's (one granite-8b
-#: layer at batch 8, seq 256), one granite-8b layer at B 8 x S 32,768
-#: (decode_32k's cache), hymba-1.5b's 1024-slot ring, whisper-tiny's decoder
-DA_TIMED = {"granite_serve": (SERVE_B, SERVE_SEQ, 8, 4, 128, 0),
-            "granite_32k": (8, 32768, 8, 4, 128, 0),
-            "hymba_ring": (SERVE_B, 1024, 5, 5, 64, 1024),
-            "whisper_decoder": (32, 448, 6, 1, 64, 0)}
+#: the timed shapes, (B, S, KV, G, hd, window, position): every slot valid
+#: where the position is None (S - 1 and past, the ring wrapped): the serve
+#: path's (one granite-8b layer at batch 8, seq 256), one granite-8b layer
+#: at B 8 x S 32,768 (decode_32k's cache), hymba-1.5b's 1024-slot ring,
+#: whisper-tiny's decoder; then every row at one position, most slots
+#: masked: granite's chat batch (B 128 of 2,048 slots) at 511, the 32k
+#: cache at 29,696
+DA_TIMED = {"granite_serve": (SERVE_B, SERVE_SEQ, 8, 4, 128, 0, None),
+            "granite_32k": (8, 32768, 8, 4, 128, 0, None),
+            "hymba_ring": (SERVE_B, 1024, 5, 5, 64, 1024, None),
+            "whisper_decoder": (32, 448, 6, 1, 64, 0, None),
+            "granite_chat_p511": (128, 2048, 8, 4, 128, 0, 511),
+            "granite_32k_p29696": (8, 32768, 8, 4, 128, 0, 29696)}
 DA_F32_TOL = 1e-5                         # of the largest |o|
 #: idle host time at each end of a profiling session (``device_profile``)
 PROFILE_PAD_S = 0.05
@@ -1983,10 +1996,49 @@ def da_err(got: torch.Tensor, want: torch.Tensor, dt) -> tuple:
     return err, rel <= FLASH_BF16_REL
 
 
+def da_poisoned(cache: tuple, pos: torch.Tensor, S: int, window: int,
+                ring: bool) -> tuple:
+    """A copy of ``cache`` with every slot outside each row's valid
+    interval (``decode_attention.valid_interval``; rows with no valid slot
+    left alone) poisoned: NaN scales and codes at -128 / 127 alternately,
+    NaN values at bits 16.  The kernel reads none of them."""
+    a, b = decode_attention.valid_interval(pos.cpu(), S, 0, S, window, ring)
+    s = torch.arange(S)[None, :]
+    outside = ((s < a[:, None]) | (s >= b[:, None])) & (a < b)[:, None]
+    outside = outside.to(cache[0].device)[:, :, None, None]
+    out = []
+    for i, t in enumerate(cache):
+        if t is None:
+            out.append(None)
+        elif t.dtype == torch.int8:
+            out.append(torch.where(outside, torch.tensor(127 if i else -128,
+                                                         dtype=torch.int8,
+                                                         device=t.device), t))
+        else:
+            out.append(torch.where(outside, torch.full_like(t, float("nan")), t))
+    return tuple(out)
+
+
+def da_tiles(q, cache, pos, bits, q0, G, window, ring) -> tuple:
+    """(tiles the kernel walked by its own count, ``walked_tiles``' count
+    for the same inputs)."""
+    n, S = q.shape[2], cache[0].shape[1]
+    kvb = (q0 + n - 1) // G - q0 // G + 1
+    counter = torch.zeros(1, dtype=torch.int64, device=q.device)
+    decode_attention.kv_decode_attention(q, cache, pos, bits, q0, G, 0, S, window,
+                                         ring, True, q.dtype, counter)
+    sc = decode_attention.plan(q, cache, pos, bits, q0, G)["slots_per_cta"]
+    want = kvb * decode_attention.walked_tiles(pos.cpu(), S, 0, S, window, ring, sc)
+    return int(counter.item()), want
+
+
 def da_case(dev, rng, B, S, KV, G, hd, window, positions, bits, dt, mask,
             block=None) -> dict:
     """kv_decode_attention on the card against its plain version on the
-    same inputs; ``block`` (q0, n) a head block, else every head."""
+    same inputs; ``block`` (q0, n) a head block, else every head.  Then the
+    same call on the cache with every slot outside a row's valid interval
+    poisoned (``da_poisoned``): ``torch.equal`` to the clean output; and the
+    tiles it walked against ``walked_tiles``."""
     q0, n = block or (0, KV * G)
     cache = da_inputs(dev, rng, B, S, KV, hd, bits, dt)
     q = torch.from_numpy(rng.standard_normal((B, 1, n, hd)).astype(np.float32)).to(
@@ -1997,35 +2049,49 @@ def da_case(dev, rng, B, S, KV, G, hd, window, positions, bits, dt, mask,
     got = decode_attention.kv_decode_attention(*args)
     want = decode_attention.kv_decode_attention_plain(*args)
     err, ok = da_err(got.reshape(B, 1, n, hd), want.reshape(B, 1, n, hd), dt)
+    poisoned = decode_attention.kv_decode_attention(
+        q, da_poisoned(cache, pos, S, window, ring), *args[2:])
+    tiles = da_tiles(q, cache, pos, bits, q0, G, window, ring)
     row = {"B": B, "S": S, "KV": KV, "G": G, "hd": hd, "bits": bits,
            "dtype": str(dt).split(".")[1], "mask": mask, "heads": [q0, n],
            "split": decode_attention.plan(q, cache, pos, bits, q0, G)["split"],
-           "max_abs_err": err, "ok": ok}
+           "max_abs_err": err, "ok": ok,
+           "poisoned_equal": bool(torch.equal(poisoned, got)), "tiles": list(tiles)}
     check(ok, f"kv_decode_attention against its plain version: {row}")
+    check(row["poisoned_equal"] and tiles[0] == tiles[1],
+          f"kv_decode_attention read a masked slot or walked other tiles: {row}")
     return row
 
 
 def da_timed(dev, rng, shape: tuple, bits: int, copy_rate: float) -> dict:
-    """The kernel at one of DA_TIMED's shapes, bf16, every slot valid: held
-    to its plain version, then timed (CUDA events, back to back, profile)
-    beside the plain version, the composition it replaced (``kv_dequant``,
-    the cast, ``_attend``: the single-device decode before it) and SDPA on
-    the same K and V already dequantized to bf16 (no single PyTorch call
-    dequantizes and attends)."""
+    """The kernel at one of DA_TIMED's shapes, bf16, every row at the
+    shape's position (every slot valid where None): held to its plain
+    version, its tiles counted, then timed (CUDA events, back to back,
+    profile) beside the plain version, the composition it replaced
+    (``kv_dequant``, the cast, ``_attend``: the single-device decode before
+    it) and SDPA on the same K and V already dequantized to bf16 (no single
+    PyTorch call dequantizes and attends; it reads every slot, masked or
+    not).  The byte bound counts the slots read."""
     from repro_torch.models import layers
-    B, S, KV, G, hd, window = shape
+    B, S, KV, G, hd, window, at = shape
     dt, H = torch.bfloat16, KV * G
     cache = da_inputs(dev, rng, B, S, KV, hd, bits, dt)
     q = torch.from_numpy(rng.standard_normal((B, 1, H, hd)).astype(np.float32)).to(
         dev).to(dt)
     ring = window > 0 and S <= window
-    pos = torch.full((B,), S - 1 + (S // 4 if ring else 0), dtype=torch.int32,
-                     device=dev)
+    if at is None:
+        at = S - 1 + (S // 4 if ring else 0)
+    pos = torch.full((B,), at, dtype=torch.int32, device=dev)
     args = (q, cache, pos, bits, 0, G, 0, S, window, ring, True, dt)
     fn = lambda: decode_attention.kv_decode_attention(*args)          # noqa: E731
     plain = lambda: decode_attention.kv_decode_attention_plain(*args)  # noqa: E731
     valid = decode_attention.valid_slots(pos, S, 0, S, window, ring)
-    check(bool(valid.all()), "a timed case reads every slot")
+    check(bool(valid.all()) == (shape[-1] is None),
+          f"a timed case at {shape} reads every slot where its position is None")
+    tiles = da_tiles(q, cache, pos, bits, 0, G, window, ring)
+    allocated = decode_attention.tiles_allocated(B, S, KV)
+    check(tiles[0] == tiles[1] and (tiles[0] == allocated) == (shape[-1] is None),
+          f"kv_decode_attention at {shape} walked {tiles} of {allocated} tiles")
 
     def composition():
         k = layers._dequant_rows(cache[0], cache[2], bits).to(dt)
@@ -2046,8 +2112,10 @@ def da_timed(dev, rng, shape: tuple, bits: int, copy_rate: float) -> dict:
     lib_err = float((library().transpose(1, 2).float().reshape(B, 1, H, hd)
                      - plain().reshape(B, 1, H, hd)).abs().max())
     cost = launch_costs(fn, "decode_attention_kernel", n=50)
-    read, write = ops.kv_decode_attention_io_bytes(B, S, KV, hd, H, bits)
+    slots = decode_attention.slots_read(pos.cpu(), S, 0, S, window, ring)
+    read, write = ops.kv_decode_attention_io_bytes(B, S, KV, hd, H, bits, slots=slots)
     out = {"shape": [B, S, KV, G, hd], "window": window, "ring": ring, "bits": bits,
+           "pos": at, "tiles_walked": tiles[0], "tiles_allocated": allocated,
            "dtype": "bfloat16", "max_abs_err": err,
            "plan": decode_attention.plan(q, cache, pos, bits, 0, G),
            "ms": time_ms(fn, reps=30), "ms_back_to_back": stream_ms(fn),
@@ -2059,7 +2127,7 @@ def da_timed(dev, rng, shape: tuple, bits: int, copy_rate: float) -> dict:
                       "(B, KV, S, hd), not counting the dequant",
            "library_max_abs_err": lib_err,
            "read_bytes": read, "write_bytes": write,
-           **bound(read + write, 4 * B * H * S * hd, copy_rate, BF16_FLOPS_PER_S)}
+           **bound(read + write, 4 * H * slots * hd, copy_rate, BF16_FLOPS_PER_S)}
     out["share_of_bound"] = out["bound_ms"] / out["ms_back_to_back"]
     out["share_of_bound_profile"] = out["bound_ms"] / max(out["profile_ms"], 1e-9)
     return out
@@ -2149,7 +2217,8 @@ def phase_kvpack(dev, serve: dict, copy_rate: float) -> list:
                      for d in (torch.float32, torch.bfloat16) for k in DA_BLOCKS)]
     timed = {f"{label}_int{bits}": da_timed(dev, rng, shape, bits, copy_rate)
              for label, shape in DA_TIMED.items()
-             for bits in ((8, 4) if label.startswith("granite") else (8,))}
+             for bits in ((8, 4) if label in ("granite_serve", "granite_32k")
+                          else (8,))}
     main_case = timed["granite_serve_int8"]
     rows_out.append({
         "name": "decode_attention.kv_decode_attention", "route": "cuda",

@@ -37,7 +37,9 @@ card's grid adds ``kv_quant_store``, the serve path's route for
 ``kv_decode_attention``, the serve path's route for ``kv_dequant``, which
 reads the packed cache once and attends (its plain route dequantizes the
 whole cache to f32 and casts it, traffic the kernel's charge does not
-hold, so the CPU grid leaves it out).
+hold, so the CPU grid leaves it out): with every slot valid, and at rows
+whose positions leave most of the cache masked, where the kernel reads
+only the valid slots and the charge counts those.
 """
 from __future__ import annotations
 
@@ -67,6 +69,10 @@ GRID_BITS = (4, 8)
 #: the card's kv_quant_store case: one layer of granite-8b's packed cache at
 #: serve batch 8, seq 256 (8 KV heads of 128), bf16 rows in
 STORE_SHAPE = (8, 256, 8, 128)
+#: the decode attention's rows at positions that leave most of
+#: STORE_SHAPE's 256 slots masked (a tile's first and last slot, one row
+#: whole)
+PARTIAL_POS = (0, 63, 64, 100, 127, 128, 200, 255)
 
 #: gather-like ops: each element of the output indexes its own address
 _GATHER_OPS = ("aten.gather", "aten.index", "aten.index_select", "aten.take",
@@ -78,9 +84,11 @@ class KernelCase:
     """One walked kernel route + its analytic irredundant byte charge.
 
     ``exclude`` lists the argument positions that carry no data the kernel
-    reads (the buffers it writes in place, an index operand); ``inplace``
-    gives the bytes a route writes in place where the dispatcher cannot
-    see them (a kernel launch): on a plain route the walk counts them.
+    reads (the buffers it writes in place, an index operand), or that it
+    reads only in part; ``reads`` gives the bytes a kernel route reads of
+    those in part (the slots a position makes valid), ``inplace`` the bytes
+    a route writes in place, where the dispatcher cannot see them (a
+    kernel launch): on a plain route the walk counts them.
     """
     name: str
     fn: Callable
@@ -92,6 +100,7 @@ class KernelCase:
     route: str = "ref"     # "ref" (plain) or "cuda" (the kernel)
     exclude: Tuple[int, ...] = ()
     inplace: Optional[Callable[[tuple], int]] = None
+    reads: Optional[Callable[[tuple], int]] = None
     _walk: Optional[op_walk.Walk] = dataclasses.field(default=None,
                                                       repr=False)
 
@@ -104,9 +113,12 @@ class KernelCase:
     def io_bytes(self) -> Tuple[int, int]:
         """(read, write) bytes of the walked route."""
         w = self.walk()
-        if self.route == "cuda" and self.inplace is not None:
-            return w.read_bytes, w.result_bytes + self.inplace(self.args)
-        return w.read_bytes, w.write_bytes
+        if self.route != "cuda":
+            return w.read_bytes, w.write_bytes
+        read = w.read_bytes + (self.reads(self.args) if self.reads else 0)
+        if self.inplace is not None:
+            return read, w.result_bytes + self.inplace(self.args)
+        return read, w.write_bytes
 
 
 def _route(device) -> str:
@@ -210,10 +222,26 @@ def store_cases(dev, rng, route: str) -> List[KernelCase]:
     return cases
 
 
+def _valid_rows_bytes(args: tuple) -> int:
+    """Bytes of the cache rows (codes and scales, K and V, every KV head)
+    of the slots ``valid_slots`` admits for each row's position, every slot
+    of a row with none: what ``kv_decode_attention`` reads of the cache."""
+    from repro_torch.kernels import decode_attention as dattn
+
+    _, k, v, ks, vs, pos = args
+    S = k.shape[1]
+    valid = dattn.valid_slots(pos.cpu(), S, 0, S, 0, False)
+    slots = int(torch.where(valid.any(1), valid.sum(1), S).sum())
+    return slots * sum(t[0, 0].numel() * t.element_size() for t in (k, v, ks, vs))
+
+
 def decode_attention_cases(dev, rng) -> List[KernelCase]:
     """``kv_decode_attention`` at ``STORE_SHAPE``'s cache (one granite-8b
     layer at serve batch 8, seq 256), 32 bf16 query heads of G = 4, bits 4
-    and 8, every slot valid."""
+    and 8: every slot valid, then at ``PARTIAL_POS``, where the charge
+    counts the slots read (``decode_attention.slots_read``) and the walk the
+    cache rows ``valid_slots`` admits."""
+    from repro_torch.kernels import decode_attention as dattn
     from repro_torch.kernels import ops
 
     B, S, KV, Dh = STORE_SHAPE
@@ -234,11 +262,17 @@ def decode_attention_cases(dev, rng) -> List[KernelCase]:
                 t(rng.uniform(0.01, 0.05, (B, S, KV, 1)).astype(np.float32)),
                 t(np.full((B,), S - 1, dtype=np.int32)))
         r, w = ops.kv_decode_attention_io_bytes(B, S, KV, Dh, KV * G, bits)
+        fn = (lambda q, k, v, ks, vs, pos, b=bits: ops.kv_decode_attention(
+            q, (k, v, ks, vs), pos, b, 0, G, backend="cuda"))
+        cases.append(KernelCase(f"kernel/kv_decode_attention/bits{bits}", fn,
+                                args, r, w, route="cuda"))
+        pos = torch.tensor(PARTIAL_POS, dtype=torch.int32)
+        r, w = ops.kv_decode_attention_io_bytes(
+            B, S, KV, Dh, KV * G, bits, slots=dattn.slots_read(pos, S, 0, S, 0, False))
         cases.append(KernelCase(
-            f"kernel/kv_decode_attention/bits{bits}",
-            lambda q, k, v, ks, vs, pos, b=bits: ops.kv_decode_attention(
-                q, (k, v, ks, vs), pos, b, 0, G, backend="cuda"),
-            args, r, w, route="cuda"))
+            f"kernel/kv_decode_attention/bits{bits}/partial", fn,
+            args[:5] + (pos.to(dev),), r, w, route="cuda", exclude=(1, 2, 3, 4),
+            reads=_valid_rows_bytes))
     return cases
 
 

@@ -30,12 +30,15 @@
 // one KV head that fall in the block (1 to G rows).
 //
 // Design.  Grid (split, KV head, row b); a CTA of 8 warps walks its slots
-// in tiles of 64: cp.async brings a tile's codes and scales into a ring of
+// in tiles of 64, only those that meet the row's valid interval (for every
+// mask the slots valid for pos form one interval: causal [0, pos], window
+// [pos - window + 1, pos], ring [0, min(pos, S_all - 1)]; a row with none
+// walks every slot): cp.async brings a tile's codes and scales into a ring of
 // shared-memory stages (packed codes: 3, two tiles in flight while one is
 // worked on; bf16 / f32 rows: 2); the tile is dequantized once, each value
 // by one thread, into a bf16 (or f32) tile in shared memory; then the
 // warps take their products from it.  Pass 1 writes the scaled, masked
-// scores of every slot of the CTA into shared memory (G x slots f32), pass
+// scores of the CTA's walked slots into shared memory (G x slots f32), pass
 // 2 walks V the same way.  In bf16 with round_p the products run on the
 // tensor cores, mma.sync m16n8k16 (bf16 x bf16 -> f32; the query rows
 // padded to 16): the product of two bf16 values is exact in f32, so only
@@ -54,14 +57,26 @@
 // Every sum runs in a fixed order, so the kernel is deterministic (a
 // replayed CUDA graph gives the eager step's bits).
 //
-// Bound on this card: bytes.  A layer's step reads the codes and scales of
-// every slot once: at B 8 x S 32,768, 8 KV heads of 128, int8, 554 MB,
-// 0.165 ms at 3.35 TB/s.  Its operations, 8 FLOP per int8 code byte at
-// G = 4 (16 per int4 byte), are far below the tensor cores' rate; the
-// dequant costs a byte permute, an add and a multiply a value (the integer
-// to float conversion by the 2^23 trick, not the quarter-rate I2F) and a
-// pack of two values to bf16.  Every slot is read: skipping masked tiles
-// is later work.
+// Slots outside the interval are masked: a walked tile's rows outside it are
+// not loaded and are dequantized to zeros, a tile outside it is not walked,
+// and the softmax's sums skip them.  Each skipped slot's exp(-1e30 - max) is
+// 0 and its probability 0, and the sums keep their order, so for a finite
+// cache the output is the one a walk of every slot gives, bit for bit.  A
+// CTA whose slots hold no valid one walks nothing and still joins the
+// cluster's combine.  A tile whose rows are all valid is dequantized by an
+// instance of its own that checks no row.
+//
+// Bound on this card.  By bytes a layer's step reads the codes and scales of
+// the valid slots once: at B 8 x S 32,768, 8 KV heads of 128, int8, every
+// slot valid, 554 MB, 0.165 ms at 3.35 TB/s.  Its operations, 8 FLOP per
+// int8 code byte at G = 4 (16 per int4 byte), are far below the tensor
+// cores' rate; the dequant costs a byte permute, an add and a multiply a
+// value (the integer to float conversion by the 2^23 trick, not the
+// quarter-rate I2F) and a pack of two values to bf16.  In practice the
+// kernel runs well below the byte bound, paced by its tile iterations (load,
+// dequantize, products, two barriers each; no one phase dominates), so its
+// time follows the tiles it walks: a chat batch whose rows sit at position
+// t of 2,048 slots walks ceil((t + 1) / 64) of a row's 32 tiles.
 //
 // The launch reads pos on the device, allocates nothing, does not
 // synchronise: it can be captured in a CUDA graph.
@@ -79,7 +94,8 @@ extern "C" {
 // 0, 1, 2, on the tensor cores; decode_attention_f32.cu's: f32 (ct_bf16 0),
 // codes 0, 1, 3.  hd 32, 64 or 128; G <= 16.  With out null only the plan
 // is made.  plan_out (nullable) gets the split, the shared memory bytes
-// and the slots a CTA.  Returns cudaGetLastError() after the launch, -1
+// and the slots a CTA.  tiles_walked (nullable, an unsigned 64-bit counter on
+// the device) gets the tiles each CTA walks added, one atomic a CTA.  Returns cudaGetLastError() after the launch, -1
 // when one (row, KV head)'s scores do not fit a cluster of 8 CTAs.
 int kv_decode_attention_launch(const void* q, int64_t q_sb, int64_t q_sh,
                                const void* k_codes, const void* v_codes,
@@ -88,7 +104,7 @@ int kv_decode_attention_launch(const void* q, int64_t q_sb, int64_t q_sh,
                                int round_p, int B, int S, int KV, int G, int hd,
                                int q0, int n, int lo, int s_all, int window,
                                int ring, float scale, int device, void* stream,
-                               int* plan_out) {
+                               int* plan_out, void* tiles_walked) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (!ct_bf16 || !round_p) return cudaErrorInvalidValue;   // not this library's
@@ -96,7 +112,7 @@ int kv_decode_attention_launch(const void* q, int64_t q_sb, int64_t q_sh,
   by_hd<CODE, true, true>(hd, q, q_sb, q_sh, k_codes, v_codes, k_scale, v_scale, \
                           pos, out, B, S, KV, G, q0, n, lo, s_all, window, ring, \
                           round_p, scale, device, static_cast<cudaStream_t>(stream), \
-                          plan_out)
+                          plan_out, static_cast<unsigned long long*>(tiles_walked))
   switch (code) {
     case kInt8: return DA_CALL(kInt8);
     case kInt4: return DA_CALL(kInt4);

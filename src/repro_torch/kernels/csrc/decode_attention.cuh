@@ -35,7 +35,11 @@ struct Layout {
   // slots a tile, 8 a warp (an mma's n), and the stages of the ring: two
   // tiles of packed codes in flight while one is worked on (a short cache's
   // two tiles of K, then of V, load together), bf16 / f32 rows double
-  // buffered; two CTAs fit an SM at 32k slots (~107 KB each)
+  // buffered.  A CTA walks only the tiles that meet its row's valid
+  // interval (valid_interval), so its time follows the tiles it walks, not
+  // the slots it holds.  Shared memory follows the slots it holds: at 32k
+  // slots (B 16, G 4: 4 splits of 8,192) ~174 KB, one CTA an SM; at B 8,
+  // 8 splits of 4,096, ~107 KB, two
   static constexpr int tile = 8 * kWarps;
   static constexpr int stages = scaled ? 3 : 2;
   static constexpr int stage_bytes = tile * row_bytes + (scaled ? tile * 4 : 0);
@@ -161,13 +165,34 @@ __device__ __forceinline__ bool slot_valid(int j, int p, int s_all, int window,
   return j <= p && (window <= 0 || p - j < window);
 }
 
-// cp.async of `rows` cache rows (slot after slot, `stride` rows apart in the
-// cache) and their scales into one stage
+// The slots [a, b) of the launch's block (slot s is the cache's lo + s, s in
+// [0, S)) that slot_valid admits for position p: one interval, causal
+// [0, p], within the window [p - window + 1, p], on a ring of s_all slots
+// [0, min(p, s_all - 1)] (a ring's block lies in [0, s_all): the wrapper
+// checks).  a >= b where none is.  decode_attention.py::valid_interval is
+// its twin.
+__device__ __forceinline__ void valid_interval(int p, int lo, int S, int s_all,
+                                               int window, int ring, int& a,
+                                               int& b) {
+  int64_t g0, g1;   // the cache's valid slots [g0, g1]
+  if (ring) {
+    g0 = 0, g1 = min(p, s_all - 1);
+  } else {
+    g0 = window > 0 ? static_cast<int64_t>(p) - window + 1 : static_cast<int64_t>(lo);
+    g1 = p;
+  }
+  const int64_t x = g0 - lo, y = g1 - lo + 1;
+  a = static_cast<int>(x < 0 ? 0 : x > S ? S : x);
+  b = static_cast<int>(y < 0 ? 0 : y > S ? S : y);
+}
+
+// cp.async of a tile's cache rows [r0, r1) (slot after slot from row0,
+// `stride` rows apart in the cache) and their scales into one stage
 template <int CODE, int HD>
 __device__ __forceinline__ void issue_tile(unsigned char* dst,
                                            const unsigned char* codes,
                                            const float* scales, int64_t row0,
-                                           int stride, int rows, int tid) {
+                                           int stride, int r0, int r1, int tid) {
   using L = Layout<CODE, HD>;
   constexpr int chunks = L::row_bytes / 16;
   constexpr int per = (L::tile * chunks + kThreads - 1) / kThreads;
@@ -175,14 +200,14 @@ __device__ __forceinline__ void issue_tile(unsigned char* dst,
   for (int k = 0; k < per; ++k) {
     const int u = tid + k * kThreads;
     const int jj = u / chunks, ch = u - jj * chunks;
-    if (jj < rows)
+    if (jj >= r0 && jj < r1)
       cp_async16(dst + jj * L::row_bytes + ch * 16,
                  codes + (row0 + static_cast<int64_t>(jj) * stride) * L::row_bytes +
                      ch * 16);
   }
   if constexpr (L::scaled) {
     float* sd = reinterpret_cast<float*>(dst + L::tile * L::row_bytes);
-    for (int jj = tid; jj < rows; jj += kThreads)
+    for (int jj = r0 + tid; jj < r1; jj += kThreads)
       cp_async4(sd + jj, scales + row0 + static_cast<int64_t>(jj) * stride);
   }
 }
@@ -206,13 +231,17 @@ __device__ __forceinline__ void dequant8(const unsigned char* row, float s, int 
   }
 }
 
-// one stage's rows dequantized (and rounded to the compute dtype) into the
-// X tile, 8 values a unit; rows past `rows` become zeros, so that a padded
-// slot (probability 0) multiplies finite values
-template <int CODE, bool BF16, int HD>
+// one stage's rows [r0, r1) dequantized (and rounded to the compute dtype)
+// into the X tile, 8 values a unit; the other rows (padding past the cache,
+// slots outside the row's valid interval, never loaded) become zeros, so
+// that a slot of probability 0 multiplies zeros.  FULL: every row is in
+// [r0, r1), and no row is checked (without the checks the compiler batches
+// a thread's units: ~6% of the kernel's time on an H100 where most tiles
+// are whole)
+template <int CODE, bool BF16, int HD, bool FULL = false>
 __device__ __forceinline__ void dequant_tile(const unsigned char* raw,
-                                             typename Ct<BF16>::T* X, int rows,
-                                             int tid) {
+                                             typename Ct<BF16>::T* X, int r0,
+                                             int r1, int tid) {
   using L = Layout<CODE, HD>;
   constexpr int units = HD / 8;
   constexpr int xs = Smem<CODE, BF16, HD>::xs;
@@ -228,12 +257,13 @@ __device__ __forceinline__ void dequant_tile(const unsigned char* raw,
       constexpr int vec = CODE == kBf16 ? 1 : 2;
 #pragma unroll
       for (int i = 0; i < vec; ++i)
-        dst[i] = jj < rows ? reinterpret_cast<const uint4*>(row)[cu * vec + i]
-                           : make_uint4(0u, 0u, 0u, 0u);
+        dst[i] = FULL || (jj >= r0 && jj < r1)
+                     ? reinterpret_cast<const uint4*>(row)[cu * vec + i]
+                     : make_uint4(0u, 0u, 0u, 0u);
       continue;
     }
     float v[8] = {};
-    if (jj < rows) dequant8<CODE, HD>(row, sc[jj], cu, v);
+    if (FULL || (jj >= r0 && jj < r1)) dequant8<CODE, HD>(row, sc[jj], cu, v);
     if constexpr (BF16) {
       dst[0] = make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]),
                           pack_bf16(v[4], v[5]), pack_bf16(v[6], v[7]));
@@ -256,7 +286,8 @@ __global__ void __launch_bounds__(kThreads)
                             const int* __restrict__ pos, float* __restrict__ out,
                             int S, int KV, int G, int q0, int n, int lo,
                             int s_all, int window, int ring, int round_p,
-                            float scale_attn, int sc_len, int nsplit) {
+                            float scale_attn, int sc_len, int nsplit,
+                            unsigned long long* __restrict__ tiles_walked) {
   using L = Layout<CODE, HD>;
   using SM = Smem<CODE, BF16, HD>;
   using T = typename Ct<BF16>::T;
@@ -276,9 +307,21 @@ __global__ void __launch_bounds__(kThreads)
   const int R = he - hs;
   const int s_begin = split * sc_len;
   const int nloc = max(0, min(S, s_begin + sc_len) - s_begin);
-  const int ntiles = (nloc + L::tile - 1) / L::tile;
   const int p = pos[b];
   const int64_t row0 = (static_cast<int64_t>(b) * S + s_begin) * KV + g;
+  // the CTA's slots [ca, cb) that are valid for p, and the tiles [t0, t1)
+  // that meet them: the only tiles it loads and walks.  A row with no valid
+  // slot takes every slot (the softmax averages them all, as the plain
+  // version's does).  A CTA whose slots hold none walks no tile: a max of
+  // -inf, a sum of 0 and a zero partial in the cluster's combine.
+  int va, vb;
+  valid_interval(p, lo, S, s_all, window, ring, va, vb);
+  if (va >= vb) va = 0, vb = S;
+  const int ca = max(va - s_begin, 0), cb = min(vb - s_begin, nloc);
+  const int t0 = ca < cb ? ca / L::tile : 0;
+  const int t1 = ca < cb ? (cb + L::tile - 1) / L::tile : 0;
+  if (tiles_walked != nullptr && tid == 0)
+    atomicAdd(tiles_walked, static_cast<unsigned long long>(t1 - t0));
 
   // the query rows, rounded to the compute dtype
   {
@@ -294,29 +337,36 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
 
-  auto issue = [&](const void* codes, const float* scales, int tile) {
-    if (tile < ntiles)
-      issue_tile<CODE, HD>(smem + SM::raw + (tile % L::stages) * L::stage_bytes,
+  // tile t's rows that are valid slots (the ring's stages indexed from t0)
+  auto tile_r0 = [&](int t) { return max(ca - t * L::tile, 0); };
+  auto tile_r1 = [&](int t) { return min(cb - t * L::tile, L::tile); };
+  auto issue = [&](const void* codes, const float* scales, int t) {
+    if (t < t1)
+      issue_tile<CODE, HD>(smem + SM::raw + ((t - t0) % L::stages) * L::stage_bytes,
                            static_cast<const unsigned char*>(codes), scales,
-                           row0 + static_cast<int64_t>(tile) * L::tile * KV, KV,
-                           min(L::tile, nloc - tile * L::tile), tid);
+                           row0 + static_cast<int64_t>(t) * L::tile * KV, KV,
+                           tile_r0(t), tile_r1(t), tid);
     cp_async_commit();
   };
   // the ring's loop over one pass's tiles: tile i arrives, the next load
   // goes out, tile i is dequantized into X, then `work(i)` takes it
   auto walk = [&](const void* codes, const float* scales, auto&& work) {
-    for (int i = 0; i < ntiles; ++i) {
+    for (int i = t0; i < t1; ++i) {
       cp_async_wait<L::stages - 2>();
       __syncthreads();
       issue(codes, scales, i + L::stages - 1);
-      dequant_tile<CODE, BF16, HD>(smem + SM::raw + (i % L::stages) * L::stage_bytes,
-                                   X, min(L::tile, nloc - i * L::tile), tid);
+      const unsigned char* raw = smem + SM::raw + ((i - t0) % L::stages) * L::stage_bytes;
+      const int r0 = tile_r0(i), r1 = tile_r1(i);
+      if (r0 == 0 && r1 == L::tile)
+        dequant_tile<CODE, BF16, HD, true>(raw, X, r0, r1, tid);
+      else
+        dequant_tile<CODE, BF16, HD>(raw, X, r0, r1, tid);
       __syncthreads();
       work(i);
     }
   };
 
-  for (int t = 0; t < L::stages - 1; ++t) issue(k_codes, k_scale, t);
+  for (int t = 0; t < L::stages - 1; ++t) issue(k_codes, k_scale, t0 + t);
   __syncthreads();   // the query rows
 
   // ---- pass 1: scores ----------------------------------------------------
@@ -372,10 +422,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   // V's first tiles go out while the softmax runs (the stages are free)
-  for (int t = 0; t < L::stages - 1; ++t) issue(v_codes, v_scale, t);
+  for (int t = 0; t < L::stages - 1; ++t) issue(v_codes, v_scale, t0 + t);
 
   // ---- softmax over every slot of the row, the cluster's max and sum
-  // combined before any probability is formed ------------------------------
+  // combined before any probability is formed.  Only the walked slots
+  // [w0, w1) are summed: a slot outside them is masked, and its exp(-1e30 -
+  // max) is 0, so each thread keeping the slots jl = tid (mod kThreads) of a
+  // walk over every slot sums what that walk sums, bit for bit -------------
   cg::cluster_group cluster = cg::this_cluster();
   // a row's reduction over the CTA's threads (each its slots jl = tid,
   // tid + kThreads, ...): the lanes by a shuffle tree, the warps in order;
@@ -416,15 +469,17 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   };
+  const int w0 = t0 * L::tile, w1 = min(t1 * L::tile, nloc);
+  const int first = w0 + ((tid - w0) % kThreads + kThreads) % kThreads;
   float m[kMaxRows], sum[kMaxRows];
 #pragma unroll
   for (int r = 0; r < kMaxRows; ++r) m[r] = -INFINITY, sum[r] = 0.0f;
-  for (int jl = tid; jl < nloc; jl += kThreads)
+  for (int jl = first; jl < w1; jl += kThreads)
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r)
       if (r < R) m[r] = fmaxf(m[r], scores[r * scs + jl]);
   reduce_rows(m, red_max, true);
-  for (int jl = tid; jl < nloc; jl += kThreads)
+  for (int jl = first; jl < w1; jl += kThreads)
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r)
       if (r < R) {
@@ -433,7 +488,7 @@ __global__ void __launch_bounds__(kThreads)
         sum[r] += e;
       }
   reduce_rows(sum, red_sum, false);
-  for (int jl = tid; jl < ntiles * L::tile; jl += kThreads)
+  for (int jl = w0 + tid; jl < t1 * L::tile; jl += kThreads)
 #pragma unroll
     for (int r = 0; r < kMaxRows; ++r)
       if (r < R) {
@@ -569,7 +624,8 @@ int launch(const void* q, int64_t q_sb, int64_t q_sh, const void* kc,
            const void* vc, const void* ks, const void* vs, const void* pos,
            void* out, int B, int S, int KV, int G, int q0, int n, int lo,
            int s_all, int window, int ring, int round_p, float scale,
-           int device, cudaStream_t stream, int* plan_out) {
+           int device, cudaStream_t stream, int* plan_out,
+           unsigned long long* tiles_walked) {
   const int kvb = (q0 + n - 1) / G - q0 / G + 1;
   const int rows = min(G, n);
   const Plan pl = plan_for<CODE, BF16, HD>(B, S, kvb, rows, device);
@@ -600,7 +656,7 @@ int launch(const void* q, int64_t q_sb, int64_t q_sh, const void* kc,
                            static_cast<const float*>(ks), static_cast<const float*>(vs),
                            static_cast<const int*>(pos), static_cast<float*>(out), S,
                            KV, G, q0, n, lo, s_all, window, ring, round_p, scale,
-                           pl.sc_len, pl.nsplit);
+                           pl.sc_len, pl.nsplit, tiles_walked);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -610,9 +666,10 @@ int by_hd(int hd, const void* q, int64_t q_sb, int64_t q_sh, const void* kc,
           const void* vc, const void* ks, const void* vs, const void* pos,
           void* out, int B, int S, int KV, int G, int q0, int n, int lo,
           int s_all, int window, int ring, int round_p, float scale, int device,
-          cudaStream_t stream, int* plan_out) {
+          cudaStream_t stream, int* plan_out, unsigned long long* tiles_walked) {
 #define DA_ARGS q, q_sb, q_sh, kc, vc, ks, vs, pos, out, B, S, KV, G, q0, n, lo, \
-                s_all, window, ring, round_p, scale, device, stream, plan_out
+                s_all, window, ring, round_p, scale, device, stream, plan_out,   \
+                tiles_walked
   switch (hd) {
     case 32: return launch<CODE, BF16, MMA, 32>(DA_ARGS);
     case 64: return launch<CODE, BF16, MMA, 64>(DA_ARGS);

@@ -17,7 +17,7 @@ int kv_decode_attention_launch(const void* q, int64_t q_sb, int64_t q_sh,
                                int round_p, int B, int S, int KV, int G, int hd,
                                int q0, int n, int lo, int s_all, int window,
                                int ring, float scale, int device, void* stream,
-                               int* plan_out) {
+                               int* plan_out, void* tiles_walked) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (ct_bf16) return cudaErrorInvalidValue;   // not this library's
@@ -25,7 +25,7 @@ int kv_decode_attention_launch(const void* q, int64_t q_sb, int64_t q_sh,
   by_hd<CODE, false, false>(hd, q, q_sb, q_sh, k_codes, v_codes, k_scale, v_scale, \
                             pos, out, B, S, KV, G, q0, n, lo, s_all, window, ring, \
                             round_p, scale, device, static_cast<cudaStream_t>(stream), \
-                            plan_out)
+                            plan_out, static_cast<unsigned long long*>(tiles_walked))
   switch (code) {
     case kInt8: return DA_CALL(kInt8);
     case kInt4: return DA_CALL(kInt4);

@@ -22,6 +22,12 @@ the compute dtype where ``round_p``, and ``P . V`` in f32.  The kernel sums
 in another order than the plain version (f32 within ~1e-6 of the largest
 value, bf16 within the rounding of the tensor cores' sums).
 
+The slots valid for a row's position form one interval (``valid_interval``),
+and the kernel loads and walks only the tiles of ``TILE`` slots that meet it
+(``walked_tiles``): a masked slot adds 0 to the softmax's sums and to P.V, so
+the output is the one a walk of every slot gives, bit for bit.  A row with
+no valid slot walks every slot, whose average both versions take.
+
 Launches are counted in ``kv_decode_attention.launches``; the plain version
 counts nothing.
 """
@@ -39,16 +45,19 @@ F32 = torch.float32
 NEG_INF = -1e30
 #: the kernel's head sizes and largest query group (the mma's 16 rows)
 HEAD_DIMS, MAX_GROUP = (32, 64, 128), 16
+#: slots a tile of the kernel's walk
+TILE = 64
 
 _P, _I, _I64, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+#: the launcher's argument types (``kv_decode_attention_launch``)
+ARGTYPES = [_P, _I64, _I64] + [_P] * 6 + [_I] * 14 + [_F, _I, _P, _P, _P]
 
 
 def _lib(bf16: bool) -> ctypes.CDLL:
     """The bf16 library (``decode_attention``: the tensor cores) or the f32
     one (``decode_attention_f32``), its launcher's argument types set."""
     lib = _build.load("decode_attention" if bf16 else "decode_attention_f32")
-    lib.kv_decode_attention_launch.argtypes = (
-        [_P, _I64, _I64] + [_P] * 6 + [_I] * 14 + [_F, _I, _P, _P])
+    lib.kv_decode_attention_launch.argtypes = ARGTYPES
     lib.kv_decode_attention_launch.restype = _I
     return lib
 
@@ -67,6 +76,63 @@ def valid_slots(pos: torch.Tensor, S: int, lo: int, s_all: int, window: int,
     if window > 0:
         valid &= (pos[:, None] - j) < window
     return valid
+
+
+def valid_interval(pos: torch.Tensor, S: int, lo: int, s_all: int, window: int,
+                   ring: bool) -> tuple:
+    """(a, b), each (B,) int64: the slots ``[a, b)`` of the block ``[lo, lo +
+    S)`` (slot s is the cache's ``lo + s``) that ``valid_slots`` admits for
+    each row's ``pos``, an interval for every mask: causal ``[0, pos]``,
+    within the window ``[pos - window + 1, pos]``, on a ring of ``s_all``
+    slots ``[0, min(pos, s_all - 1)]`` (a ring's block inside ``[0,
+    s_all)``); ``a >= b`` where none is.  The kernel's ``valid_interval``
+    (``csrc/decode_attention.cuh``) computes the same."""
+    p = pos.long()
+    if ring:
+        g0, g1 = torch.zeros_like(p), p.clamp(max=s_all - 1)
+    else:
+        g0 = p - window + 1 if window > 0 else torch.full_like(p, lo)
+        g1 = p
+    return (g0 - lo).clamp(0, S), (g1 - lo + 1).clamp(0, S)
+
+
+def read_interval(pos: torch.Tensor, S: int, lo: int, s_all: int, window: int,
+                  ring: bool) -> tuple:
+    """(a, b): the slots the kernel reads for each row, ``valid_interval``'s,
+    or every slot ``[0, S)`` for a row with no valid slot (whose softmax
+    averages them all)."""
+    a, b = valid_interval(pos, S, lo, s_all, window, ring)
+    empty = a >= b
+    return a.masked_fill(empty, 0), b.masked_fill(empty, S)
+
+
+def slots_read(pos: torch.Tensor, S: int, lo: int, s_all: int, window: int,
+               ring: bool) -> int:
+    """The slots whose codes and scales the kernel loads, summed over the
+    rows, a KV head's (``ops.kv_decode_attention_io_bytes``'s ``slots``)."""
+    a, b = read_interval(pos, S, lo, s_all, window, ring)
+    return int((b - a).sum())
+
+
+def walked_tiles(pos: torch.Tensor, S: int, lo: int, s_all: int, window: int,
+                 ring: bool, slots_per_cta: int) -> int:
+    """The tiles the kernel walks, summed over the rows and the CTAs of a
+    KV head's split (``plan``'s ``slots_per_cta``, a multiple of ``TILE``):
+    in each CTA the tiles that meet the rows read (``read_interval``)."""
+    a, b = read_interval(pos, S, lo, s_all, window, ring)
+    total = 0
+    for s_begin in range(0, S, slots_per_cta):
+        nloc = min(S, s_begin + slots_per_cta) - s_begin
+        ca, cb = (a - s_begin).clamp(min=0), (b - s_begin).clamp(max=nloc)
+        t = (cb + TILE - 1) // TILE - ca // TILE
+        total += int(torch.where(ca < cb, t, torch.zeros_like(t)).sum())
+    return total
+
+
+def tiles_allocated(batch: int, S: int, kv_heads: int) -> int:
+    """The tiles of every slot the kernel's CTAs hold in one launch: the
+    most it walks."""
+    return batch * kv_heads * -(-S // TILE)
 
 
 def attend_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q0: int,
@@ -192,9 +258,15 @@ def _check(q, cache, pos, bits, q0, G, dtype) -> None:
                          f"{sorted(map(str, devices))}")
 
 
-def _check_kernel(q, cache, pos, bits, G, ct, round_p) -> None:
+def _check_kernel(q, cache, pos, bits, G, ct, round_p, lo=0, s_all=None,
+                  ring=False) -> None:
     """What the kernel takes beyond the function's own checks."""
     hd = q.shape[3]
+    S = cache[0].shape[1]
+    if ring and (lo < 0 or lo + S > (S if s_all is None else s_all)):
+        raise ValueError(f"the decode attention kernel reads a ring's slots "
+                         f"[{lo}, {lo + S}) inside its {s_all}: there the valid "
+                         f"slots form one interval")
     if ct == torch.bfloat16 and not round_p:
         raise ValueError("the decode attention kernel keeps probabilities in "
                          "f32 (round_p=False) in f32 only: bf16 runs on the "
@@ -219,7 +291,7 @@ def _check_kernel(q, cache, pos, bits, G, ct, round_p) -> None:
 
 
 def _call(q, cache, pos, bits, q0, G, lo, s_all, window, ring, round_p, ct,
-          out) -> list:
+          out, tiles_walked=None) -> list:
     """The launcher's call (``out`` None: the plan only) -> [split, shared
     memory bytes, slots a CTA]; raises on a refused launch."""
     B, _, n, hd = q.shape
@@ -234,7 +306,8 @@ def _call(q, cache, pos, bits, q0, G, lo, s_all, window, ring, round_p, ct,
         pos.data_ptr(), None if out is None else out.data_ptr(), code,
         int(ct == torch.bfloat16), int(round_p), B, S, KV, G, hd, q0, n, lo,
         s_all, window, int(ring), hd ** -0.5, q.device.index,
-        torch.cuda.current_stream(q.device).cuda_stream, ctypes.addressof(plan))
+        torch.cuda.current_stream(q.device).cuda_stream, ctypes.addressof(plan),
+        None if tiles_walked is None else tiles_walked.data_ptr())
     if err == -1:
         raise ValueError(f"kv_decode_attention: the scores of {min(G, n)} query "
                          f"heads over {S} slots do not fit a cluster of 8 CTAs")
@@ -256,14 +329,17 @@ def kv_decode_attention(q: torch.Tensor, cache: Sequence, pos: torch.Tensor,
                         bits: int, q0: int, G: int, lo: int = 0,
                         s_all: Optional[int] = None, window: int = 0,
                         ring: bool = False, round_p: bool = True,
-                        dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                        dtype: Optional[torch.dtype] = None,
+                        tiles_walked: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (B, 1, n, hd), the query heads ``[q0, q0 + n)`` of ``G`` a KV head,
     against ``cache`` = (k, v, k_scale, v_scale): at bits 16 the f32 / bf16
     values (B, S, KV, hd) and no scales, at bits 8 / 4 int8 codes (B, S, KV,
     hd or hd / 2) and f32 scales (B, S, KV, 1); ``pos`` (B,) each row's
     position, the cache's slots ``[lo, lo + S)`` of ``s_all`` (default S),
     ``window`` and ``ring`` as in ``valid_slots``; ``dtype`` the compute
-    dtype of a packed cache (default q's).  -> o (B, 1, n * hd) f32."""
+    dtype of a packed cache (default q's); ``tiles_walked`` (an int64 (1,)
+    tensor on q's card, or None) gets the tiles the kernel walks added.
+    -> o (B, 1, n * hd) f32."""
     dtype = q.dtype if dtype is None else dtype
     _check(q, cache, pos, bits, q0, G, dtype)
     s_all = cache[0].shape[1] if s_all is None else s_all
@@ -273,11 +349,16 @@ def kv_decode_attention(q: torch.Tensor, cache: Sequence, pos: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     ct = compute_dtype(cache, bits, dtype)
-    _check_kernel(q, cache, pos, bits, G, ct, round_p)
+    _check_kernel(q, cache, pos, bits, G, ct, round_p, lo, s_all, ring)
+    if tiles_walked is not None and (tiles_walked.dtype != torch.int64
+                                     or tiles_walked.device != q.device):
+        raise ValueError(f"tiles_walked is an int64 tensor on {q.device}, got "
+                         f"{tiles_walked.dtype} on {tiles_walked.device}")
     q = q.to(ct)
     B, _, n, hd = q.shape
     out = torch.empty((B, 1, n, hd), dtype=F32, device=q.device)
-    _call(q, cache, pos, bits, q0, G, lo, s_all, window, ring, round_p, ct, out)
+    _call(q, cache, pos, bits, q0, G, lo, s_all, window, ring, round_p, ct, out,
+          tiles_walked)
     kv_decode_attention.launches += 1
     return out.reshape(B, 1, n * hd)
 

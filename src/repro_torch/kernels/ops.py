@@ -109,13 +109,16 @@ def kv_quant_store_io_bytes(batch: int, kv_heads: int, d: int, bits: int,
 
 def kv_decode_attention_io_bytes(batch: int, s_cache: int, kv_heads: int,
                                  hd: int, heads: int, bits: int,
-                                 q_itemsize: int = 2, cache_itemsize: int = 2):
+                                 q_itemsize: int = 2, cache_itemsize: int = 2,
+                                 slots=None):
     """(read, write) bytes for kv_decode_attention: q (batch, heads, hd), the
-    codes and f32 scales (or, at bits 16, the values) of every slot of the
-    ``kv_heads`` KV heads read, K and V, and the int32 positions in; o
-    (batch, heads, hd) f32 out."""
+    codes and f32 scales (or, at bits 16, the values) of the slots read of
+    the ``kv_heads`` KV heads, K and V, and the int32 positions in; o
+    (batch, heads, hd) f32 out.  ``slots``: the slots read summed over the
+    rows (``decode_attention.slots_read``, which needs the positions on the
+    host); by default every slot of every row, the most the kernel reads."""
     row = {8: hd, 4: hd // 2}.get(bits, hd * cache_itemsize)
-    rows = 2 * batch * s_cache * kv_heads
+    rows = 2 * kv_heads * (batch * s_cache if slots is None else slots)
     read = (batch * heads * hd * q_itemsize + rows * row
             + (rows * 4 if bits != 16 else 0) + batch * 4)
     return read, batch * heads * hd * 4
@@ -249,17 +252,31 @@ def kv_decode_attention(q: torch.Tensor, cache, pos: torch.Tensor, bits: int,
     every slot valid for ``pos`` -> o (B, 1, n * hd) f32.  The reference
     computes it in ``repro.models.layers.decode_attention`` (the dequant,
     then the decode softmax), whose region it deploys as one fused kernel.
-    The bytes charged are those of the KV heads the query heads read."""
+    The bytes charged are those of every slot of the KV heads the query
+    heads read (the positions stay on the device).  Inside an
+    ``obs.device_marks`` scope (obs on at a graph's capture) the kernel adds
+    the tiles it walks into the scope's device counter
+    ``kernels/kv_decode_attention/tiles_walked``, and the wrapper counts
+    ``.../tiles_allocated``, the tiles of every slot, beside it."""
     m = _mode(backend, q)
+    B, _, n, hd = q.shape
+    kv_heads = (q0 + n - 1) // G - q0 // G + 1
+    walked = None
+    if m == "cuda":
+        walked = obs.device_counter("kernels/kv_decode_attention/tiles_walked",
+                                    q.device, bits=bits)
     with obs.span("kernels/kv_decode_attention", mode=m, bits=bits):
         if m == "ref":
             out = decode_attention.kv_decode_attention_plain(
                 q, cache, pos, bits, q0, G, lo, s_all, window, ring, round_p, dtype)
         else:
             out = decode_attention.kv_decode_attention(
-                q, cache, pos, bits, q0, G, lo, s_all, window, ring, round_p, dtype)
-    B, _, n, hd = q.shape
-    kv_heads = (q0 + n - 1) // G - q0 // G + 1
+                q, cache, pos, bits, q0, G, lo, s_all, window, ring, round_p, dtype,
+                walked)
+    if walked is not None:
+        obs.counter_inc("kernels/kv_decode_attention/tiles_allocated",
+                        decode_attention.tiles_allocated(B, cache[0].shape[1],
+                                                         kv_heads), bits=bits)
     _record("kv_decode_attention", m,
             *kv_decode_attention_io_bytes(
                 B, cache[0].shape[1], kv_heads, hd, n, bits, q.element_size(),

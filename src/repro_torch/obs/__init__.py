@@ -19,13 +19,15 @@ Typical use::
 
 Disabled (the default unless ``REPRO_OBS=1``), every helper is a single
 flag test — see ``instrument``.  ``device_mark`` is the one call meant for
-code a CUDA graph captures: it times named parts of the replayed step.
+code a CUDA graph captures: it times named parts of the replayed step
+(and ``device_counter`` hands a kernel a counter on the device in the same
+scope).
 """
 # NOTE: ``regress`` is deliberately not imported here — it is a ``-m``
 # entry point (importing it from the package __init__ would make runpy
 # warn about double execution); use ``from repro_torch.obs import regress``.
 from . import instrument, metrics, sink, trace
-from .instrument import (DeviceMarks, counter_inc, device_mark,
+from .instrument import (DeviceMarks, counter_inc, device_counter, device_mark,
                          device_marks, disable, disabled_scope, enable,
                          enabled, enabled_scope, gauge_set, hist_observe,
                          instrumented, registry, span, span_table, tracer)
@@ -35,7 +37,7 @@ from .trace import Span, SpanRecord, Tracer
 
 __all__ = [
     "Counter", "DeviceMarks", "Gauge", "Histogram", "Registry", "Snapshot",
-    "Span", "SpanRecord", "Tracer", "counter_inc", "device_mark",
+    "Span", "SpanRecord", "Tracer", "counter_inc", "device_counter", "device_mark",
     "device_marks", "disable", "disabled_scope",
     "enable", "enabled", "enabled_scope", "gauge_set", "hist_observe",
     "instrument", "instrumented", "metrics", "read_summary", "registry",

@@ -15,7 +15,9 @@ code: inside a :func:`device_marks` scope it records a timing event on the
 current stream, which a CUDA graph's capture turns into an event-record
 node that fires at every replay.  Consecutive marks bound named intervals
 of the device's work (``DeviceMarks.table``).  Outside such a scope it is
-one flag test.
+one flag test.  In the same scope :func:`device_counter` hands a kernel a
+counter on the device, zeroed where it is first asked for (in a graph, at
+every replay), which the kernel adds to and ``DeviceMarks.counts`` reads.
 
 Enable globally with ``REPRO_OBS=1`` in the environment, or per-scope::
 
@@ -211,18 +213,20 @@ def span_table(names: Sequence[str], interval_ms: Sequence[float]
 
 
 class DeviceMarks:
-    """The marks recorded in one :func:`device_marks` scope, in order, and
-    the closing event the scope records last.
+    """The marks recorded in one :func:`device_marks` scope, in order, the
+    closing event the scope records last, and the scope's device counters.
 
     Each mark's event is recorded once (at capture, in a graph) and holds
-    the time of its latest firing; ``table`` reads the intervals once the
-    closing event has completed."""
+    the time of its latest firing; ``table`` reads the intervals and
+    ``counts`` the counters once the closing event has completed."""
 
     def __init__(self, event: Callable = _timing_event):
         self._event = event
         self.names: List[str] = []
         self.events: list = []
         self.end = None
+        self.counters: Dict[Tuple[str, tuple], object] = {}
+        self._side = None
 
     def mark(self, name: str) -> None:
         ev = self._event()
@@ -240,6 +244,31 @@ class DeviceMarks:
         return span_table(self.names, [a.elapsed_time(b)
                                        for a, b in zip(evs, evs[1:])])
 
+    def counter(self, name: str, device, **labels):
+        """The int64 (1,) counter ``name{labels}`` on ``device``, zeroed here
+        when first asked for, the same tensor after."""
+        key = (name, tuple(sorted(labels.items())))
+        if key not in self.counters:
+            import torch
+            self.counters[key] = torch.zeros(1, dtype=torch.int64, device=device)
+        return self.counters[key]
+
+    def counts(self) -> Dict[Tuple[str, tuple], int]:
+        """Each counter's value, by (name, sorted labels).  A card's are
+        copied on a stream of their own, which waits on nothing the step's
+        stream has queued since (the closing event has completed)."""
+        out = {}
+        for key, t in self.counters.items():
+            if t.device.type != "cuda":
+                out[key] = int(t.item())
+                continue
+            import torch
+            if self._side is None:
+                self._side = torch.cuda.Stream(t.device)
+            with torch.cuda.stream(self._side):
+                out[key] = int(t.item())
+        return out
+
 
 @contextmanager
 def device_marks(event: Callable = _timing_event) -> Iterator[DeviceMarks]:
@@ -254,6 +283,15 @@ def device_marks(event: Callable = _timing_event) -> Iterator[DeviceMarks]:
         rec.close()
     finally:
         _marks = prev
+
+
+def device_counter(name: str, device, **labels):
+    """The scope's counter ``name{labels}`` on ``device`` (see
+    ``DeviceMarks.counter``) for a kernel to add to, or None outside a
+    :func:`device_marks` scope."""
+    if _marks is None:
+        return None
+    return _marks.counter(name, device, **labels)
 
 
 def device_mark(name: str) -> None:

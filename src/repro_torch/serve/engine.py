@@ -20,8 +20,9 @@ Every replay times itself on the device: a pair of CUDA events around the
 token copy and the replay, read once they have completed (``query``; a
 wait only where the step's ring of pairs would overwrite one not yet read),
 into a record of the process's replays (``replay_record``).  With obs on at capture, the graph
-also holds the ``obs.device_mark`` events of ``decode_step`` and each
-replay publishes its span table.
+also holds the ``obs.device_mark`` events of ``decode_step`` and zeroes its
+``obs.device_counter``s, and each replay publishes its span table and adds
+the counters (the decode attention's tiles walked).
 """
 from __future__ import annotations
 
@@ -128,6 +129,8 @@ class ReplayRecord:
             for name, ms in r.marks.table().items():
                 r.registry.histogram("decode/span_ms", span=name,
                                      **r.labels).observe(ms)
+            for (name, labels), n in r.marks.counts().items():
+                r.registry.counter(name, **dict(labels)).inc(n)
 
     def view(self) -> dict:
         """The replays held, oldest first: ``first`` (the ordinal of the
@@ -172,8 +175,9 @@ class GraphedDecodeStep:
     replay, and not at capture.  The capture's ``kernels/*`` counters go to
     a private registry and are added to obs's at every replay while obs is
     on (the capture's spans are dropped).  With obs on at capture, the
-    graph also records ``decode_step``'s ``obs.device_mark`` events, and each
-    replay publishes ``decode/span_ms{span=}``.  Every replay enters
+    graph also records ``decode_step``'s ``obs.device_mark`` events and
+    zeroes its ``obs.device_counter``s, and each replay publishes
+    ``decode/span_ms{span=}`` and adds the counters.  Every replay enters
     ``replay_record``; with obs on also ``serve/replay_ms``,
     ``serve/replay_gap_ms``, ``serve/step_host_ms`` and a ``serve/step`` span.
     """

@@ -13,11 +13,15 @@ to the compute dtype and the decode softmax op by op.  Here, on the CPU:
 * a head block cut mid-group (the ``index_select`` route) against the
   reference's output heads (``wo`` the identity);
 * the plain route bit-equal to the composition it replaced (dequant,
-  cast, ``_attend``), and the wrapper's checks, byte charge and series.
+  cast, ``_attend``), and the wrapper's checks, byte charge and series;
+* ``valid_interval``, the interval of slots the kernel walks, against the
+  support of ``valid_slots``, and the tiles and slots the kernel's walk
+  counts.
 
 The card's kernel is held against the plain version by ``chip_smoke.py``'s
-``kvpack`` phase.  Tolerances: f32 within 1e-4 (the serve tests' rule),
-bf16 within 3e-2 of the largest reference value.
+``kvpack`` phase and ``tests/test_torch_decode_attention_card.py``.
+Tolerances: f32 within 1e-4 (the serve tests' rule), bf16 within 3e-2 of
+the largest reference value.
 """
 import dataclasses
 
@@ -259,7 +263,8 @@ def test_wrapper_rejects(case):
 def test_kernel_checks_refuse_what_the_kernel_does_not_take():
     """The kernel's own limits (checked before a launch): hd 32 / 64 / 128,
     G <= 16, int32 positions, a contiguous cache, bf16 probabilities
-    rounded (the tensor cores take P in bf16)."""
+    rounded (the tensor cores take P in bf16), a ring's block inside the
+    ring (where its valid slots form one interval)."""
     c = layers.KVCache(torch.zeros(1, 8, 1, 32, dtype=torch.int8),
                        torch.zeros(1, 8, 1, 32, dtype=torch.int8),
                        torch.ones(1, 8, 1, 1), torch.ones(1, 8, 1, 1))
@@ -267,6 +272,11 @@ def test_kernel_checks_refuse_what_the_kernel_does_not_take():
     f32, bf16 = torch.float32, torch.bfloat16
     dattn._check_kernel(torch.zeros(1, 1, 16, 32), c, pos, 8, 16, f32, False)
     dattn._check_kernel(torch.zeros(1, 1, 16, 32), c, pos, 8, 16, bf16, True)
+    dattn._check_kernel(torch.zeros(1, 1, 4, 32), c, pos, 8, 4, bf16, True, 8, 16,
+                        True)
+    with pytest.raises(ValueError, match="ring"):
+        dattn._check_kernel(torch.zeros(1, 1, 4, 32), c, pos, 8, 4, bf16, True, 12,
+                            16, True)
     with pytest.raises(ValueError):
         dattn._check_kernel(torch.zeros(1, 1, 4, 32), c, pos, 8, 4, bf16, False)
     for q, cache, p, G in ((torch.zeros(1, 1, 4, 48), c, pos, 4),
@@ -277,3 +287,69 @@ def test_kernel_checks_refuse_what_the_kernel_does_not_take():
                                        [:, :, :1]), pos, 4)):
         with pytest.raises(ValueError):
             dattn._check_kernel(q, cache, p, 8, G, bf16, True)
+
+
+#: (S, lo, s_all, window, ring): a causal cache, a window, a ring before
+#: it wraps, blocks [lo, lo + S) of a larger cache (a rank's share) under
+#: each mask, a ring past its wrap, and a block no position below lo
+#: reaches
+INTERVALS = {"causal": (40, 0, 40, 0, False),
+             "window": (40, 0, 40, 12, False),
+             "ring": (64, 0, 64, 64, True),
+             "lo_block": (24, 32, 96, 0, False),
+             "lo_window": (24, 32, 96, 20, False),
+             "lo_ring": (24, 32, 96, 96, True),
+             "wrapped_ring": (16, 0, 16, 16, True),
+             "empty_block": (24, 200, 256, 0, False)}
+
+
+@pytest.mark.parametrize("case", sorted(INTERVALS))
+def test_valid_interval_is_the_support_of_valid_slots(case):
+    """``valid_interval`` against ``valid_slots`` at every position from
+    before the cache to past a wrap; ``slots_read`` and ``walked_tiles``
+    against the mask itself, slot by slot and tile by tile."""
+    S, lo, s_all, window, ring = INTERVALS[case]
+    pos = torch.arange(-3, s_all + 90, dtype=torch.int32)
+    mask = dattn.valid_slots(pos, S, lo, s_all, window, ring)
+    a, b = dattn.valid_interval(pos, S, lo, s_all, window, ring)
+    s = torch.arange(S)[None, :]
+    inside = (s >= a[:, None]) & (s < b[:, None])
+    assert torch.equal(inside, mask), case
+    assert torch.equal(a < b, inside.any(1))
+    if case == "empty_block":
+        assert not bool(mask[pos < lo].any()) and bool((a >= b)[pos < lo].all())
+    # the kernel reads the interval, or every slot of a row with none
+    read = torch.where(inside.any(1)[:, None], inside, torch.ones_like(inside))
+    assert dattn.slots_read(pos, S, lo, s_all, window, ring) == int(read.sum())
+    for sc in (dattn.TILE, 2 * dattn.TILE):       # a CTA's slots, split or whole
+        want = 0
+        for s0 in range(0, S, sc):
+            cta = read[:, s0:min(S, s0 + sc)]
+            want += sum(int(cta[:, t:t + dattn.TILE].any(1).sum())
+                        for t in range(0, cta.shape[1], dattn.TILE))
+        assert dattn.walked_tiles(pos, S, lo, s_all, window, ring, sc) == want
+    assert dattn.tiles_allocated(len(pos), S, 3) == 3 * len(pos) * -(-S // dattn.TILE)
+
+
+def test_io_bytes_charge_the_slots_read():
+    """``slots`` replaces every slot of every row in the byte charge; the
+    card's partial-position access case walks the same bytes of the cache
+    (``access._valid_rows_bytes``) as its charge counts."""
+    from repro_torch.analysis import access
+    full = ops.kv_decode_attention_io_bytes(8, 256, 8, 128, 32, 8)
+    assert ops.kv_decode_attention_io_bytes(8, 256, 8, 128, 32, 8,
+                                            slots=8 * 256) == full
+    r, w = ops.kv_decode_attention_io_bytes(8, 256, 8, 128, 32, 4, slots=100)
+    assert (r, w) == (8 * 32 * 128 * 2 + 2 * 8 * 100 * (64 + 4) + 8 * 4, full[1])
+    B, S, KV, Dh = access.STORE_SHAPE
+    pos = torch.tensor(access.PARTIAL_POS, dtype=torch.int32)
+    for bits in access.GRID_BITS:
+        cd = Dh if bits == 8 else Dh // 2
+        codes = torch.zeros(B, S, KV, cd, dtype=torch.int8)
+        scales = torch.ones(B, S, KV, 1)
+        q = torch.zeros(B, 1, KV * 4, Dh, dtype=torch.bfloat16)
+        slots = dattn.slots_read(pos, S, 0, S, 0, False)
+        r, _ = ops.kv_decode_attention_io_bytes(B, S, KV, Dh, KV * 4, bits, slots=slots)
+        walked = (q.numel() * 2 + pos.numel() * 4
+                  + access._valid_rows_bytes((q, codes, codes, scales, scales, pos)))
+        assert walked == r and slots < B * S

@@ -195,6 +195,42 @@ def test_device_mark_is_a_no_op_outside_a_recorder():
     assert obs.instrument._marks is None
 
 
+def test_device_counter_is_the_scopes_and_none_outside():
+    assert obs.device_counter("k/n", "cpu") is None
+    dev = FakeDevice()
+    with obs.device_marks(lambda: FakeEvent(dev)) as marks:
+        c = obs.device_counter("k/n", "cpu", bits=8)
+        assert c.dtype == torch.int64 and c.tolist() == [0]
+        c += 5
+        assert obs.device_counter("k/n", "cpu", bits=8) is c
+        obs.device_counter("k/n", "cpu", bits=4).add_(2)
+    assert obs.device_counter("k/n", "cpu") is None
+    assert marks.counts() == {("k/n", (("bits", 8),)): 5,
+                              ("k/n", (("bits", 4),)): 2}
+
+
+def test_record_adds_the_marks_counters_while_on():
+    """Each replay's counter value (the graph zeroes it and its kernels add
+    to it) is added to obs's counter when the replay is read, obs on."""
+    dev, rec = FakeDevice(), engine.ReplayRecord(bound=8)
+    ring = _ring(dev, 2)
+    with obs.device_marks(lambda: FakeEvent(dev)) as marks:
+        obs.device_mark("a")
+        walked = obs.device_counter("kernels/x/tiles_walked", "cpu", bits=8)
+    dev.done = dev.records
+    with obs.disabled_scope():
+        walked.fill_(7)
+        _replay(rec, dev, ring, 0, 0.0, 4.0, registry=None, marks=marks)
+        rec.resolve()
+    with obs.enabled_scope() as (reg, _):
+        for n in range(1, 4):
+            walked.fill_(10 * n)
+            _replay(rec, dev, ring, n, 10.0 * n, 4.0, registry=obs.registry(),
+                    marks=marks)
+            rec.resolve()
+    assert reg.counter_value("kernels/x/tiles_walked", bits=8) == 60
+
+
 def _smoke(arch, bits=8):
     cfg = base.load_smoke(arch)
     rc = base.RunConfig(seq_len=32, global_batch=2, kind="decode",

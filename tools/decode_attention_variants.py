@@ -9,9 +9,10 @@ copy from device memory (the ring's stages keep what they hold),
 product from the tile (no mma, no score written).  Each variant computes
 garbage; only its time is read.  Then times each (CUDA events around
 back-to-back calls) at granite-8b's serve shape and at one granite-8b
-layer of 32,768 slots, int8 and int4, bf16, through the port's own
-wrapper with the library swapped.  A part whose removal saves little is
-not what bounds the kernel.
+layer of 32,768 slots, every slot valid, and at granite's chat batch at
+position 511 of 2,048 and the 32k layer at 29,696 (``chip_smoke.DA_TIMED``),
+int8 and int4, bf16, through the port's own wrapper with the library
+swapped.  A part whose removal saves little is not what bounds the kernel.
 
     python3 tools/decode_attention_variants.py        # on a machine with the card
 
@@ -34,7 +35,7 @@ import chip_smoke as cs  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import decode_attention as da  # noqa: E402
 
-SHAPES = ("granite_serve", "granite_32k")
+SHAPES = ("granite_serve", "granite_32k", "granite_chat_p511", "granite_32k_p29696")
 
 
 def variants(src: str) -> dict:
@@ -44,11 +45,11 @@ def variants(src: str) -> dict:
             raise SystemExit(f"the source no longer holds {old!r}")
         return src.replace(old, new)
     return {"base": src,
-            "noload": cut("    if (tile < ntiles)\n      issue_tile",
-                          "    if (tile < 0)\n      issue_tile"),
-            "nodeq": cut("    if (jj < rows) dequant8<CODE, HD>(row, sc[jj], cu, v);",
+            "noload": cut("    if (t < t1)\n      issue_tile",
+                          "    if (t < 0)\n      issue_tile"),
+            "nodeq": cut("    if (FULL || (jj >= r0 && jj < r1)) dequant8<CODE, HD>(row, sc[jj], cu, v);",
                          "    if (jj < 0) dequant8<CODE, HD>(row, sc[jj], cu, v);"),
-            "nowork": cut("      work(i);\n", "      if (ntiles < 0) work(i);\n")}
+            "nowork": cut("      work(i);\n", "      if (t1 < 0) work(i);\n")}
 
 
 def build(out: Path) -> dict:
@@ -74,9 +75,7 @@ def build(out: Path) -> dict:
         lib = ctypes.CDLL(str(out / name / "lib.so"))
         lib.kernel_error_string.argtypes = [ctypes.c_int]
         lib.kernel_error_string.restype = ctypes.c_char_p
-        lib.kv_decode_attention_launch.argtypes = (
-            [da._P, da._I64, da._I64] + [da._P] * 6 + [da._I] * 14
-            + [da._F, da._I, da._P, da._P])
+        lib.kv_decode_attention_launch.argtypes = da.ARGTYPES
         lib.kv_decode_attention_launch.restype = da._I
         libs[name] = lib
     return libs
@@ -93,12 +92,13 @@ def main() -> int:
     real = da._lib
     try:
         for label in SHAPES:
-            B, S, KV, G, hd, window = cs.DA_TIMED[label]
+            B, S, KV, G, hd, window, at = cs.DA_TIMED[label]
             for bits in (8, 4):
                 cache = cs.da_inputs(dev, rng, B, S, KV, hd, bits, torch.bfloat16)
                 q = torch.from_numpy(rng.standard_normal((B, 1, KV * G, hd)).astype(
                     np.float32)).to(dev).to(torch.bfloat16)
-                pos = torch.full((B,), S - 1, dtype=torch.int32, device=dev)
+                pos = torch.full((B,), S - 1 if at is None else at,
+                                 dtype=torch.int32, device=dev)
                 for name, lib in libs.items():
                     da._lib = lambda bf16, lib=lib: lib
                     out["ms"][f"{label}_int{bits}_{name}"] = cs.stream_ms(
