@@ -27,7 +27,7 @@ ROOT = Path(__file__).resolve().parent.parent
 LOWER = {16: 8, 8: 4}
 
 
-def control_tokens(cfg: dict, traffic, weights, reqs: list, seed: int, device,
+def control_tokens(cell, traffic, weights, reqs: list, seed: int, device,
                    bits: int) -> list:
     """The token the program at ``bits`` puts first at each served position
     of each request, teacher-forced on its prompt and served tokens, in
@@ -35,9 +35,10 @@ def control_tokens(cfg: dict, traffic, weights, reqs: list, seed: int, device,
     import numpy as np
     import torch
     from bench import check, system
+    cfg = cell.config
     low = copy.copy(traffic)
     low.kv_bits = bits
-    server = system.Server(cfg, low, weights, device)
+    server = system.Server(cell.bridge, cfg, low, weights, device)
     hist = check.history_fn(cfg, low, seed, device)
     if hist is not None:
         server.fill_history(hist)
@@ -101,10 +102,10 @@ def near_ties(g, reqs: list, margins: list) -> dict:
 def readings(cell, seed: int, seconds: float, control: bool, device: str) -> dict:
     import torch
     from bench import check, inputs, lockstep, system
-    cfg = cell.config
+    cfg, arch = cell.config, cell.arch
     traffic = cell.generator.make(cell.traffic, cfg["vocab"], seed)
-    weights = inputs.weights(cfg, seed, device)
-    server = system.Server(cfg, traffic, weights, device)
+    weights = inputs.weights(cfg, arch, seed, device)
+    server = system.Server(cell.bridge, cfg, traffic, weights, device)
     hist = check.history_fn(cfg, traffic, seed, device)
     if hist is not None:
         server.fill_history(hist)
@@ -124,10 +125,11 @@ def readings(cell, seed: int, seconds: float, control: bool, device: str) -> dic
     ctrl = None
     if control:
         bits = LOWER[traffic.kv_bits]
-        ctrl = control_tokens(cfg, traffic, weights, reqs, seed, device, bits)
+        ctrl = control_tokens(cell, traffic, weights, reqs, seed, device, bits)
         row["control_bits"] = bits
-    margins = [[] for _ in reqs] if cfg["family"] == "moe" else None
-    lg = check.reference_logits(cfg, weights, reqs, traffic, seed, device, margins)
+    margins = [[] for _ in reqs] if arch.routes(cfg) else None
+    lg = check.reference_logits(cfg, arch, weights, reqs, traffic, seed, device,
+                                margins)
     g = check.gaps(lg, reqs, [r.served for r in reqs])
     row["program"] = check.numbers(g)
     if ctrl is not None:

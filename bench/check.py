@@ -74,9 +74,9 @@ def history_fn(cfg: dict, traffic, seed: int, device):
                                            traffic.seq_len, device)
 
 
-def reference_logits(cfg: dict, weights: dict, reqs: list, traffic, seed: int,
+def reference_logits(cfg: dict, arch, weights: dict, reqs: list, traffic, seed: int,
                      device, margins=None) -> List[torch.Tensor]:
-    return reference.logits(cfg, weights, [turn(r, device) for r in reqs],
+    return reference.logits(cfg, arch, weights, [turn(r, device) for r in reqs],
                             traffic.kv_bits, history_fn(cfg, traffic, seed, device),
                             margins)
 
@@ -92,7 +92,7 @@ def numbers(g: np.ndarray) -> Dict[str, float]:
     return {"gap_max": float(g.max()), "gap_mean": float(g.mean())}
 
 
-def compare(cfg: dict, weights: dict, requests: list, traffic, seed: int,
+def compare(cfg: dict, arch, weights: dict, requests: list, traffic, seed: int,
             device) -> dict:
     """The run's comparison -> the numbers, the sample's size, whether every
     sampled request was served in full with valid tokens."""
@@ -101,7 +101,7 @@ def compare(cfg: dict, weights: dict, requests: list, traffic, seed: int,
                 for r in reqs)
     if not reqs or not whole:
         return {"numbers": {}, "requests": len(reqs), "tokens": 0, "whole": whole}
-    lg = reference_logits(cfg, weights, reqs, traffic, seed, device)
+    lg = reference_logits(cfg, arch, weights, reqs, traffic, seed, device)
     g = gaps(lg, reqs, [r.served for r in reqs])
     return {"numbers": numbers(g), "requests": len(reqs), "tokens": int(g.size),
             "whole": True}

@@ -3,9 +3,10 @@
 Made on the card with a ``torch.Generator`` there, in the type they are
 served in (bf16), in a few large calls: the weights of each initial
 distribution share one flat buffer, filled by ``normal_`` in chunks, and
-every leaf is a view into it.  The distributions are the port's initial
-ones (the JAX package's): N(0, 0.02) for the embedding, N(0, 1 / fan_in)
-for every projection, ones for the norms.
+every leaf is a view into it.  The leaves and their distributions are the
+architecture's (``arch/<arch>.py``'s ``layout``): the port's initial ones,
+such as N(0, 0.02) for the embedding, N(0, 1 / fan_in) for every
+projection, ones for the norms.
 
 A session's history is its keys and values (bf16, post-RoPE), drawn per
 layer from its own stream of the seed, so that the reference can draw any
@@ -15,7 +16,7 @@ Nothing here imports the program.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -32,41 +33,12 @@ def generator(seed: int, device, *tags: int) -> torch.Generator:
     return g
 
 
-def layout(cfg: dict) -> List[Tuple[str, tuple, object]]:
-    """(name, shape, init) of every weight: init is a std (normal) or
-    ``"ones"``.  Names follow the port's module tree."""
-    d, V, L = cfg["d_model"], cfg["vocab"], cfg["n_layers"]
-    H, KV, hd, ff = cfg["n_heads"], cfg["n_kv_heads"], cfg["head_dim"], cfg["d_ff"]
-    s = d ** -0.5
-    out = [("embed.table", (V, d), 0.02)]
-    if not cfg.get("tie_embeddings", False):
-        out.append(("embed.unembed", (d, V), s))
-    out.append(("embed.final_norm", (d,), "ones"))
-    for i in range(L):
-        p = f"layers.{i}."
-        out += [(p + "ln1", (d,), "ones"),
-                (p + "attn.wq", (d, H * hd), s), (p + "attn.wk", (d, KV * hd), s),
-                (p + "attn.wv", (d, KV * hd), s),
-                (p + "attn.wo", (H * hd, d), (H * hd) ** -0.5),
-                (p + "ln2", (d,), "ones")]
-        if cfg["family"] == "dense":
-            out += [(p + "mlp.w_gate", (d, ff), s), (p + "mlp.w_up", (d, ff), s),
-                    (p + "mlp.w_down", (ff, d), ff ** -0.5)]
-        elif cfg["family"] == "moe":
-            E = cfg["n_experts"]
-            out += [(p + "moe.router", (d, E), s),
-                    (p + "moe.w_gate", (E, d, ff), s), (p + "moe.w_up", (E, d, ff), s),
-                    (p + "moe.w_down", (E, ff, d), ff ** -0.5)]
-        else:
-            raise ValueError(f"the benchmark serves dense and moe models, not "
-                             f"{cfg['family']!r}")
-    return out
-
-
-def weights(cfg: dict, seed: int, device) -> Dict[str, torch.Tensor]:
-    """Every weight of ``cfg`` in bf16 on ``device``, drawn from ``seed``."""
+def weights(cfg: dict, arch, seed: int, device) -> Dict[str, torch.Tensor]:
+    """Every weight of ``cfg`` in bf16 on ``device``, drawn from ``seed``:
+    the rows of ``arch.layout(cfg)`` (name, shape, init), where init is a
+    std (normal) or ``"ones"``."""
     dtype = torch.bfloat16
-    leaves = layout(cfg)
+    leaves = arch.layout(cfg)
     groups: Dict[object, list] = {}
     for name, shape, init in leaves:
         groups.setdefault(init, []).append((name, shape))

@@ -7,12 +7,11 @@ tensor the program made, and works out again whatever the program derives
 inputs, each layer's cast to f32 as it is used; activations, scores and
 softmax are f32, with TF32 off (``fp32_matmuls``).
 
-The model: token embedding; per layer RMSNorm, GQA self-attention with
-interleaved-pair RoPE (head ``h`` reads KV head ``h // (H / KV)``), causal
-over the session's cache, the output projection, a residual; RMSNorm, a
-SwiGLU MLP or a dropless top-k mixture of SwiGLU experts (router softmax
-in f32, the top k renormalised, the lower expert first on a tie), a
-residual; a final RMSNorm and the unembedding.
+The model: token embedding; each layer as its architecture's file
+(``arch/<arch>.py``, which the configuration names) computes it, from the
+helpers here (RMSNorm, interleaved-pair RoPE, the packed cache, GQA
+attention, SwiGLU, a dropless top-k mixture); a final RMSNorm and the
+unembedding.
 
 The configuration states a KV cache packed to ``kv_bits``: each cached row
 (one position, one KV head, hd values) is quantized symmetrically with an
@@ -50,7 +49,6 @@ def fp32_matmuls():
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps) * w.to(F32)
-
 
 
 def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
@@ -135,15 +133,14 @@ def layer_weights(w: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]
     return {k[len(p):]: t.to(F32) for k, t in w.items() if k.startswith(p)}
 
 
-def logits(cfg: dict, w: Dict[str, torch.Tensor], turns: List[Turn], kv_bits: int,
-           history: Optional[Callable[[int], tuple]] = None,
+def logits(cfg: dict, arch, w: Dict[str, torch.Tensor], turns: List[Turn],
+           kv_bits: int, history: Optional[Callable[[int], tuple]] = None,
            margins: Optional[List[list]] = None) -> List[torch.Tensor]:
-    """f32 logits (T, V) of each turn.  ``history(layer)`` -> bf16 K, V
-    (rows, slots, KV, hd): a turn's session holds ``K[row, :start]``.
-    ``margins`` (a MoE), where given, gets one list a turn of each layer's
-    router margins (``moe``)."""
-    H, KV, hd = cfg["n_heads"], cfg["n_kv_heads"], cfg["head_dim"]
-    eps, theta = cfg["norm_eps"], cfg["rope_theta"]
+    """f32 logits (T, V) of each turn, each layer by ``arch.layer``.
+    ``history(layer)`` -> bf16 K, V (rows, slots, KV, hd): a turn's session
+    holds ``K[row, :start]``.  ``margins`` (a MoE), where given, gets one
+    list a turn of each layer's router margins (``moe``)."""
+    eps = cfg["norm_eps"]
     xs, poss = [], []
     for t in turns:
         poss.append(t.start + torch.arange(t.tokens.shape[0], device=t.tokens.device))
@@ -153,23 +150,12 @@ def logits(cfg: dict, w: Dict[str, torch.Tensor], turns: List[Turn], kv_bits: in
             lw = layer_weights(w, i)
             hist = history(i) if any(t.start for t in turns) else None
             for n, t in enumerate(turns):
-                x, pos = xs[n], poss[n]
-                T = x.shape[0]
-                h = rmsnorm(x, lw["ln1"], eps)
-                q = rope((h @ lw["attn.wq"]).reshape(T, H, hd), pos, theta)
-                k = packed(rope((h @ lw["attn.wk"]).reshape(T, KV, hd), pos, theta),
-                           kv_bits)
-                v = packed((h @ lw["attn.wv"]).reshape(T, KV, hd), kv_bits)
+                past = None
                 if t.start:
-                    k = torch.cat([packed(hist[0][t.row, :t.start], kv_bits), k])
-                    v = torch.cat([packed(hist[1][t.row, :t.start], kv_bits), v])
-                x = x + attention(q, k, v, pos) @ lw["attn.wo"]
-                h = rmsnorm(x, lw["ln2"], eps)
-                if cfg["family"] == "moe":
-                    x = x + moe(h, lw, cfg, None if margins is None else margins[n])
-                else:
-                    x = x + swiglu(h, lw["mlp.w_gate"], lw["mlp.w_up"], lw["mlp.w_down"])
-                xs[n] = x
+                    past = (packed(hist[0][t.row, :t.start], kv_bits),
+                            packed(hist[1][t.row, :t.start], kv_bits))
+                xs[n] = arch.layer(cfg, i, lw, xs[n], poss[n], kv_bits, past,
+                                   None if margins is None else margins[n])
             del lw, hist
         out = w.get("embed.unembed")
         out = (w["embed.table"].T if out is None else out).to(F32)

@@ -1,14 +1,14 @@
 """The window's replays, as the program recorded them on the device.
 
-``repro_torch.serve.engine.replay_record()`` holds every replay of a
-captured decode step in the process, by ordinal: its device time (a CUDA
-event before the token copy to one after the replay) and the gap from the
-previous replay's end, the device waiting on the host.  ``run.py`` runs
-``WARM_UP`` steps, then the window, so the window's replays are ordinals
-``[WARM_UP, WARM_UP + steps)``.  Those replays and the gaps between them
-tile the window on the device's clock; where they do not come within
-``TILE`` of the host's window, they are not the window's, and nothing is
-read.
+The program's ``serve.engine.replay_record()`` (``system.replay_record``)
+holds every replay of a captured decode step in the process, by ordinal:
+its device time (a CUDA event before the token copy to one after the
+replay) and the gap from the previous replay's end, the device waiting on
+the host.  ``run.py`` runs ``WARM_UP`` steps, then the window, so the
+window's replays are ordinals ``[WARM_UP, WARM_UP + steps)``.  Those
+replays and the gaps between them tile the window on the device's clock;
+where they do not come within ``TILE`` of the host's window, they are not
+the window's, and nothing is read.
 """
 from __future__ import annotations
 
@@ -30,8 +30,8 @@ def window(ctx) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         import torch
         if not torch.cuda.is_available():
             return None
-        from repro_torch.serve import engine
-        rec = engine.replay_record()
+        from bench import system
+        rec = system.replay_record()
     except (ImportError, AttributeError):
         return None
     steps, seconds = ctx["window"]["steps"], ctx["window"]["seconds"]

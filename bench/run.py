@@ -75,13 +75,14 @@ def end_to_end(ls, steps: list, t0: float, t_end: float, setup_s: float) -> dict
             "setup_s": (setup_s, "s")}
 
 
-def window_counts(ls, cfg: dict, traffic) -> dict:
+def window_counts(ls, cfg: dict, arch, traffic) -> dict:
     """The window's steps, tokens and least time by the peaks."""
     from bench import counts
     least, steps = 0.0, 0
     for b in ls.batches:
         for pos in ls.positions(b):
-            least += counts.step_counts(cfg, pos, traffic.seq_len, traffic.kv_bits)["least_s"]
+            least += counts.step_counts(cfg, arch, pos, traffic.seq_len,
+                                        traffic.kv_bits)["least_s"]
         steps += b.steps
     return {"steps": steps, "generated": sum(b.generated for b in ls.batches),
             "batch": traffic.B, "least_s": least}
@@ -100,11 +101,11 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda")
         if cuda:
             torch.cuda.synchronize()
         marks.append((name, time.time() - T_PROCESS))
-    cfg = cell.config
+    cfg, arch = cell.config, cell.arch
     traffic = cell.generator.make(cell.traffic, cfg["vocab"], seed)
-    weights = inputs.weights(cfg, seed, device)
+    weights = inputs.weights(cfg, arch, seed, device)
     mark("weights")
-    server = system.Server(cfg, traffic, weights, device)
+    server = system.Server(cell.bridge, cfg, traffic, weights, device)
     mark("engine_and_capture")
     hist = check.history_fn(cfg, traffic, seed, device)
     if hist is not None:
@@ -121,8 +122,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda")
     steps = ls.run_until(t0 + seconds)
     t_end = time.perf_counter()
     e2e = end_to_end(ls, steps, t0, t_end, setup_s)
-    ctx = {"cfg": cfg, "traffic": traffic, "window": window_counts(ls, cfg, traffic),
-           "profile": None}
+    ctx = {"cfg": cfg, "traffic": traffic,
+           "window": window_counts(ls, cfg, arch, traffic), "profile": None}
     ctx["window"]["seconds"] = t_end - t0
 
     n_batches, requests = len(ls.batches), list(ls.requests)   # the window's
@@ -142,13 +143,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda")
         server.annotate = False
         after = system.kernel_launches()
         sessions = prof["sessions"] if prof else 3
-        want = {n: per * L * K * sessions for n, per in system.DECODE_KERNELS.items()}
+        want = {n: per * L * K * sessions
+                for n, per in cell.bridge.DECODE_KERNELS.items()}
         ctx.update(profile=prof, profile_steps=K, profile_attn_launches=L * K,
                    profile_launches_ok={n: after[n] - before[n] for n in want} == want,
                    profile_attn_bytes=sum(
-                       L * counts.decode_attention_bytes(cfg, p, traffic.seq_len,
-                                                         traffic.kv_bits)
-                       for p in positions[-K:]))
+                       counts.decode_attention_bytes(cfg, v, traffic.kv_bits)
+                       for p in positions[-K:]
+                       for v in counts.layers_slots(cfg, arch, p, traffic.seq_len)))
 
     if cuda:
         torch.cuda.synchronize()
@@ -162,7 +164,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device: str = "cuda")
     if cuda:
         torch.cuda.empty_cache()
 
-    result = check.compare(cfg, weights, requests, traffic, seed, device)
+    result = check.compare(cfg, arch, weights, requests, traffic, seed, device)
     correct, shown = check.judge(result, cell.limits)
 
     if trace:

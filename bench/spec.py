@@ -4,7 +4,13 @@ A cell ``<config>.<traffic>`` names its configuration and its traffic mix;
 each piece lives in a file of its own under ``bench/``:
 
 * ``configs/<config>.json``: the model's sizes as run, its source, what was
-  reduced and assumed;
+  reduced and assumed, and its ``"arch"``;
+* ``arch/<arch>.py``: the architecture, plain (no program): its weights'
+  layout, the reference's layer, the slots each layer reads, its weight
+  bytes and FLOPs, whether its FFN routes;
+* ``bridges/<arch>.py``: the same architecture's side of the program: its
+  parameter modules, a history written into its decode state, the kernel
+  wrappers a layer launches;
 * ``traffic/<traffic>.json``: the mix's parameters, read by the generator it
   names (``traffic/<generator>.py``);
 * ``metrics/<metric>.py``: the reader of one per-layer metric;
@@ -23,7 +29,7 @@ import sys
 from dataclasses import dataclass
 from pathlib import Path
 from types import ModuleType
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
@@ -35,6 +41,8 @@ class Cell:
     name: str
     chips: int
     config: dict            # configs/<config>.json
+    arch: ModuleType        # arch/<arch>.py
+    bridge: ModuleType      # bridges/<arch>.py
     traffic: dict           # traffic/<traffic>.json
     generator: ModuleType   # traffic/<generator>.py
     end_to_end: List[dict]  # the metrics this cell reports with --trace 0
@@ -65,6 +73,13 @@ def _named(kind: str, name: str) -> str:
     return name
 
 
+def architecture(name: str, base: Path = BENCH) -> Tuple[ModuleType, ModuleType]:
+    """The architecture ``name``'s plain file and its bridge to the program."""
+    key = _named("arch", name).replace(".", "_")
+    return (load_module(base / "arch" / f"{name}.py", f"arch_{key}"),
+            load_module(base / "bridges" / f"{name}.py", f"bridge_{key}"))
+
+
 def applies(metric: dict, cell: str) -> bool:
     """A metric is reported in a cell its ``workloads`` list, or in every
     cell where it has none."""
@@ -87,6 +102,7 @@ def resolve(name: str, root: Path = ROOT) -> Cell:
     cfg_entry = configs[w["config"]]
     base = root / "bench"
     config = load_json(root / cfg_entry["file"])
+    arch, bridge = architecture(config["arch"], base)
     traffic = load_json(base / "traffic" / f"{_named('traffic', w['traffic'])}.json")
     gen = _named("generator", traffic["generator"])
     generator = load_module(base / "traffic" / f"{gen}.py", f"traffic_{gen}")
@@ -94,8 +110,8 @@ def resolve(name: str, root: Path = ROOT) -> Cell:
     readers = {m["name"]: load_module(base / "metrics" / f"{_named('metric', m['name'])}.py",
                                       f"metric_{m['name']}".replace(".", "_"))
                for m in per_layer}
-    return Cell(name=name, chips=int(w["chips"]), config=config, traffic=traffic,
-                generator=generator,
+    return Cell(name=name, chips=int(w["chips"]), config=config, arch=arch,
+                bridge=bridge, traffic=traffic, generator=generator,
                 end_to_end=[m for m in bench["end_to_end"] if applies(m, name)],
                 per_layer=per_layer, readers=readers,
                 limits=load_json(base / "limits" / f"{_named('cell', name)}.json"))

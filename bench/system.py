@@ -1,9 +1,10 @@
 """The system under test: ``repro_torch``'s serving engine, driven step by step.
 
-The only module of the benchmark that imports the program.  It hands the
-program the benchmark's inputs (the weights through ``ServeEngine(cfg, rc,
-params=...)``, a session's history into the engine's decode state through
-the port's public ``ops.kv_quant``) and takes back the timed path's step:
+With the architectures' bridges (``bridges/<arch>.py``) the only modules
+of the benchmark that import the program.  It hands the program the
+benchmark's inputs (the weights through ``ServeEngine(cfg, rc,
+params=...)``, a session's history into the engine's decode state), each
+through the configuration's bridge, and takes back the timed path's step:
 ``ServeEngine.graphed_step(B)``, the captured ``decode_step`` replayed once a
 step, with the token copy in and the argmax copy back as ``generate`` does.
 """
@@ -18,16 +19,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.kernels import ops
-from repro_torch.models import layers as L
-from repro_torch.models import moe as M
-from repro_torch.models import transformer as T
-from repro_torch.serve.engine import ServeEngine
+from repro_torch.serve import engine as E
 
 #: the decode attention kernel's name in a device trace
 ATTN_KERNEL = r"decode_attention_kernel"
-#: the kernel wrappers a decode step launches: (name, launches a layer)
-DECODE_KERNELS = {"kvpack.kv_quant_store": 1,
-                  "decode_attention.kv_decode_attention": 1}
 
 
 def model_config(cfg: dict) -> ModelConfig:
@@ -42,31 +37,11 @@ def run_config(cfg: dict, traffic) -> RunConfig:
                      param_dtype=cfg["dtype"], kv_cache_bits=traffic.kv_bits)
 
 
-def program_params(cfg: dict, w: Dict[str, torch.Tensor]) -> T.DenseParams:
-    """The program's parameter modules over the benchmark's weights (the
-    same tensors, no copy)."""
-    emb = L.EmbedParams(w["embed.table"], w.get("embed.unembed"),
-                        w["embed.final_norm"])
-    layers = []
-    for i in range(cfg["n_layers"]):
-        p = f"layers.{i}."
-        attn = L.AttnParams(*(w[p + "attn." + n] for n in ("wq", "wk", "wv", "wo")))
-        mlp = moe = None
-        if cfg["family"] == "moe":
-            moe = M.MoeParams(*(w[p + "moe." + n]
-                                for n in ("router", "w_gate", "w_up", "w_down")))
-        else:
-            mlp = L.MlpParams(*(w[p + "mlp." + n] for n in ("w_gate", "w_up", "w_down")))
-        layers.append(T.LayerParams(ln1=w[p + "ln1"], attn=attn, ln2=w[p + "ln2"],
-                                    mlp=mlp, moe=moe))
-    return T.DenseParams(emb, layers)
-
-
 class EagerStep:
     """``decode_step`` op by op on a fresh state: what the graph replays,
     for a run without a card (the harness's tests)."""
 
-    def __init__(self, engine: ServeEngine, batch: int):
+    def __init__(self, engine: E.ServeEngine, batch: int):
         self.api, self.params = engine.api, engine.params
         self.state = engine.api.init_decode_state(batch)
         self.launches: dict = {}
@@ -83,15 +58,17 @@ class EagerStep:
 
 class Server:
     """One engine at the traffic's batch: its decode state, the step, and
-    what a batch of the schedule needs done to the state first."""
+    what a batch of the schedule needs done to the state first.  ``bridge``
+    is the configuration's ``bridges/<arch>.py``."""
 
-    def __init__(self, cfg: dict, traffic, weights: Dict[str, torch.Tensor],
+    def __init__(self, bridge, cfg: dict, traffic, weights: Dict[str, torch.Tensor],
                  device: str):
-        self.cfg, self.traffic, self.device = cfg, traffic, device
+        self.bridge, self.cfg, self.traffic, self.device = bridge, cfg, traffic, device
         self.mcfg = model_config(cfg)
         self.rc = run_config(cfg, traffic)
-        self.engine = ServeEngine(self.mcfg, self.rc,
-                                  params=program_params(cfg, weights), device=device)
+        self.engine = E.ServeEngine(self.mcfg, self.rc,
+                                  params=bridge.program_params(cfg, weights),
+                                  device=device)
         B = traffic.B
         if torch.device(device).type == "cuda":
             self.step = self.engine.graphed_step(B)
@@ -107,19 +84,8 @@ class Server:
 
     def fill_history(self, history_fn) -> None:
         """Write each layer's history (``history_fn(layer)`` -> bf16 K, V
-        (B, slots, KV, hd)) into the packed cache through ``ops.kv_quant``."""
-        bits = self.traffic.kv_bits
-        for i, cache in enumerate(c.kv for c in self.state.caches):
-            k, v = history_fn(i)
-            for src, codes, scales in ((k, cache.k, cache.k_scale),
-                                       (v, cache.v, cache.v_scale)):
-                if bits == 16:
-                    codes.copy_(src)
-                    continue
-                c, s = ops.kv_quant(src.reshape(-1, src.shape[-1]), bits)
-                codes.copy_(c.view(codes.shape))
-                scales.copy_(s.view(scales.shape))
-            del k, v
+        (B, slots, KV, hd)) into the decode state, as the bridge does."""
+        self.bridge.fill_history(self.state, history_fn, self.traffic.kv_bits)
 
     def begin_batch(self) -> None:
         """A fresh batch (``reset``, as ``generate`` does) or a new turn of
@@ -145,3 +111,9 @@ class Server:
 
 def kernel_launches() -> dict:
     return ops.launch_counts()
+
+
+def replay_record() -> dict:
+    """The program's record of every replay of a captured decode step
+    (``engine.replay_record``)."""
+    return E.replay_record()

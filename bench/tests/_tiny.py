@@ -35,9 +35,9 @@ LIMITS = {"numbers": {"gap_max": {"limit": 0.1}, "gap_mean": {"limit": 0.008}}}
 
 
 def config(family: str = "dense") -> dict:
-    cfg = {"name": "tiny", "family": family, "n_layers": 2, "d_model": 64,
-           "n_heads": 4, "n_kv_heads": 2, "head_dim": 16, "d_ff": 128, "vocab": 97,
-           "mlp_act": "swiglu", "qkv_bias": False, "tie_embeddings": False,
+    cfg = {"name": "tiny", "family": family, "arch": "llama", "n_layers": 2,
+           "d_model": 64, "n_heads": 4, "n_kv_heads": 2, "head_dim": 16, "d_ff": 128,
+           "vocab": 97, "mlp_act": "swiglu", "qkv_bias": False, "tie_embeddings": False,
            "rope_theta": 10000.0, "norm_eps": 1e-5, "dtype": "bfloat16"}
     if family == "moe":
         cfg.update(n_experts=4, topk=2, capacity_factor=2.0)
@@ -55,7 +55,9 @@ def mix(history: bool = True, bits: int = 8) -> dict:
 
 
 def cell(family: str = "dense", history: bool = True) -> spec.Cell:
-    return spec.Cell(name="tiny.cell", chips=1, config=config(family),
+    cfg = config(family)
+    arch, bridge = spec.architecture(cfg["arch"])
+    return spec.Cell(name="tiny.cell", chips=1, config=cfg, arch=arch, bridge=bridge,
                      traffic=mix(history),
                      generator=spec.load_module(spec.BENCH / "traffic" / "sessions.py",
                                                 "traffic_sessions"),

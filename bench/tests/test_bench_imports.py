@@ -1,5 +1,7 @@
-"""The import rule: nothing under bench/ imports JAX or the JAX package, and
-the yardstick's files import nothing of the program."""
+"""The import rule: nothing under bench/ imports JAX or the JAX package, the
+yardstick's files (every architecture's plain file among them) import
+nothing of the program, and of the harness only ``system.py`` and the
+bridges (``bridges/*.py``) import it."""
 import ast
 
 import pytest
@@ -11,7 +13,11 @@ FILES = sorted(p for p in BENCH.rglob("*.py"))
 #: the files that may not import the program: the reference and what it and
 #: the comparison read
 PLAIN = ("reference.py", "inputs.py", "counts.py", "check.py", "spec.py",
-         "traffic/sessions.py")
+         "traffic/sessions.py") + tuple(sorted(
+             str(p.relative_to(BENCH)) for p in (BENCH / "arch").glob("*.py")))
+#: the harness's files that drive the program
+PROGRAM = ("system.py",) + tuple(sorted(
+    str(p.relative_to(BENCH)) for p in (BENCH / "bridges").glob("*.py")))
 
 
 def top_names(path):
@@ -32,3 +38,11 @@ def test_no_jax_anywhere(path):
 @pytest.mark.parametrize("name", PLAIN)
 def test_reference_side_imports_no_program(name):
     assert "repro_torch" not in top_names(BENCH / name)
+
+
+def test_only_system_and_the_bridges_import_the_program():
+    assert "arch/llama.py" in PLAIN and "bridges/llama.py" in PROGRAM
+    harness = [p for p in FILES if "tests" not in p.relative_to(BENCH).parts]
+    importing = {str(p.relative_to(BENCH)) for p in harness
+                 if "repro_torch" in top_names(p)}
+    assert importing == set(PROGRAM)
